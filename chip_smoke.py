@@ -17,20 +17,33 @@ Phases (any failed check raises and exits non-zero):
      ``kernels.ref.tolerance_ratio``'s bound (the reference's tolerances,
      and for bf16 a bound scaled to each output row); then a planted fault
      at full width (one tile skipped) that the bound must fail;
-  4. the main path: the streaming executor over 36-stage granite-8b-width
-     matmul and attention chains (bf16) — untiered oracle, unpaced probe,
-     balanced throttle, best of 3 runs with prefetch on and off, every
-     output ``torch.equal`` to the oracle, the kernels' launch counters
-     matching the stages run, then the simulator calibrated and replayed;
-  5. kernel times at the main path's shapes (CUDA events) beside the plain
-     version's, one library call's, and the card's bound;
-  6. one JSON line ``{"kernels": [...]}``;
-  7. the last line, ``{"ok": true, "device": {...}}``.
+     The SSD scan likewise: the reference's cases at 2e-4, mamba2-130m's
+     full shape, and a plain version that drops one chunk's carry update;
+  4. the streaming executor over 36-stage granite-8b-width matmul and
+     attention chains (bf16) — untiered oracle, unpaced probe, balanced
+     throttle, best of 3 runs with prefetch on and off, every output
+     ``torch.equal`` to the oracle, the kernels' launch counters matching
+     the stages run, then the simulator calibrated and replayed;
+  5. the mamba2-130m path, all 24 layers at full width in bf16: ``forward``
+     over 4 x 2048 tokens with every weight on the card (the oracle), then
+     with the weights placed by ``host_offload`` at local fractions 0.5
+     and 0.0, prefetch on and off, every logits tensor ``torch.equal`` to
+     the oracle, best-of-3 ms, bytes and peak memory per placement; greedy
+     serving of 4 prompts through ``decode_step`` (local and offloaded,
+     tokens equal); the SSD kernel's launches equal to 24 x the forwards.
+     Then the same forward with the plain SSD version (a path-level check
+     of the kernel), and decode against forward in float32 over 512 tokens;
+  6. kernel times at the main paths' shapes (CUDA events) beside the plain
+     version's, one library call's (none for the SSD scan), and the card's
+     bound;
+  7. one JSON line ``{"kernels": [...]}``;
+  8. the last line, ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or the reference package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -46,6 +59,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs.granite_8b import CONFIG as GRANITE_8B  # noqa: E402
+from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M  # noqa: E402
+from repro_torch.core.tiering import TieringConfig, place_params  # noqa: E402
 from repro_torch.core.exec import (  # noqa: E402
     StreamingExecutor,
     attention_chain,
@@ -54,8 +69,11 @@ from repro_torch.core.exec import (  # noqa: E402
     untiered_oracle,
 )
 from repro_torch.core.fabric import FabricResource, SimClock  # noqa: E402
+from repro_torch.core.objects import _leaves_with_keys  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import streaming_matmul as sm  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     NEG_INF,
@@ -64,6 +82,8 @@ from repro_torch.kernels.ref import (  # noqa: E402
     outside_tolerance,
     tolerance_ratio,
 )
+from repro_torch.models import make_batch  # noqa: E402
+from repro_torch.models import transformer as mamba  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -81,7 +101,17 @@ FLASH_CASES = [  # B, H, KV, Sq, Sk, D, Dv, causal, window
     (1, 2, 2, 128, 256, 32, 32, False, None),  # cross attention
     (1, 8, 4, 256, 256, 64, 64, True, None),
 ]
+# the reference's SSD tolerance (tests/test_kernels.py::TestSSDKernel);
+# L, chunk, G with B 2, H 4, P 32, N 32, then one chunk and L < chunk
+SSD_TOL = 2e-4
+SSD_CASES = [(64, 32, 1), (64, 32, 2), (128, 32, 1), (128, 32, 2),
+             (256, 64, 1), (256, 64, 2), (32, 32, 1), (16, 32, 2)]
+# mamba2-130m's chunk scan at the path's batch and prompt length
+SSD_FULL = dict(B=4, H=24, L=2048, P=64, N=128, chunk=256, G=1)
 BEST_OF = 3
+# the plain-SSD forward's bound, as a share of max(1, max|logits|); the
+# reason is written where it is used (phase_mamba)
+PATH_BOUND = 0.05
 
 
 def require(cond: bool, msg: str) -> None:
@@ -245,8 +275,7 @@ def phase_planted_faults(mm_data, fa_data) -> None:
 def drive_chain(label: str, stages, x0, kernel_mod) -> dict:
     """The executor's main path over one chain; returns its numbers."""
     n = len(stages)
-    sm.LAUNCHES = 0
-    fa.LAUNCHES = 0
+    sm.LAUNCHES = fa.LAUNCHES = ssd.LAUNCHES = 0
     passes = 0
     oracle = untiered_oracle(stages, x0)
     passes += 1
@@ -266,7 +295,8 @@ def drive_chain(label: str, stages, x0, kernel_mod) -> dict:
     ex.prefetch = False
     off = [ex.run(x0) for _ in range(BEST_OF)]
     passes += 1 + 2 * BEST_OF
-    launches = {"streaming_matmul": sm.LAUNCHES, "flash_attention": fa.LAUNCHES}
+    launches = {"streaming_matmul": sm.LAUNCHES, "flash_attention": fa.LAUNCHES,
+                "ssd_scan": ssd.LAUNCHES}
     for res in on + off:
         require(torch.equal(res.output, oracle),
                 f"{label}: prefetch={res.prefetch} output != untiered oracle")
@@ -313,8 +343,262 @@ def drive_chain(label: str, stages, x0, kernel_mod) -> dict:
             "off_ms": best_off.elapsed_us / 1e3, "sim_err": sim_err}
 
 
-# -- 5. kernel times ----------------------------------------------------------
-def phase_times(mm_data, fa_data) -> dict:
+# -- the SSD scan: inputs, checks, planted fault -----------------------------
+def ssd_chunks(rng, *, B, H, L, P, N, chunk, G):
+    """The reference test's distributions (x ~ N(0,1), B and C ~ N(0,1)/2,
+    dt = softplus(N(0,1)), A = -exp(N(0,1)/2)), drawn with numpy and
+    chunked on the card as ``ops.ssd`` chunks them: the kernel's five
+    float32 inputs."""
+    def draw(shape, scale=1.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).cuda()
+
+    xh, Bm, Cm = draw((B, L, H, P)), draw((B, L, G, N), 0.5), draw(
+        (B, L, G, N), 0.5)
+    dt = torch.nn.functional.softplus(draw((B, L, H)))
+    A = -torch.exp(draw((H,), 0.5))
+    Q = min(chunk, L)
+
+    def chunked(t):
+        t = t.reshape(B, L // Q, Q, *t.shape[2:]).movedim(3, 1)
+        return t.float().contiguous()
+
+    rep = H // G
+    return (chunked(xh), chunked(Bm.repeat_interleave(rep, dim=2)),
+            chunked(Cm.repeat_interleave(rep, dim=2)), chunked(dt),
+            torch.cumsum(chunked(dt * A), dim=-1))
+
+
+def phase_ssd_checks(full) -> float:
+    """B3 against its plain version: the reference's cases, then the path's
+    full shape, both held to the reference's tolerance ``2e-4 + 2e-4 *
+    |want|``. Reason for keeping it at full width: both sides sum in float32
+    in one fixed order, at most 256 + 128 products per output of size O(10),
+    so they differ by a few float32 units (~1e-6), two orders of magnitude
+    inside it; a dropped carry moves the first rows of the next chunk by
+    O(1)."""
+    rng = np.random.default_rng(2)
+    for L, chunk, G in SSD_CASES:
+        args = ssd_chunks(rng, B=2, H=4, L=L, P=32, N=32, chunk=chunk, G=G)
+        max_err(ssd.ssd_chunk_scan_gpu(*args),
+                ssd.ssd_chunk_scan_plain(*args), SSD_TOL,
+                f"ssd_scan B2 H4 L{L} chunk{chunk} G{G} P32 N32 float32")
+    err = max_err(ssd.ssd_chunk_scan_gpu(*full),
+                  ssd.ssd_chunk_scan_plain(*full), SSD_TOL,
+                  "ssd_scan full width " + " ".join(
+                      f"{k}{v}" for k, v in SSD_FULL.items()) + " float32")
+    torch.cuda.synchronize()
+    return err
+
+
+def ssd_dropping_carry(xc, bc, cc, dtc, cum, drop: int) -> torch.Tensor:
+    """The plain chunk loop with chunk ``drop``'s carry update left out:
+    what a kernel that lost one chunk's state write would output."""
+    B, H, nc, Q, P = xc.shape
+    state = torch.zeros((B, H, P, bc.shape[-1]), device=xc.device)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=xc.device).tril()
+    ys = []
+    for c in range(nc):
+        x, bm, cm, dt, cu = (t[:, :, c] for t in (xc, bc, cc, dtc, cum))
+        lmat = torch.where(causal, torch.exp(cu[..., :, None] - cu[..., None, :])
+                           * dt[..., None, :], 0.0)
+        y = torch.einsum("bhij,bhjp->bhip",
+                         torch.einsum("bhin,bhjn->bhij", cm, bm) * lmat, x)
+        y = y + torch.einsum("bhin,bhpn->bhip", cm, state) * torch.exp(
+            cu)[..., None]
+        ys.append(y)
+        if c != drop:
+            total = cu[..., -1:]
+            w = (torch.exp(total - cu) * dt)[..., None] * bm
+            state = torch.exp(total)[..., None] * state + torch.einsum(
+                "bhjp,bhjn->bhpn", x, w)
+    return torch.stack(ys, dim=2)
+
+
+def phase_ssd_fault(full) -> None:
+    drop = full[0].shape[2] // 2  # a chunk with chunks after it
+    bad = outside_tolerance(ssd_dropping_carry(*full, drop=drop),
+                            ssd.ssd_chunk_scan_plain(*full), SSD_TOL)
+    n = int(bad.sum())
+    require(n > 0, f"the bound passes a planted fault: ssd_scan dropping "
+                   f"chunk {drop}'s carry update")
+    print(f"[fault] ssd_scan dropping chunk {drop}'s carry update: {n} of "
+          f"{bad.numel()} elements beyond the bound, rejected")
+
+
+# -- 5. the mamba2-130m path ----------------------------------------------------
+def timed_ms(fn):
+    """(result, ms, host ms) of one call that ends with the card idle; the
+    host ms is how long ``fn`` took to return, before the synchronise (when
+    it is far below ms, the host ran ahead of the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3
+
+
+def greedy(params, cfg, prompts, n_new: int, plan=None):
+    """The reference engine's serving loop: prefill token by token through
+    ``decode_step``, then ``n_new`` greedy tokens. Returns the new tokens
+    and the ms of each decode step."""
+    cache = mamba.init_decode_cache(cfg, prompts.shape[0],
+                                    prompts.shape[1] + n_new)
+    step_ms, out = [], []
+    logits = None
+    for t in range(prompts.shape[1]):
+        (logits, cache), ms, _ = timed_ms(lambda: mamba.decode_step(
+            params, cache, prompts[:, t:t + 1], cfg, plan=plan))
+        step_ms.append(ms)
+    for _ in range(n_new):
+        cur = logits[:, :, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        out.append(cur)
+        (logits, cache), ms, _ = timed_ms(lambda: mamba.decode_step(
+            params, cache, cur, cfg, plan=plan))
+        step_ms.append(ms)
+    return torch.cat(out, dim=1), step_ms
+
+
+def phase_mamba() -> dict:
+    """The port's model path at mamba2-130m's full width; see the module
+    docstring (phase 5)."""
+    cfg = MAMBA2_130M
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    # drawn on the card, kept on the host: each placement below then holds
+    # on the card only what it places there
+    params = mamba.init_params(gen, cfg, device="cpu")
+    batch = make_batch(cfg, gen, 4, 2048)
+    prompts = make_batch(cfg, gen, 4, 64)["tokens"]
+    n_params = sum(t.numel() for _, t in _leaves_with_keys(params))
+    print(f"[mamba] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e6:.1f} M parameters ({cfg.dtype}), batch "
+          f"{tuple(batch['tokens'].shape)}, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    sm.LAUNCHES = fa.LAUNCHES = ssd.LAUNCHES = 0
+    n_fwd = 0
+    placements = [("none", 1.0, True), ("host_offload", 0.5, True),
+                  ("host_offload", 0.5, False), ("host_offload", 0.0, True),
+                  ("host_offload", 0.0, False)]
+    oracle = None  # on the host, so that no placement's peak includes it
+    rows = {}
+    for mode, frac, prefetch in placements:
+        placed, plan = place_params(params, TieringConfig(
+            mode=mode, local_fraction=frac))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(1 + BEST_OF):  # the first is the warm-up
+            (logits, _), ms, host_ms = timed_ms(lambda: mamba.forward(
+                placed, batch, cfg, prefetch=prefetch, plan=plan))
+            n_fwd += 1
+            runs.append((ms, host_ms))
+            logits = logits.cpu()
+            if oracle is None:
+                oracle = logits
+            require(torch.equal(logits, oracle),
+                    f"mamba {mode} {frac} prefetch={prefetch}: logits != the "
+                    f"all-local oracle")
+            del logits
+        label = (mode if mode == "none"
+                 else f"{mode} {frac} prefetch {'on' if prefetch else 'off'}")
+        local = plan.local_bytes if plan else sum(
+            t.numel() * t.element_size() for _, t in _leaves_with_keys(params))
+        remote = plan.remote_bytes if plan else 0
+        best, best_host = min(runs[1:])
+        rows[label] = {"ms": best, "host_ms": best_host, "local_bytes": local,
+                       "remote_bytes": remote,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"[mamba] forward {label}: best of {BEST_OF} {best:.3f} ms "
+              f"({best_host:.3f} ms on the host before the synchronise; "
+              f"runs {', '.join(f'{m:.3f}' for m, _ in runs)}), local "
+              f"{local / 2**20:.1f} MiB, remote {remote / 2**20:.1f} MiB, "
+              f"peak {rows[label]['peak_gib']:.3f} GiB, logits torch.equal "
+              f"to the oracle")
+        del placed
+    require(bool(torch.isfinite(oracle).all()), "mamba: non-finite logits")
+    oracle = oracle.cuda()
+    params = place_params(params, TieringConfig())[0]
+
+    # serving: greedy decode of 4 prompts, all local and offloaded
+    served = {}
+    for label, frac in (("local", None), ("host_offload 0.5", 0.5)):
+        if frac is None:
+            placed, plan = params, None
+        else:
+            placed, plan = place_params(params, TieringConfig(
+                mode="host_offload", local_fraction=frac))
+        toks, step_ms = greedy(placed, cfg, prompts, 16, plan=plan)
+        served[label] = (toks, step_ms)
+        steady = sorted(step_ms[1:])
+        print(f"[serve] {label}: 4 prompts x {prompts.shape[1]} tokens "
+              f"prefilled token by token, 16 new each; decode step median "
+              f"{steady[len(steady) // 2]:.3f} ms, min {steady[0]:.3f} ms "
+              f"over {len(step_ms)} steps; tokens "
+              f"{toks[0, :8].tolist()}...")
+    require(torch.equal(served["local"][0], served["host_offload 0.5"][0]),
+            "mamba: offloaded greedy tokens != local tokens")
+    launches = {"streaming_matmul": sm.LAUNCHES, "flash_attention": fa.LAUNCHES,
+                "ssd_scan": ssd.LAUNCHES}
+    print(f"[mamba] launches over {n_fwd} forwards and "
+          f"{2 * len(served['local'][1])} decode steps: {launches}")
+    require(launches == {"streaming_matmul": 0, "flash_attention": 0,
+                         "ssd_scan": cfg.n_layers * n_fwd},
+            f"mamba: launches {launches}, expected ssd_scan "
+            f"{cfg.n_layers} x {n_fwd} and no other kernel")
+
+    # path-level check of the kernel: the same forward through the plain SSD
+    kernel_fn = ops.ssd_chunk_scan_gpu
+    ops.ssd_chunk_scan_gpu = ssd.ssd_chunk_scan_plain
+    try:
+        plain, _ = mamba.forward(params, batch, cfg)
+    finally:
+        ops.ssd_chunk_scan_gpu = kernel_fn
+    V = cfg.vocab_size
+    diff = (plain[..., :V] - oracle[..., :V]).abs()
+    scale = oracle[..., :V].abs().max().item()
+    agree = (plain[..., :V].argmax(-1) == oracle[..., :V].argmax(-1)).float()
+    # bound: the kernel and the plain version agree to ~1e-6 in float32, but
+    # ops.ssd's y is rounded to bf16, so a rare one-unit flip (2^-8) enters
+    # each of 24 layers and the bf16 residual stream carries it on
+    worst = diff.max().item()
+    require(worst <= PATH_BOUND * max(scale, 1.0),
+            f"mamba: plain-SSD forward differs by {worst:.4g} > "
+            f"{PATH_BOUND} x {scale:.4g}")
+    print(f"[mamba] plain-SSD forward vs kernel forward: max|diff| "
+          f"{worst:.4g} ({worst / max(scale, 1.0):.4g} of max|logits| "
+          f"{scale:.4g}; bound {PATH_BOUND}), mean|diff| "
+          f"{diff.mean().item():.4g}, greedy tokens agree at "
+          f"{agree.mean().item():.2%} of {agree.numel()} positions")
+    del plain, oracle
+
+    # the reference's decode-matches-forward contract, full width, float32
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p32 = mamba.init_params(gen, cfg32)
+    tok = make_batch(cfg32, gen, 2, 512)["tokens"]
+    full, _ = mamba.forward(p32, {"tokens": tok}, cfg32)
+    cache = mamba.init_decode_cache(cfg32, 2, 512)
+    errs = torch.zeros((), device="cuda")
+    for t in range(tok.shape[1]):
+        lg, cache = mamba.decode_step(p32, cache, tok[:, t:t + 1], cfg32)
+        errs = torch.maximum(errs, (lg[:, 0] - full[:, t]).abs().max())
+    scale32 = full[..., :V].abs().max().item()
+    err32 = errs.item()
+    require(err32 < 1e-3 * max(scale32, 1.0),
+            f"mamba f32: decode drifts from forward by {err32:.4g} "
+            f"(scale {scale32:.4g})")
+    print(f"[mamba] float32 decode vs forward over 2 x {tok.shape[1]} tokens "
+          f"({tok.shape[1] // cfg32.ssm_chunk} chunks): max|diff| {err32:.4g} "
+          f"< 1e-3 x max(1, {scale32:.4g})")
+    return {"launches": launches["ssd_scan"], "forwards": n_fwd, "rows": rows}
+
+
+# -- 6. kernel times ----------------------------------------------------------
+def phase_times(mm_data, fa_data, ssd_data) -> dict:
     x, w = mm_data
     M, K = x.shape
     N = w.shape[1]
@@ -348,12 +632,32 @@ def phase_times(mm_data, fa_data) -> dict:
                 q, k_rep, v_rep, is_causal=True), 10),
         "bound_ms": fa_bound, "bound_by": fa_by,
     }
-    for name, t in (("streaming_matmul", mm), ("flash_attention", fa_t)):
+    xc, bc, cc, dtc, cum = ssd_data
+    B, H, nc, Q, P = xc.shape
+    N = bc.shape[-1]
+    # what the function needs per (b, h, chunk): the causal half of C B^T
+    # and of its product with x, then C S^T and the carry x^T (w o B)
+    live = Q * (Q + 1) / 2
+    ssd_flops = B * H * nc * (2.0 * live * (N + P) + 4.0 * Q * N * P)
+    ssd_bytes = sum(t.numel() for t in ssd_data + (xc,)) * 4  # y is xc-sized
+    ssd_bound, ssd_by = bound(ssd_flops, ssd_bytes, torch.float32)
+    ssd_t = {
+        "ms": time_ms(lambda: ssd.ssd_chunk_scan_gpu(*ssd_data), 10),
+        "plain_ms": time_ms(lambda: ssd.ssd_chunk_scan_plain(*ssd_data), 3),
+        "library_ms": None,  # no single PyTorch call computes the SSD scan
+        "bound_ms": ssd_bound, "bound_by": ssd_by,
+    }
+    out = {"streaming_matmul": mm, "flash_attention": fa_t, "ssd_scan": ssd_t}
+    for name, t in out.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         print(f"[time] {name}: kernel_ms {t['ms']:.4f}, plain_ms "
-              f"{t['plain_ms']:.4f}, library_ms {t['library_ms']:.4f}, "
+              f"{t['plain_ms']:.4f}, library_ms {lib}, "
               f"bound_ms {t['bound_ms']:.4f} ({t['bound_by']}), roofline "
               f"share {t['bound_ms'] / t['ms']:.2%}")
-    return {"streaming_matmul": mm, "flash_attention": fa_t}
+    print(f"[time] ssd_scan bound: {ssd_flops / 1e9:.2f} GFLOP float32, "
+          f"{ssd_bytes / 1e6:.1f} MB, {B * H} blocks on "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    return out
 
 
 def main() -> None:
@@ -379,6 +683,9 @@ def main() -> None:
 
     errs = phase_kernel_checks(mm_data, fa_data)
     phase_planted_faults(mm_data, fa_data)
+    ssd_data = ssd_chunks(np.random.default_rng(3), **SSD_FULL)
+    errs["ssd_scan"] = phase_ssd_checks(ssd_data)
+    phase_ssd_fault(ssd_data)
 
     torch.cuda.reset_peak_memory_stats()
     paths = {
@@ -388,20 +695,23 @@ def main() -> None:
     }
     print(f"[path] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del mm_stages, at_stages
+    paths["ssd_scan"] = phase_mamba()
 
-    times = phase_times(mm_data, fa_data)
+    times = phase_times(mm_data, fa_data, ssd_data)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"{dev['smi']}")
     replaces = {
         "streaming_matmul": "src/repro/kernels/streaming_matmul.py:34",
         "flash_attention": "src/repro/kernels/flash_attention.py:36",
+        "ssd_scan": "src/repro/kernels/ssd_scan.py:24",
     }
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
          "replaces": replaces[name], "launches": paths[name]["launches"],
          "max_abs_err": errs[name], **times[name]}
-        for name in ("streaming_matmul", "flash_attention")
+        for name in ("streaming_matmul", "flash_attention", "ssd_scan")
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,17 @@ def tensor_from_numpy(a: Any) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def params_from_reference(tree: Any, *,
+                          device: str | torch.device = "cuda") -> Any:
+    """The port's nested parameter dicts for the reference's: each leaf (a
+    jax or numpy array, bf16 through ``ml_dtypes``) becomes a tensor of the
+    same dtype and values on ``device``."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device=dev) for k, v in tree.items()}
+    return tensor_from_numpy(np.array(tree)).to(dev)  # a writable copy
+
+
 def stages_from_reference(
     stages: Sequence[Any], x0: Any, *, device: str | torch.device = "cuda",
 ) -> tuple[list[StreamStage], torch.Tensor]:

@@ -1,7 +1,8 @@
 """The port's core: the streaming executor and the substrate it stands on.
 
-Re-exports this slice only: placement over an object catalog, the fabric
-model and simulated clock, telemetry, and the measured streaming executor.
+Re-exports what the port has so far: placement over an object catalog, the
+fabric model and simulated clock, telemetry, the measured streaming
+executor, and the tiering of a model's parameters with its layer loop.
 """
 from repro_torch.core.exec import (
     ExecResult,
@@ -25,3 +26,9 @@ from repro_torch.core.metadata import Tier
 from repro_torch.core.objects import DataObject, ObjectCatalog, ObjectKind
 from repro_torch.core.placement import PlacementPlan, PlacementPolicy
 from repro_torch.core.telemetry import NULL_TELEMETRY, Telemetry
+from repro_torch.core.tiering import (
+    TieringConfig,
+    place_params,
+    plan_for_params,
+    tiered_scan,
+)

@@ -1,14 +1,15 @@
 """The public kernel API of the port, layout-matched to ``repro.kernels.ops``.
 
 Each function dispatches on its tensors' device: a CUDA tensor launches the
-hand-written kernel, a CPU tensor takes the kernel's plain version.
-``ssd`` waits for the port of the SSD scan kernel.
+hand-written kernel, a CPU tensor takes the kernel's plain version. ``ssd``
+also does the cheap chunking and cumsum prep that feeds the SSD kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_gpu
+from repro_torch.kernels.ssd_scan import ssd_chunk_scan_gpu
 from repro_torch.kernels.streaming_matmul import streaming_matmul
 
 
@@ -27,3 +28,31 @@ def attention(q, k, v, *, causal=True, window=None, scale=None,
         block_q=block_q, block_k=block_k,
     )
     return o.transpose(1, 2)
+
+
+def ssd(xh, Bm, Cm, dt, A, *, chunk: int = 128) -> torch.Tensor:
+    """Mamba2 SSD through the chunk kernel.
+
+    xh: (B,L,H,P); Bm/Cm: (B,L,G,N); dt: (B,L,H) float32 post-softplus;
+    A: (H,) negative. Head h reads group ``h // (H // G)``. Returns y:
+    (B,L,H,P) float32. The chunk is ``min(chunk, L)`` and must divide L.
+    """
+    B, L, H, P = xh.shape
+    G = Bm.shape[2]
+    Q = min(chunk, L)
+    if L % Q:
+        raise ValueError(f"ssd: sequence length {L} is not divisible by the "
+                         f"chunk {Q}")
+    nc = L // Q
+    rep = H // G
+
+    def chunked(t):  # (B,L,H,...) -> (B,H,nc,Q,...), float32, contiguous
+        t = t.reshape(B, nc, Q, *t.shape[2:]).movedim(3, 1)
+        return t.to(torch.float32).contiguous()
+
+    bc = chunked(Bm.repeat_interleave(rep, dim=2))
+    cc = chunked(Cm.repeat_interleave(rep, dim=2))
+    dtc = chunked(dt)
+    cum = torch.cumsum(chunked(dt * A), dim=-1)
+    y = ssd_chunk_scan_gpu(chunked(xh), bc, cc, dtc, cum)
+    return y.movedim(1, 3).reshape(B, L, H, P)

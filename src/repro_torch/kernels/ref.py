@@ -2,8 +2,7 @@
 
 They are the kernels' ground truth: the wrappers take them for tensors on
 the CPU, and ``chip_smoke.py`` holds each CUDA kernel against them on the
-card. Counterpart of ``repro.kernels.ref`` (matmul and flash; the SSD scan
-waits for its kernel).
+card. Counterpart of ``repro.kernels.ref``.
 """
 from __future__ import annotations
 
@@ -101,3 +100,29 @@ def outside_tolerance(got: torch.Tensor, want: torch.Tensor,
     """Mask of the elements where ``got`` misses :func:`tolerance_ratio`'s
     bound; NaN always misses."""
     return ~(tolerance_ratio(got, want, tol) <= 1.0)
+
+
+def ssd_ref(xc, bc, cc, dtc, cum):
+    """Recurrent oracle on the SSD kernel's chunk tensors, in float32.
+
+    xc: (B,H,nc,Q,P), bc/cc: (B,H,nc,Q,N), dtc/cum: (B,H,nc,Q) ->
+    (B,H,nc,Q,P). A port of ``repro.kernels.ref.ssd_ref``: recovers
+    ``dt*A`` from the chunkwise inclusive cumsum and runs the O(L)
+    recurrence ``S_t = exp(dA_t) S_{t-1} + dt_t x_t B_t^T``,
+    ``y_t = S_t C_t`` over the flattened sequence.
+    """
+    B, H, nc, Q, P = xc.shape
+    N = bc.shape[-1]
+    dA = torch.cat([cum[..., :1], cum[..., 1:] - cum[..., :-1]], dim=-1)
+
+    def flat(t):  # (B,H,nc,Q,...) -> (B,H,L,...)
+        return t.float().reshape(B, H, nc * Q, *t.shape[4:])
+
+    xf, bf, cf, dtf, dAf = flat(xc), flat(bc), flat(cc), flat(dtc), flat(dA)
+    S = torch.zeros((B, H, P, N), dtype=torch.float32, device=xc.device)
+    ys = []
+    for t in range(nc * Q):
+        S = S * torch.exp(dAf[:, :, t])[..., None, None] + torch.einsum(
+            "bh,bhn,bhp->bhpn", dtf[:, :, t], bf[:, :, t], xf[:, :, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", cf[:, :, t], S))
+    return torch.stack(ys, dim=2).reshape(B, H, nc, Q, P)

@@ -18,7 +18,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import json, sys\n"
         "import repro_torch, repro_torch.core, repro_torch.core.exec\n"
         "import repro_torch.kernels.ops, repro_torch.convert\n"
-        "import repro_torch.configs.granite_8b\n"
+        "import repro_torch.configs.granite_8b, repro_torch.configs.mamba2_130m\n"
+        "import repro_torch.models, repro_torch.models.transformer\n"
+        "import repro_torch.core.tiering, repro_torch.kernels.ssd_scan\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))))\n"
@@ -46,3 +48,11 @@ def test_no_jax_or_reference_import(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_reaches_every_port_package():
+    """The AST scan covers each package of the port (models/ included)."""
+    packages = {p.parent for p in (ROOT / "src" / "repro_torch").rglob(
+        "__init__.py")}
+    assert {p.parent for p in PORT_FILES} >= packages
+    assert ROOT / "src" / "repro_torch" / "models" in packages

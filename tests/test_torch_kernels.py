@@ -20,6 +20,7 @@ try:
     from repro.kernels import ops as ref_ops
     from repro.kernels import ref as ref_ref
     from repro.kernels.flash_attention import flash_attention_tpu
+    from repro.kernels.ssd_scan import ssd_chunk_scan_tpu
     from repro.kernels.streaming_matmul import streaming_matmul as ref_matmul
     from repro.models.flash import flash_attention as jnp_flash
 except ModuleNotFoundError:  # a card's machine without JAX: cuda test only
@@ -28,6 +29,7 @@ except ModuleNotFoundError:  # a card's machine without JAX: cuda test only
 from repro_torch.kernels import flash_attention as pt_fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as pt_ssd
 from repro_torch.kernels import streaming_matmul as pt_sm
 
 DTYPES = {"float32": ("float32", torch.float32),
@@ -40,6 +42,8 @@ FLASH_CASES = [  # B, H, KV, Sq, Sk, D, Dv, causal, window
     (1, 2, 2, 128, 256, 32, 32, False, None),  # cross attention
     (1, 8, 4, 256, 256, 64, 64, True, None),
 ]
+SSD_CASES = [(L, chunk, G) for L, chunk in ((64, 32), (128, 32), (256, 64))
+             for G in (1, 2)]  # TestSSDKernel's; B 2, H 4, P 32, N 32
 
 
 @pytest.fixture(autouse=True)
@@ -136,6 +140,36 @@ def test_ops_attention_layout_roundtrip():
         atol=2e-5, rtol=2e-5)
 
 
+def _ssd_chunks(rng, L, chunk, G, B=2, H=4, P=32, N=32):
+    """TestSSDKernel's distributions through the reference's prep
+    (``kernels/ops.py``), in numpy: the SSD kernel's five float32 inputs."""
+    xh = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    Bm = (rng.standard_normal((B, L, G, N)) * 0.5).astype(np.float32)
+    Cm = (rng.standard_normal((B, L, G, N)) * 0.5).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((B, L, H)), 0.0).astype(np.float32)
+    A = (-np.exp(rng.standard_normal((H,)) * 0.5)).astype(np.float32)
+    Q = min(chunk, L)
+
+    def chunked(t):
+        return np.ascontiguousarray(
+            np.moveaxis(t.reshape(B, L // Q, Q, *t.shape[2:]), 3, 1))
+
+    rep = H // G
+    return (chunked(xh), chunked(np.repeat(Bm, rep, axis=2)),
+            chunked(np.repeat(Cm, rep, axis=2)), chunked(dt),
+            np.cumsum(chunked(dt * A), axis=-1, dtype=np.float32))
+
+
+@pytest.mark.parametrize("L,chunk,G", SSD_CASES)
+def test_ssd_matches_reference_kernel(L, chunk, G):
+    chunks = _ssd_chunks(np.random.default_rng(6), L, chunk, G)
+    want = ssd_chunk_scan_tpu(*[jnp.asarray(a) for a in chunks],
+                              interpret=True)
+    got = pt_ssd.ssd_chunk_scan_gpu(*[torch.from_numpy(a) for a in chunks])
+    assert got.shape == chunks[0].shape and got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-4, rtol=2e-4)
+
+
 class TestShapeValidation:
     """Non-tile-divisible shapes fail fast, naming the offending dim."""
 
@@ -168,6 +202,32 @@ class TestShapeValidation:
         with pytest.raises(ValueError, match="GQA group size"):
             pt_fa.flash_attention_gpu(q, k, k, block_q=64, block_k=64)
 
+    def test_ssd_bad_shapes(self):
+        x, b = torch.ones((1, 2, 3, 16, 8)), torch.ones((1, 2, 3, 16, 4))
+        d = torch.ones((1, 2, 3, 16))
+        with pytest.raises(ValueError, match=r"expected xc \(B,H,nc,Q,P\)"):
+            pt_ssd.ssd_chunk_scan_gpu(x[0], b, b, d, d)
+        with pytest.raises(ValueError, match="bc .* and cc"):
+            pt_ssd.ssd_chunk_scan_gpu(x, b, b[:, :, :, :8], d, d)
+        with pytest.raises(ValueError, match="bc .* and cc"):
+            pt_ssd.ssd_chunk_scan_gpu(x, b, torch.ones((1, 2, 3, 16, 5)), d, d)
+        with pytest.raises(ValueError, match="cum must be"):
+            pt_ssd.ssd_chunk_scan_gpu(x, b, b, d, d[..., :8])
+
+    def test_ssd_takes_float32_only(self):
+        x, b = torch.ones((1, 2, 3, 16, 8)), torch.ones((1, 2, 3, 16, 4))
+        d = torch.ones((1, 2, 3, 16))
+        with pytest.raises(TypeError, match="bc must be float32"):
+            pt_ssd.ssd_chunk_scan_gpu(x, b.bfloat16(), b, d, d)
+        with pytest.raises(TypeError, match="dtc must be float32"):
+            pt_ssd.ssd_chunk_scan_gpu(x, b, b, d.double(), d)
+
+    def test_ssd_chunk_must_divide_length(self):
+        with pytest.raises(ValueError, match="not divisible by the chunk 32"):
+            ops.ssd(torch.ones((1, 48, 2, 8)), torch.ones((1, 48, 1, 4)),
+                    torch.ones((1, 48, 1, 4)), torch.ones((1, 48, 2)),
+                    -torch.ones(2), chunk=32)
+
     def test_no_kernel_for_other_devices(self):
         """Only a CPU tensor takes the plain version; any other device
         launches a kernel or raises."""
@@ -177,19 +237,31 @@ class TestShapeValidation:
         q = torch.ones((1, 2, 64, 32), device="meta")
         with pytest.raises(ValueError, match="no kernel for device meta"):
             pt_fa.flash_attention_gpu(q, q, q)
+        x, b = (torch.ones(s, device="meta") for s in ((1, 2, 1, 16, 8),
+                                                       (1, 2, 1, 16, 4)))
+        d = torch.ones((1, 2, 1, 16), device="meta")
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            pt_ssd.ssd_chunk_scan_gpu(x, b, b, d, d)
 
     def test_mixed_devices_raise(self):
         with pytest.raises(ValueError, match="x on cpu, w on meta"):
             pt_sm.streaming_matmul(torch.ones((128, 128)),
                                    torch.ones((128, 128), device="meta"))
+        x, b = torch.ones((1, 2, 1, 16, 8)), torch.ones((1, 2, 1, 16, 4))
+        d = torch.ones((1, 2, 1, 16))
+        with pytest.raises(ValueError, match="xc on cpu, cum on meta"):
+            pt_ssd.ssd_chunk_scan_gpu(x, b, b, d, d.to("meta"))
 
 
 def test_cpu_path_never_counts_launches():
-    m0, f0 = pt_sm.LAUNCHES, pt_fa.LAUNCHES
+    m0, f0, s0 = pt_sm.LAUNCHES, pt_fa.LAUNCHES, pt_ssd.LAUNCHES
     ops.matmul(torch.ones((128, 128)), torch.ones((128, 128)))
     ops.attention(torch.ones((1, 64, 2, 32)), torch.ones((1, 64, 2, 32)),
                   torch.ones((1, 64, 2, 32)))
-    assert (pt_sm.LAUNCHES, pt_fa.LAUNCHES) == (m0, f0)
+    ops.ssd(torch.ones((1, 64, 2, 8)), torch.ones((1, 64, 1, 4)),
+            torch.ones((1, 64, 1, 4)), torch.ones((1, 64, 2)), -torch.ones(2),
+            chunk=32)
+    assert (pt_sm.LAUNCHES, pt_fa.LAUNCHES, pt_ssd.LAUNCHES) == (m0, f0, s0)
 
 
 @pytest.mark.parametrize("op", ["matmul", "flash"])
@@ -233,7 +305,8 @@ def test_bf16_bound_passes_rounding_and_fails_a_skipped_tile(op):
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     """Each CUDA kernel against its plain version, on the card, within
-    ``ref.outside_tolerance``'s bound."""
+    ``ref.outside_tolerance``'s bound: the reference's test cases, and for
+    the SSD scan also mamba2-130m's head shape (P 64, N 128, chunk 256)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: no CUDA device here")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -265,4 +338,15 @@ def test_cuda_kernels_match_plain_versions():
             bad = ref.outside_tolerance(got, want, fa_tol)
             assert not bad.any(), (case, dtype, int(bad.sum()))
         assert pt_fa.LAUNCHES == n0 + len(FLASH_CASES)
+    n0 = pt_ssd.LAUNCHES
+    mamba_head = [(2048, 256, 1, 1, 24, 64, 128)]  # L, chunk, G, B, H, P, N
+    for L, chunk, G, B, H, P, N in [
+            (*case, 2, 4, 32, 32) for case in SSD_CASES] + mamba_head:
+        chunks = [torch.from_numpy(a).cuda() for a in _ssd_chunks(
+            rng, L, chunk, G, B=B, H=H, P=P, N=N)]
+        got = pt_ssd.ssd_chunk_scan_gpu(*chunks)
+        want = pt_ssd.ssd_chunk_scan_plain(*chunks)
+        bad = ref.outside_tolerance(got, want, 2e-4)
+        assert not bad.any(), (L, chunk, G, int(bad.sum()))
+    assert pt_ssd.LAUNCHES == n0 + len(SSD_CASES) + 1
     torch.cuda.synchronize()
