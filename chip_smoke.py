@@ -10,20 +10,27 @@ Phases (any failed check raises and exits non-zero):
   1. device: name, count, versions, ``nvidia-smi`` name and power limit;
   2. build: every kernel in ``src/repro_torch/kernels/csrc`` with nvcc
      (one process per source, all at once), with ptxas's register,
-     shared-memory and spill report;
+     shared-memory and spill report, and the count of tensor-core
+     instructions (``HGMMA``, ``HMMA``) in each library's SASS
+     (``cuobjdump -sass``): the matmul and flash libraries must hold HGMMA;
   3. kernels against their plain PyTorch versions on the card: the
      reference's kernel test cases (``tests/test_kernels.py``) in float32
-     and bf16, then the main path's full-width shapes, within
-     ``kernels.ref.tolerance_ratio``'s bound (the reference's tolerances,
-     and for bf16 a bound scaled to each output row); then a planted fault
-     at full width (one tile skipped) that the bound must fail;
+     (the FFMA variants) and bf16 (the tensor-core variants), a bf16 shape
+     of each that the variant rule sends to the FFMA kernel, then the main
+     path's full-width shapes and the matmul's backward (dx, dw) at full
+     width, within ``kernels.ref.tolerance_ratio``'s bound (the reference's
+     tolerances, and for bf16 a bound scaled to each output row); then a
+     planted fault at full width (one tile skipped) that the bound must
+     fail;
      The SSD scan likewise: the reference's cases at 2e-4, mamba2-130m's
      full shape, and a plain version that drops one chunk's carry update;
   4. the streaming executor over 36-stage granite-8b-width matmul and
      attention chains (bf16) — untiered oracle, unpaced probe, balanced
      throttle, best of 3 runs with prefetch on and off, every output
      ``torch.equal`` to the oracle, the kernels' launch counters matching
-     the stages run, then the simulator calibrated and replayed;
+     the stages run (every bf16 launch through the tensor-core variant),
+     the mean stage compute beside the unpaced copy of one stage's bytes,
+     then the simulator calibrated and replayed;
   5. the mamba2-130m path, all 24 layers at full width in bf16: ``forward``
      over 4 x 2048 tokens with every weight on the card (the oracle), then
      with the weights placed by ``host_offload`` at local fractions 0.5
@@ -33,9 +40,10 @@ Phases (any failed check raises and exits non-zero):
      tokens equal); the SSD kernel's launches equal to 24 x the forwards.
      Then the same forward with the plain SSD version (a path-level check
      of the kernel), and decode against forward in float32 over 512 tokens;
-  6. kernel times at the main paths' shapes (CUDA events) beside the plain
-     version's, one library call's (none for the SSD scan), and the card's
-     bound;
+  6. kernel times at the main paths' shapes (CUDA events), per variant
+     (the tensor-core kernel on the path and the FFMA kernel on the same
+     bf16 inputs), beside the plain version's, one library call's (none for
+     the SSD scan), and the card's bound;
   7. one JSON line ``{"kernels": [...]}``;
   8. the last line, ``{"ok": true, "device": {...}}``.
 
@@ -101,6 +109,14 @@ FLASH_CASES = [  # B, H, KV, Sq, Sk, D, Dv, causal, window
     (1, 2, 2, 128, 256, 32, 32, False, None),  # cross attention
     (1, 8, 4, 256, 256, 64, 64, True, None),
 ]
+# bf16 shapes that the variant rules send to the FFMA kernels: K % 8 != 0
+# (matmul), D and Dv not multiples of 16 (flash)
+MATMUL_FFMA_BF16 = [(128, 100, 128)]
+FLASH_FFMA_BF16 = [(1, 2, 2, 128, 128, 40, 40, True, None)]
+# the tensor-core instructions counted in each library's SASS, and the
+# libraries that must hold HGMMA (wgmma)
+SASS_OPS = ("HGMMA", "HMMA")
+NEEDS_HGMMA = ("streaming_matmul", "flash_attention")
 # the reference's SSD tolerance (tests/test_kernels.py::TestSSDKernel);
 # L, chunk, G with B 2, H 4, P 32, N 32, then one chunk and L < chunk
 SSD_TOL = 2e-4
@@ -112,6 +128,18 @@ BEST_OF = 3
 # the plain-SSD forward's bound, as a share of max(1, max|logits|); the
 # reason is written where it is used (phase_mamba)
 PATH_BOUND = 0.05
+
+
+def zero_counts() -> None:
+    """Every kernel's launch counts, variants included, back to 0."""
+    sm.reset_launches()
+    fa.reset_launches()
+    ssd.LAUNCHES = 0
+
+
+def counts() -> dict:
+    return {"streaming_matmul": sm.LAUNCHES, "flash_attention": fa.LAUNCHES,
+            "ssd_scan": ssd.LAUNCHES}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -190,22 +218,36 @@ def phase_build() -> None:
           f"({', '.join(f'{n} {s:.1f} s' for n, s in built.items())})")
     for name, (_, log) in sorted(_build.BUILD_LOG.items()):
         for line in log.splitlines():
-            if re.search(r"registers|spill|bytes stack", line):
+            if re.search(r"registers|spill|bytes stack|wgmma|setmaxnreg|"
+                         r"warning", line):
                 print(f"[build] {name}: {line.strip()}")
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    for name in sorted(p.stem for p in _build.CSRC.glob("*.cu")):
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(_build._target(name))],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        n = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+        print(f"[build] {name}: SASS " + ", ".join(
+            f"{op} {k}" for op, k in n.items()))
+        if name in NEEDS_HGMMA:
+            require(n["HGMMA"] > 0, f"{name}: no HGMMA in its SASS")
 
 
 # -- 3. kernels against their plain versions --------------------------------
 def phase_kernel_checks(mm_data, fa_data) -> dict:
     rng = np.random.default_rng(1)
     for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
         tol = MATMUL_TOL[dtype]
-        for M, K, N in MATMUL_CASES:
+        for M, K, N in MATMUL_CASES + (MATMUL_FFMA_BF16 if bf16 else []):
             x, w = rand(rng, (M, K), dtype), rand(rng, (K, N), dtype)
             got = sm.streaming_matmul(x, w, block_m=128, block_n=128,
                                       block_k=128)
-            max_err(got, matmul_ref(x, w), tol, f"matmul {M}x{K}x{N} {dtype}")
+            max_err(got, matmul_ref(x, w), tol, f"matmul {M}x{K}x{N} {dtype} "
+                    f"{sm._variant(dtype, K, N)}")
         tol = FLASH_TOL[dtype]
-        for B, H, KV, Sq, Sk, D, Dv, causal, window in FLASH_CASES:
+        for B, H, KV, Sq, Sk, D, Dv, causal, window in FLASH_CASES + (
+                FLASH_FFMA_BF16 if bf16 else []):
             q = rand(rng, (B, H, Sq, D), dtype)
             k = rand(rng, (B, KV, Sk, D), dtype)
             v = rand(rng, (B, KV, Sk, Dv), dtype)
@@ -214,7 +256,8 @@ def phase_kernel_checks(mm_data, fa_data) -> dict:
                                          block_k=64)
             want = flash_ref(q, k, v, causal=causal, window=window)
             case = (f"flash B{B} H{H} KV{KV} Sq{Sq} Sk{Sk} D{D} Dv{Dv} "
-                    f"causal={causal} window={window} {dtype}")
+                    f"causal={causal} window={window} {dtype} "
+                    f"{fa._variant(dtype, D, Dv)}")
             max_err(got, want, tol, case)
     # the main path's full-width shapes, on the chains' own data
     x, w = mm_data
@@ -222,13 +265,24 @@ def phase_kernel_checks(mm_data, fa_data) -> dict:
                                          block_k=128),
                      matmul_ref(x, w), MATMUL_TOL[x.dtype],
                      f"matmul full width {tuple(x.shape)}@{tuple(w.shape)} "
-                     f"{x.dtype}")
+                     f"{x.dtype} {sm._variant(x.dtype, *w.shape)}")
+    # the backward (the reference's custom VJP) at full width: dx = g w^T
+    # and dw = x^T g through the same kernel, against the plain version
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    g = rand(rng, (x.shape[0], w.shape[1]), x.dtype)
+    sm.streaming_matmul(xg, wg).backward(g)
+    max_err(xg.grad, matmul_ref(g, w.t()), MATMUL_TOL[x.dtype],
+            f"matmul backward dx = g @ w^T full width {x.dtype}")
+    max_err(wg.grad, matmul_ref(x.t(), g), MATMUL_TOL[x.dtype],
+            f"matmul backward dw = x^T @ g full width {x.dtype}")
+    del xg, wg, g
     q, k, v = fa_data
     err_fa = max_err(fa.flash_attention_gpu(q, k, v, causal=True,
                                             block_q=128, block_k=128),
                      flash_ref(q, k, v, causal=True), FLASH_TOL[q.dtype],
                      f"flash full width q{tuple(q.shape)} k{tuple(k.shape)} "
-                     f"causal {q.dtype}")
+                     f"causal {q.dtype} "
+                     f"{fa._variant(q.dtype, q.shape[3], v.shape[3])}")
     torch.cuda.synchronize()
     return {"streaming_matmul": err_mm, "flash_attention": err_fa}
 
@@ -275,7 +329,7 @@ def phase_planted_faults(mm_data, fa_data) -> None:
 def drive_chain(label: str, stages, x0, kernel_mod) -> dict:
     """The executor's main path over one chain; returns its numbers."""
     n = len(stages)
-    sm.LAUNCHES = fa.LAUNCHES = ssd.LAUNCHES = 0
+    zero_counts()
     passes = 0
     oracle = untiered_oracle(stages, x0)
     passes += 1
@@ -287,6 +341,15 @@ def drive_chain(label: str, stages, x0, kernel_mod) -> dict:
     passes += 2
     require(torch.equal(probe_res.output, oracle), f"{label}: probe != oracle")
     throttle = balanced_throttle(stages, probe_res.stage_compute_us)
+    # which sets the pace: a stage's compute or the real copy of its bytes
+    # (the probe is unpaced, so its transfers are the copies alone)
+    comp = list(probe_res.stage_compute_us.values())
+    copy = [us for kind, _, us in probe.engine.measurements if kind == "read"]
+    comp_ms, copy_ms = sum(comp) / len(comp) / 1e3, sum(copy) / len(copy) / 1e3
+    print(f"[path] {label} pace (unpaced probe): mean stage compute "
+          f"{comp_ms:.4f} ms, mean real copy of one stage's "
+          f"{stages[0].nbytes / 2**20:.0f} MiB {copy_ms:.4f} ms over "
+          f"{len(copy)} copies; copy / compute {copy_ms / comp_ms:.3f}")
 
     ex = StreamingExecutor(stages, prefetch=True, throttle=throttle)
     plan = ex.plan_tiers(0.0)
@@ -295,8 +358,8 @@ def drive_chain(label: str, stages, x0, kernel_mod) -> dict:
     ex.prefetch = False
     off = [ex.run(x0) for _ in range(BEST_OF)]
     passes += 1 + 2 * BEST_OF
-    launches = {"streaming_matmul": sm.LAUNCHES, "flash_attention": fa.LAUNCHES,
-                "ssd_scan": ssd.LAUNCHES}
+    launches = counts()
+    variants = dict(kernel_mod.VARIANT_LAUNCHES)
     for res in on + off:
         require(torch.equal(res.output, oracle),
                 f"{label}: prefetch={res.prefetch} output != untiered oracle")
@@ -307,6 +370,10 @@ def drive_chain(label: str, stages, x0, kernel_mod) -> dict:
         want = passes * n if name == mine else 0
         require(count == want,
                 f"{label}: {name} launched {count} times, expected {want}")
+    # the chains are bf16: every launch must have taken the tensor cores
+    require(variants == {"wgmma": passes * n, "ffma": 0},
+            f"{label}: variants {variants}, expected every one of "
+            f"{passes * n} launches through wgmma")
     best_on = min(on, key=lambda r: r.elapsed_us)
     best_off = min(off, key=lambda r: r.elapsed_us)
 
@@ -337,7 +404,8 @@ def drive_chain(label: str, stages, x0, kernel_mod) -> dict:
     print(f"[path] {label}: {n} stages, {len(plan.remote_names())} remote "
           f"({plan.remote_bytes / 2**20:.0f} MiB streamed per pass), "
           f"throttle {throttle:.4g}, overlap speedup {speedup:.3f}x, "
-          f"launches {launches}, outputs torch.equal to the untiered oracle")
+          f"launches {launches}, {mine} by variant {variants}, outputs "
+          f"torch.equal to the untiered oracle")
     return {"launches": launches[mine], "speedup": speedup,
             "on_ms": best_on.elapsed_us / 1e3,
             "off_ms": best_off.elapsed_us / 1e3, "sim_err": sim_err}
@@ -477,7 +545,7 @@ def phase_mamba() -> dict:
           f"{tuple(batch['tokens'].shape)}, made in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    sm.LAUNCHES = fa.LAUNCHES = ssd.LAUNCHES = 0
+    zero_counts()
     n_fwd = 0
     placements = [("none", 1.0, True), ("host_offload", 0.5, True),
                   ("host_offload", 0.5, False), ("host_offload", 0.0, True),
@@ -541,8 +609,7 @@ def phase_mamba() -> dict:
               f"{toks[0, :8].tolist()}...")
     require(torch.equal(served["local"][0], served["host_offload 0.5"][0]),
             "mamba: offloaded greedy tokens != local tokens")
-    launches = {"streaming_matmul": sm.LAUNCHES, "flash_attention": fa.LAUNCHES,
-                "ssd_scan": ssd.LAUNCHES}
+    launches = counts()
     print(f"[mamba] launches over {n_fwd} forwards and "
           f"{2 * len(served['local'][1])} decode steps: {launches}")
     require(launches == {"streaming_matmul": 0, "flash_attention": 0,
@@ -606,8 +673,10 @@ def phase_times(mm_data, fa_data, ssd_data) -> dict:
                             (M * K + K * N + M * N) * x.element_size(),
                             x.dtype)
     mm = {
+        "variant": sm._variant(x.dtype, K, N),
         "ms": time_ms(lambda: sm.streaming_matmul(
             x, w, block_m=128, block_n=128, block_k=128), 20),
+        "ffma_ms": time_ms(lambda: sm._launch(x, w, variant="ffma"), 5),
         "plain_ms": time_ms(lambda: matmul_ref(x, w), 20),
         "library_ms": time_ms(lambda: torch.matmul(x, w), 20),
         "bound_ms": mm_bound, "bound_by": mm_by,
@@ -624,8 +693,12 @@ def phase_times(mm_data, fa_data, ssd_data) -> dict:
     k_rep = k.repeat_interleave(G, dim=1)  # outside the timed region
     v_rep = v.repeat_interleave(G, dim=1)
     fa_t = {
+        "variant": fa._variant(q.dtype, D, Dv),
         "ms": time_ms(lambda: fa.flash_attention_gpu(
             q, k, v, causal=True, block_q=128, block_k=128), 10),
+        "ffma_ms": time_ms(lambda: fa._launch(
+            q, k, v, causal=True, window=None, scale=1.0 / math.sqrt(D),
+            variant="ffma"), 3),
         "plain_ms": time_ms(lambda: flash_ref(q, k, v, causal=True), 3),
         "library_ms": time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -642,6 +715,7 @@ def phase_times(mm_data, fa_data, ssd_data) -> dict:
     ssd_bytes = sum(t.numel() for t in ssd_data + (xc,)) * 4  # y is xc-sized
     ssd_bound, ssd_by = bound(ssd_flops, ssd_bytes, torch.float32)
     ssd_t = {
+        "variant": "ffma",  # the SSD scan has one kernel, on the CUDA cores
         "ms": time_ms(lambda: ssd.ssd_chunk_scan_gpu(*ssd_data), 10),
         "plain_ms": time_ms(lambda: ssd.ssd_chunk_scan_plain(*ssd_data), 3),
         "library_ms": None,  # no single PyTorch call computes the SSD scan
@@ -650,8 +724,10 @@ def phase_times(mm_data, fa_data, ssd_data) -> dict:
     out = {"streaming_matmul": mm, "flash_attention": fa_t, "ssd_scan": ssd_t}
     for name, t in out.items():
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        print(f"[time] {name}: kernel_ms {t['ms']:.4f}, plain_ms "
-              f"{t['plain_ms']:.4f}, library_ms {lib}, "
+        other = (f" (ffma on the same inputs {t['ffma_ms']:.4f})"
+                 if "ffma_ms" in t else "")
+        print(f"[time] {name}: kernel_ms {t['ms']:.4f} {t['variant']}{other}, "
+              f"plain_ms {t['plain_ms']:.4f}, library_ms {lib}, "
               f"bound_ms {t['bound_ms']:.4f} ({t['bound_by']}), roofline "
               f"share {t['bound_ms'] / t['ms']:.2%}")
     print(f"[time] ssd_scan bound: {ssd_flops / 1e9:.2f} GFLOP float32, "
@@ -710,7 +786,8 @@ def main() -> None:
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
          "replaces": replaces[name], "launches": paths[name]["launches"],
-         "max_abs_err": errs[name], **times[name]}
+         "max_abs_err": errs[name],
+         **{k: v for k, v in times[name].items() if k != "ffma_ms"}}
         for name in ("streaming_matmul", "flash_attention", "ssd_scan")
     ]
     print(json.dumps({"kernels": kernels}))

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so one
 ``nvcc`` call per source builds it in seconds. The shared library lands in
 ``build/repro_torch_kernels/`` at the repository root, named after the hash
-of its source and flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is. Nothing is built when this module is imported: the first
-launch of a kernel builds it, or :func:`build_all` builds every kernel at
-once, one ``nvcc`` process per source, all started together.
+of its source, of every shared header ``csrc/*.cuh`` and of the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it is.
+Nothing is built when this module is imported: the first launch of a kernel
+builds it, or :func:`build_all` builds every kernel at once, one ``nvcc``
+process per source, all started together.
 """
 from __future__ import annotations
 
@@ -48,8 +49,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -7,28 +7,50 @@
 // Bound on the H100: at the streaming executor's shape (M = K = N = 4096,
 // bf16) the product does 2*M*N*K = 137 GFLOP on 101 MB, about 1360 FLOP per
 // byte, far above the card's ~295 FLOP/byte balance point: it is bound by
-// operations. This first version runs on the CUDA cores (FFMA, float32
-// accumulation, ~67 TFLOP/s peak), not on the tensor cores, so it cannot
-// come near the bf16 tensor-core bound; wgmma and TMA are later work.
+// operations, 0.139 ms at the bf16 tensor-core peak (989 TFLOP/s).
 //
-// Design:
+// Two variants; the wrapper picks one by a plain rule on dtype and shape
+// (kernels/streaming_matmul.py::_variant):
+//
+// (1) "wgmma", bf16 with K and N multiples of 8 (16-byte TMA strides):
+//   * a CTA computes a 128x256 output tile; warpgroup 0 is the producer
+//     (one thread issues TMA), warpgroups 1 and 2 are consumers that own 64
+//     rows each and issue wgmma.m64n256k16, the accumulators (128 floats a
+//     thread) in registers; setmaxnreg moves registers from the producer to
+//     the consumers;
+//   * x's (128 x 64) and w's (64 x 256) K-tiles stream through a FOUR-STAGE
+//     ring of 128-byte-swizzled shared-memory tiles with one "full" and one
+//     "empty" mbarrier a stage: the producer posts tile k+1.. k+3 while the
+//     consumers contract tile k, and a consumer waits on a tile's barrier
+//     right before its first wgmma — the TPU kernel's two VMEM slots grown to
+//     four stages, one memory level down (HBM -> SMEM);
+//   * x is a K-major A operand; w (K, N) row-major is an MN-major B operand,
+//     read with wgmma's transpose bit: no copy of w;
+//   * every output sums its K products in one order, k-tile by k-tile in one
+//     CTA: no split-K, no atomics, so tiered and untiered runs are
+//     bit-identical; float32 accumulation, rounded to bf16 once;
+//   * TMA reads zeros beyond the ragged edges of M, N and K; the store is
+//     masked.
+//
+// (2) "ffma", float32 (no TF32: the reference's float32 tolerance is 1e-3),
+//   and bf16 shapes the first variant does not take, on the CUDA cores:
 //   * one 256-thread block per 128x128 output tile; each thread owns an
 //     8x8 register tile of float32 accumulators;
 //   * w's K-tiles (8 x 128) stream through a TWO-SLOT ring in shared memory
 //     with cp.async: tile k+1 is posted before tile k is contracted and the
-//     wait (cp.async.wait_group) is deferred to just before first use —
-//     the TPU kernel's dual buffer, one memory level down (HBM -> SMEM);
+//     wait (cp.async.wait_group) is deferred to just before first use;
 //   * x's tile for step k+1 is loaded into registers during step k and
 //     stored (transposed, as float) into the other x slot afterwards;
 //   * every output element sums its K products in order k = 0, 1, ... in
-//     one thread: no split-K, no atomics, so the result is deterministic
-//     and tiered/untiered runs are bit-identical;
-//   * float32 inputs are multiplied in float32 (no TF32); bf16 inputs are
-//     widened to float32; the output is rounded to the input type;
-//   * ragged edges are zero-filled (cp.async src-size 0) and masked on store.
-//     The wrapper requires N to be a multiple of the 16-byte vector width.
+//     one thread: no split-K, no atomics;
+//   * bf16 inputs are widened to float32; the output is rounded to the
+//     input type; ragged edges are zero-filled (cp.async src-size 0) and
+//     masked on store. The wrapper requires N to be a multiple of the
+//     16-byte vector width.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -172,8 +194,105 @@ streaming_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 }  // namespace
 
+// ---- (1) the tensor-core variant ---------------------------------------------
+
+namespace tc {
+
+constexpr int BM = 128;
+constexpr int BN = 256;
+constexpr int BK = 64;                  // 128 bytes of bf16: one swizzle row
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;            // producer + two consumer warpgroups
+constexpr int X_BYTES = BM * BK * 2;    // 16 KiB
+constexpr int W_BOX_BYTES = BK * 64 * 2;  // one 64-wide box of w: 8 KiB
+constexpr int W_BYTES = BK * BN * 2;    // 32 KiB
+constexpr int STAGE_BYTES = X_BYTES + W_BYTES;
+constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+
+__global__ void __launch_bounds__(THREADS, 1)
+matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  auto x_tile = [&](int s) { return smem + s * STAGE_BYTES; };
+  auto w_tile = [&](int s) { return smem + s * STAGE_BYTES + X_BYTES; };
+
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int n_k = (K + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread keeps the ring full
+    hopper::regs_dealloc<40>();
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % STAGES;
+        hopper::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], STAGE_BYTES);
+        hopper::tma_load_2d(x_tile(s), &xmap, &full[s], kt * BK, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          hopper::tma_load_2d(w_tile(s) + j * W_BOX_BYTES, &wmap, &full[s],
+                              n0 + j * 64, kt * BK);
+      }
+    }
+  } else {  // consumers: 64 rows x 256 columns each
+    hopper::regs_alloc<232>();
+    const int cw = wg - 1;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int s = kt % STAGES;
+      hopper::mbar_wait(&full[s], (kt / STAGES) & 1);  // access barrier
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t da = hopper::smem_desc(
+            x_tile(s) + cw * 64 * 128 + kk * 32, 16, 1024);
+        const uint64_t db = hopper::smem_desc(
+            w_tile(s) + kk * 16 * 128, W_BOX_BYTES, 1024);
+        hopper::wgmma_ss_m64n256k16<1>(acc, da, db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      __syncwarp();
+      if (threadIdx.x % 32 == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    const int t = threadIdx.x % 128;
+    const int r = m0 + cw * 64 + (t / 32) * 16 + (t % 32) / 4;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int c = n0 + i * 8 + 2 * (t % 4);
+      if (c >= N) continue;  // N is even: c < N means c + 1 < N
+      if (r < M)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * N + c) =
+            __floats2bfloat162_rn(acc[4 * i], acc[4 * i + 1]);
+      if (r + 8 < M)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(r + 8) * N + c) =
+            __floats2bfloat162_rn(acc[4 * i + 2], acc[4 * i + 3]);
+    }
+  }
+}
+
+}  // namespace tc
+
 // dtype: 0 = float32, 1 = bfloat16. x (M,K), w (K,N), out (M,N), all
-// row-major and contiguous. Launches on `stream`; returns cudaGetLastError().
+// row-major and contiguous. The FFMA variant. Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int streaming_matmul(int dtype, const void* x, const void* w, void* out,
                                 int M, int N, int K, void* stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
@@ -192,6 +311,32 @@ extern "C" int streaming_matmul(int dtype, const void* x, const void* w, void* o
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tensor-core variant: bf16 x (M,K), w (K,N), out (M,N), row-major and
+// contiguous, 16-byte aligned, K and N multiples of 8. Launches on `stream`;
+// returns 0, a CUDA error code, or one above hopper::kTensorMapError.
+extern "C" int streaming_matmul_wgmma(const void* x, const void* w, void* out,
+                                      int M, int N, int K, void* stream) {
+  CUtensorMap xmap, wmap;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t x_box[2] = {tc::BK, tc::BM};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t w_box[2] = {64, tc::BK};
+  int err = hopper::make_map(&xmap, x, 2, x_dims, x_strides, x_box);
+  if (err == 0) err = hopper::make_map(&wmap, w, 2, w_dims, w_strides, w_box);
+  if (err != 0) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      tc::matmul_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tc::SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((N + tc::BN - 1) / tc::BN, (M + tc::BM - 1) / tc::BM);
+  tc::matmul_wgmma_kernel<<<grid, tc::THREADS, tc::SMEM_BYTES,
+                            static_cast<cudaStream_t>(stream)>>>(
+      xmap, wmap, static_cast<__nv_bfloat16*>(out), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" const char* kernel_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }

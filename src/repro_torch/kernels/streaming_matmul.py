@@ -1,15 +1,23 @@
-"""``x @ w`` with ``w`` streamed through a two-slot shared-memory ring.
+"""``x @ w`` with ``w`` streamed through a shared-memory ring.
 
 The port of ``repro.kernels.streaming_matmul``. On a CUDA tensor it launches
-the hand-written kernel in ``csrc/streaming_matmul.cu`` (see the note there
+a hand-written kernel in ``csrc/streaming_matmul.cu`` (see the note there
 for its design and bound); on a CPU tensor it computes the plain version,
 :func:`repro_torch.kernels.ref.matmul_ref`. Which one runs is decided by the
-tensors' device alone.
+tensors' device alone, and which CUDA kernel by :func:`_variant`, a plain
+rule on dtype and shape: bf16 with K and N multiples of 8 takes the
+tensor-core kernel (``"wgmma"``), everything else the CUDA-core one
+(``"ffma"``).
 
 The block arguments keep the reference's contract: each is clamped to its
 dim, and a dim that its block does not divide raises a :class:`ValueError`
-naming it. The CUDA kernel tiles internally at its own sizes. The backward
-pass (the reference's custom VJP) waits for the training slice.
+naming it. The CUDA kernels tile internally at their own sizes.
+
+The backward pass mirrors the reference's custom VJP (``_matmul_bwd``):
+``dx = g @ wᵀ`` and ``dw = xᵀ @ g`` through the same kernel (or, on the CPU,
+the same plain version), cast to x's and w's types. The transposed operands
+are made contiguous first: the kernel reads x K-major and w MN-major, and a
+contiguous copy is all the backward needs of it.
 """
 from __future__ import annotations
 
@@ -20,10 +28,30 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import matmul_ref
 
-#: Launches of the CUDA kernel in this process (the CPU path never counts).
+#: Launches of the CUDA kernels in this process (the CPU path never counts).
 LAUNCHES = 0
+#: The same launches by variant (see :func:`_variant`).
+VARIANT_LAUNCHES = {"wgmma": 0, "ffma": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    """Set :data:`LAUNCHES` and every :data:`VARIANT_LAUNCHES` count to 0."""
+    global LAUNCHES
+    LAUNCHES = 0
+    VARIANT_LAUNCHES.update(dict.fromkeys(VARIANT_LAUNCHES, 0))
+
+
+def _variant(dtype: torch.dtype, K: int, N: int) -> str:
+    """Which CUDA kernel computes an (M, K) @ (K, N) product of ``dtype``:
+    ``"wgmma"`` (tensor cores, TMA) for bf16 whose row strides are whole
+    16-byte units, i.e. K and N multiples of 8; ``"ffma"`` (CUDA cores)
+    for the rest, float32 included (TF32 would miss the reference's
+    float32 tolerance)."""
+    if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0:
+        return "wgmma"
+    return "ffma"
 
 
 def _validate_tiles(where: str, **dims: tuple[int, int]) -> None:
@@ -39,16 +67,22 @@ def _validate_tiles(where: str, **dims: tuple[int, int]) -> None:
             )
 
 
-def _signature(lib: ctypes.CDLL):
-    fn = lib.streaming_matmul
+def _signature(lib: ctypes.CDLL, variant: str):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if variant == "wgmma":
+        fn = lib.streaming_matmul_wgmma
+        fn.argtypes = [p, p, p, i, i, i, p]
+    else:
+        fn = lib.streaming_matmul
+        fn.argtypes = [i, p, p, p, i, i, i, p]
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
     return fn
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _launch(x: torch.Tensor, w: torch.Tensor,
+            variant: str | None = None) -> torch.Tensor:
+    """Launch the kernel :func:`_variant` picks, or ``variant`` where a
+    measurement names one (to time both kernels on the same inputs)."""
     global LAUNCHES
     if x.dtype != w.dtype or x.dtype not in _DTYPE_CODE:
         raise TypeError(
@@ -58,19 +92,60 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("streaming_matmul: x and w must be contiguous")
     M, K = x.shape
     N = w.shape[1]
+    variant = variant or _variant(x.dtype, K, N)
     vec = 16 // w.element_size()
     if N % vec or w.data_ptr() % 16:
         raise ValueError(
             f"streaming_matmul: the CUDA kernel streams w in 16-byte vectors; "
             f"N={N} must be a multiple of {vec} and w 16-byte aligned")
+    if variant == "wgmma" and x.data_ptr() % 16:
+        raise ValueError("streaming_matmul: TMA needs x 16-byte aligned")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib = _build.load("streaming_matmul")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = _signature(lib)(_DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
-                           out.data_ptr(), M, N, K, stream)
-    _build.check(lib, code, "streaming_matmul")
+    fn = _signature(lib, variant)
+    if variant == "wgmma":
+        code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, stream)
+    else:
+        code = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
+                  out.data_ptr(), M, N, K, stream)
+    _build.check(lib, code, f"streaming_matmul ({variant})")
     LAUNCHES += 1
+    VARIANT_LAUNCHES[variant] += 1
     return out
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The product on ``x``'s device: the plain version on the CPU, a kernel
+    on a card, an error anywhere else."""
+    if w.device != x.device:
+        raise ValueError(f"streaming_matmul: x on {x.device}, w on {w.device}")
+    if x.device.type == "cpu":
+        return matmul_ref(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"streaming_matmul: no kernel for device {x.device}")
+    return _launch(x, w)
+
+
+class _StreamingMatmul(torch.autograd.Function):
+    """The reference's ``_matmul_vjp``: forward and backward through the
+    same kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _matmul(g, w.t().contiguous()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _matmul(x.t().contiguous(), g).to(w.dtype)
+        return dx, dw
 
 
 def streaming_matmul(
@@ -81,11 +156,12 @@ def streaming_matmul(
     block_n: int = 256,
     block_k: int = 512,
 ) -> torch.Tensor:
-    """``x @ w`` in float32 accumulation, cast to ``x.dtype``.
+    """``x @ w`` in float32 accumulation, cast to ``x.dtype``;
+    differentiable in both arguments.
 
     ``block_m``, ``block_n`` and ``block_k`` only validate the shapes (the
-    reference's contract): the CUDA kernel tiles at its own fixed sizes,
-    and no block argument changes what it computes or how.
+    reference's contract): the CUDA kernels tile at their own fixed sizes,
+    and no block argument changes what they compute or how.
     """
     if x.ndim != 2 or w.ndim != 2:
         raise ValueError(
@@ -101,8 +177,6 @@ def streaming_matmul(
                     N=(N, min(block_n, N)), K=(K, min(block_k, K)))
     if w.device != x.device:
         raise ValueError(f"streaming_matmul: x on {x.device}, w on {w.device}")
-    if x.device.type == "cpu":
-        return matmul_ref(x, w)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"streaming_matmul: no kernel for device {x.device}")
-    return _launch(x, w)
+    return _StreamingMatmul.apply(x, w)

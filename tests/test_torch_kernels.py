@@ -23,9 +23,11 @@ try:
     from repro.kernels.ssd_scan import ssd_chunk_scan_tpu
     from repro.kernels.streaming_matmul import streaming_matmul as ref_matmul
     from repro.models.flash import flash_attention as jnp_flash
+    import jax
 except ModuleNotFoundError:  # a card's machine without JAX: cuda test only
     jnp = None
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as pt_fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
@@ -170,6 +172,81 @@ def test_ssd_matches_reference_kernel(L, chunk, G):
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-4, rtol=2e-4)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-3), ("bfloat16", 0.6)])
+def test_matmul_grads_match_reference_vjp(dtype, tol):
+    """The port's backward (``_StreamingMatmul``) against ``jax.grad``
+    through the reference's custom VJP on the same inputs, with
+    ``TestKernelGrads``' loss, scaling and tolerances."""
+    rng = np.random.default_rng(7)
+    xj, xt = _pair(rng, (128, 256), dtype)
+    wj, wt = _pair(rng, (256, 128), dtype)
+
+    def loss_ref(x, w):
+        y = ref_matmul(x, w, block_m=128, block_n=128, block_k=128,
+                       interpret=True)
+        return jnp.sum(y.astype(jnp.float32) ** 2)
+
+    rx, rw = jax.grad(loss_ref, argnums=(0, 1))(xj, wj)
+    xt.requires_grad_(True)
+    wt.requires_grad_(True)
+    y = pt_sm.streaming_matmul(xt, wt, block_m=128, block_n=128, block_k=128)
+    (y.float() ** 2).sum().backward()
+    assert xt.grad.dtype == xt.dtype and wt.grad.dtype == wt.dtype
+    np.testing.assert_allclose(_np(xt.grad) / 256, _np(rx) / 256, atol=tol,
+                               rtol=tol)
+    np.testing.assert_allclose(_np(wt.grad) / 256, _np(rw) / 256, atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("M,K,N", MATMUL_SHAPES + [(4096, 4096, 4096)])
+def test_matmul_variant_rule(M, K, N):
+    """bf16 takes the tensor-core kernel, float32 the CUDA-core one; a bf16
+    K that is no whole number of 16-byte units goes to the CUDA cores."""
+    assert pt_sm._variant(torch.bfloat16, K, N) == "wgmma"
+    assert pt_sm._variant(torch.float32, K, N) == "ffma"
+    assert pt_sm._variant(torch.bfloat16, K + 4, N) == "ffma"
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,Dv,causal,window",
+                         FLASH_CASES + [(1, 32, 8, 4096, 4096, 128, 128, True,
+                                         None)])
+def test_flash_variant_rule(B, H, KV, Sq, Sk, D, Dv, causal, window):
+    """Every reference case and the full-width shape: bf16 takes the
+    tensor-core kernel, float32 the CUDA-core one; head dims that are no
+    multiple of 16, or above 128, go to the CUDA-core kernel (which raises
+    above 128)."""
+    assert pt_fa._variant(torch.bfloat16, D, Dv) == "wgmma"
+    assert pt_fa._variant(torch.float32, D, Dv) == "ffma"
+    assert pt_fa._variant(torch.bfloat16, D + 8, Dv) == "ffma"
+    assert pt_fa._variant(torch.bfloat16, D, 144) == "ffma"
+
+
+def test_build_target_tracks_shared_headers(tmp_path, monkeypatch):
+    """A kernel's library is named after its source and every shared
+    ``csrc/*.cuh`` header, so an edited header rebuilds it."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _build._target("k")
+    assert _build._target("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = _build._target("k")
+    assert second != first
+    (tmp_path / "g.cuh").write_text("// another header\n")
+    assert _build._target("k") not in (first, second)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _build._target("k").name.startswith("k-")
+
+
+def test_cpu_path_counts_no_variant():
+    m0, f0 = dict(pt_sm.VARIANT_LAUNCHES), dict(pt_fa.VARIANT_LAUNCHES)
+    x = torch.ones((128, 128), dtype=torch.bfloat16, requires_grad=True)
+    pt_sm.streaming_matmul(x, x.detach()).float().sum().backward()
+    q = torch.ones((1, 2, 64, 32), dtype=torch.bfloat16)
+    pt_fa.flash_attention_gpu(q, q, q)
+    assert pt_sm.VARIANT_LAUNCHES == m0 and pt_fa.VARIANT_LAUNCHES == f0
+
+
 class TestShapeValidation:
     """Non-tile-divisible shapes fail fast, naming the offending dim."""
 
@@ -305,8 +382,11 @@ def test_bf16_bound_passes_rounding_and_fails_a_skipped_tile(op):
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     """Each CUDA kernel against its plain version, on the card, within
-    ``ref.outside_tolerance``'s bound: the reference's test cases, and for
-    the SSD scan also mamba2-130m's head shape (P 64, N 128, chunk 256)."""
+    ``ref.outside_tolerance``'s bound: the reference's test cases through
+    both variants (bf16 through the tensor-core kernels, float32 and a bf16
+    shape the rule sends to the CUDA cores through the FFMA kernels), the
+    matmul's backward, and for the SSD scan also mamba2-130m's head shape
+    (P 64, N 128, chunk 256)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: no CUDA device here")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -316,18 +396,37 @@ def test_cuda_kernels_match_plain_versions():
         a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
         return a.to(dtype).cuda()
 
+    ffma_bf16_mm = [(128, 100, 128)]               # K % 8 != 0
+    ffma_bf16_fa = [(1, 2, 2, 128, 128, 40, 40, True, None)]  # D % 16 != 0
     for dtype, mm_tol, fa_tol in ((torch.float32, 1e-3, 2e-5),
                                   (torch.bfloat16, 0.5, 3e-2)):
-        n0 = pt_sm.LAUNCHES
-        for M, K, N in MATMUL_SHAPES:
+        tc = dtype == torch.bfloat16
+        pt_sm.reset_launches()
+        for M, K, N in MATMUL_SHAPES + (ffma_bf16_mm if tc else []):
             x, w = dev((M, K), dtype), dev((K, N), dtype)
             got = pt_sm.streaming_matmul(x, w, block_m=128, block_n=128,
                                          block_k=128)
             bad = ref.outside_tolerance(got, ref.matmul_ref(x, w), mm_tol)
             assert not bad.any(), (M, K, N, dtype, int(bad.sum()))
-        assert pt_sm.LAUNCHES == n0 + len(MATMUL_SHAPES)
-        n0 = pt_fa.LAUNCHES
-        for case in FLASH_CASES:
+            if (M, K, N) not in MATMUL_SHAPES:
+                continue  # dx's N = K = 100: no bf16 kernel takes it
+            # the backward: dx = g w^T, dw = x^T g through the same kernel
+            x.requires_grad_(True)
+            w.requires_grad_(True)
+            g = dev((M, N), dtype)
+            pt_sm.streaming_matmul(x, w, block_m=128, block_n=128,
+                                   block_k=128).backward(g)
+            for got, want in ((x.grad, ref.matmul_ref(g, w.detach().t())),
+                              (w.grad, ref.matmul_ref(x.detach().t(), g))):
+                bad = ref.outside_tolerance(got, want, mm_tol)
+                assert not bad.any(), ("grad", M, K, N, dtype, int(bad.sum()))
+        # each reference shape: forward, forward again, dx and dw
+        n = 4 * len(MATMUL_SHAPES)
+        assert pt_sm.VARIANT_LAUNCHES == (
+            {"wgmma": n, "ffma": len(ffma_bf16_mm)} if tc
+            else {"wgmma": 0, "ffma": n})
+        pt_fa.reset_launches()
+        for case in FLASH_CASES + (ffma_bf16_fa if tc else []):
             B, H, KV, Sq, Sk, D, Dv, causal, window = case
             q, k = dev((B, H, Sq, D), dtype), dev((B, KV, Sk, D), dtype)
             v = dev((B, KV, Sk, Dv), dtype)
@@ -337,7 +436,9 @@ def test_cuda_kernels_match_plain_versions():
             want = ref.flash_ref(q, k, v, causal=causal, window=window)
             bad = ref.outside_tolerance(got, want, fa_tol)
             assert not bad.any(), (case, dtype, int(bad.sum()))
-        assert pt_fa.LAUNCHES == n0 + len(FLASH_CASES)
+        assert pt_fa.VARIANT_LAUNCHES == (
+            {"wgmma": len(FLASH_CASES), "ffma": 1} if tc
+            else {"wgmma": 0, "ffma": len(FLASH_CASES)})
     n0 = pt_ssd.LAUNCHES
     mamba_head = [(2048, 256, 1, 1, 24, 64, 128)]  # L, chunk, G, B, H, P, N
     for L, chunk, G, B, H, P, N in [
