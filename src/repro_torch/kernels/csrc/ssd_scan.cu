@@ -1,4 +1,5 @@
-// Mamba2 SSD chunk scan for Hopper (sm_90a), float32 in and out.
+// Mamba2 SSD chunk scan for Hopper (sm_90a), float32 in and out, as three
+// chunk-parallel kernels on the tensor cores.
 //
 // Replaces: src/repro/kernels/ssd_scan.py::_kernel (Pallas, TPU), whose grid
 // (batch, head, chunk) runs the chunk axis in order and carries the (P, N)
@@ -9,255 +10,585 @@
 //                                                  for i >= j, else 0
 //   S    <- exp(total) S + x^T (exp(total - cum) dt o B)
 //
-// Bound on the H100: at the mamba2-130m path's shape (Q = 256, P = 64,
-// N = 128) one (b, h, chunk) needs about 21 MFLOP (the causal half of
-// C B^T and of its product with x, plus C S^T and the carry) on 0.4 MB of
-// float32 operands, some 50 FLOP per byte: above the CUDA cores' float32
-// balance point (67 TFLOP/s over 3.35 TB/s = 20), so it is bound by
-// operations. This first version runs on the CUDA cores in float32 (FFMA,
-// no TF32), like the TPU kernel's float32 dots.
+// Only the (P, N) recurrence needs the chunks in order, so the work is laid
+// out as the reference's plain `_ssd_scan` (src/repro/models/ssm.py) lays it
+// out, in three kernels launched back to back by `ssd_chunk_scan_staged`:
+//
+//   1. chunk state, one block per (b, h, chunk): S_local[c] = x^T (w o B),
+//      w_j = exp(total - cum_j) dt_j, a (P x N) product over K = Q keys;
+//   2. state passing, one thread per state element, in order over the
+//      chunks: write the state ENTERING chunk c (zero for c = 0) over
+//      S_local[c] in the scratch buffer, then S <- exp(total_c) S +
+//      S_local[c]. The last chunk's update is never read by y;
+//   3. chunk output, one block per (64-row query tile, chunk, b, h), the
+//      heaviest row tiles (most causal key tiles) numbered first:
+//      y_i = sum over causal key tiles j of (C_i B_j^T o L_ij) x_j
+//            + (C_i S_in^T) o exp(cum_i).
+//
+// Bound on the H100: at the mamba2-130m path's shape (B 4, H 24, L 2048,
+// chunk Q = 256, P = 64, N = 128) the function needs 16.14 GFLOP (per
+// (b, h, chunk) the causal half of C B^T and of its product with x, plus
+// C S^T and x^T (w o B): 21 MFLOP) on 304 MB of float32 inputs and output.
+// On the CUDA cores' float32 (67 TFLOP/s) that is 0.241 ms, bound by
+// operations. Here every product runs on the tensor cores in split TF32
+// ("3xTF32", three passes at 495 TFLOP/s): 3 x 16.14 GFLOP in 0.098 ms,
+// against 0.091 ms for the bytes, so still bound by operations, but 2.5x
+// lower. The scratch state (B, H, nc, P, N) float32, 25.2 MB at that shape,
+// is written by kernel 1, read and written by kernel 2 and read by kernel 3
+// (about 100 MB, 0.030 ms); it is not part of the function's bytes.
+//
+// Instruction: mma.sync.aligned.m16n8k8 with TF32 operands and float32
+// accumulators, for all four products (C B^T, (scores o L) x, C S_in^T and
+// x^T (w o B)). wgmma takes TF32 only with both operands K-major, and x and
+// w o B are MN-major in two of the four products, so wgmma would need
+// transposed copies in shared memory; mma.sync reads its fragments from
+// padded shared memory in either orientation. (C B^T and C S_in^T, the bulk
+// of kernel 3's products, have both operands K-major: they are the ones a
+// wgmma version would take first.) Each operand a is split into
+// a_hi = cvt.rna.tf32(a) and a_lo = cvt.rna.tf32(a - a_hi), with a - a_hi
+// computed in float32, and each product is a_lo b_hi + a_hi b_lo + a_hi b_hi,
+// accumulated in float32: about float32's accuracy (a dropped a_lo b_lo and
+// lo's rounding are near 2^-22 of a product), where one TF32 pass (2^-11)
+// would miss the reference's 2e-4 + 2e-4 |want|.
 //
 // Design:
-//   * one 256-thread block per (b, h) loops over the chunks in order: the
-//     TPU's sequential grid axis becomes the loop, and the state S lives in
-//     shared memory for the whole scan (P x N floats, stored transposed);
-//   * a chunk does not fit in shared memory whole (x, B, C and the Q x Q
-//     scores are 576 KB at the path's shape against 227 KB a block), so it
-//     is processed in 64-row tiles of queries against 64-row tiles of keys,
-//     causal tiles only; each thread owns a 4x4 register tile of the row
-//     tile's y and of the score tile;
-//   * the causal mask selects, never multiplies: for j > i exp(cum_i -
-//     cum_j) can overflow to inf, and inf * 0 is NaN;
-//   * y's inter-chunk term reads the state that enters the chunk; the carry
-//     update is accumulated in registers while the last row tile walks over
-//     every key tile, and written to the state only after a barrier that
-//     follows the last read of the old state;
-//   * every output is summed in one thread in a fixed order, with no
-//     atomics: the result is deterministic, run after run;
-//   * B*H blocks: 96 at the path's shape, fewer than the card's 132 SMs.
-//     Chunk-parallel state passing, tensor cores and TMA are later work.
+//   * the dual buffer of the key tiles: kernels 1 and 3 stream 32-key tiles
+//     of x and B through two shared-memory slots with cp.async; tile j+1 is
+//     posted before tile j is contracted and waited for (cp.async.wait_group)
+//     just before its first use, as the TPU kernels' VMEM double buffers do;
+//   * kernel 3: four warps own 16 query rows each. The scores of a key tile
+//     stay in registers: the accumulator of key columns (8t + 2q, 8t + 2q + 1)
+//     is the A fragment of P x's k-step t with its K order permuted, and the
+//     B fragment reads x's rows in the same order, so P never goes through
+//     shared memory. For C B^T and C S_in^T, whose operands both lie along
+//     N, a lane reads 16 bytes that hold its fragments of two k-steps (K
+//     permuted alike in A and B). S_in is loaded over both key slots before
+//     the key loop. The loops have compile-time bounds (N and P padded to
+//     128 and 64) and each 3xTF32 pass runs over every tile before the next,
+//     so independent products follow one another on the tensor cores;
+//   * the split: cvt.rna.tf32 compiles to a test for NaN and infinity and
+//     three integer operations, so a_hi is rounded with two integer
+//     operations instead (the same value for every a that is not NaN; a NaN
+//     still reaches the product through a_lo);
+//   * the causal mask selects, never multiplies: for j > i exp(cum_i - cum_j)
+//     overflows to inf, and inf * 0 is NaN;
+//   * shared-memory strides are padded so that every fragment read is free
+//     of bank conflicts: 144 (= 16 mod 32) for rows read 16 bytes a lane,
+//     136 and 72 (= 8 mod 32) for rows read [k][m], 68 for x's permuted row
+//     pairs;
+//   * ragged edges (Q not a multiple of 64 or 32, any P <= 64, N <= 128) are
+//     zero-filled on load (cp.async src-size 0) and masked on store;
+//   * determinism: every output is summed by one warp in one fixed order,
+//     the chunk order of the state passing is fixed, and there are no
+//     atomics and no split over keys across blocks;
+//   * nothing is allocated here: the wrapper passes the state scratch in.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
-constexpr int TQ = 64;       // query rows of a row tile
-constexpr int TK = 64;       // key rows of a key tile
-constexpr int THREADS = 256;
-constexpr int RM = 4;        // rows a thread owns in a 64x64 tile
-constexpr int CN = 4;        // columns a thread owns in a 64x64 tile
-constexpr int MAX_P = 64;    // head dim: 16 threads x CN columns
-constexpr int MAX_N = 128;   // state dim: one carry column per thread
+constexpr int MAX_P = 64;    // head dim: 8 n-tiles of 8
+constexpr int MAX_N = 128;   // state dim
+constexpr int KT = 32;       // keys of a key tile
+constexpr int RT = 64;       // query rows of a chunk-output block
+constexpr int CS_THREADS = 256;  // chunk state: 8 warps, 16 x 64 of S each
+constexpr int SP_THREADS = 256;  // state passing: one element a thread
+constexpr int CO_THREADS = 128;  // chunk output: 4 warps, 16 rows each
+// padded shared-memory row strides, in floats (16-byte aligned rows)
+constexpr int S_K = MAX_N + 16;     // C, B, S_in read 16 bytes a lane in kernel 3
+constexpr int S_COL_N = MAX_N + 8;  // B read as [k][n] in kernel 1
+constexpr int S_COL_P = MAX_P + 8;  // x read as [k][m] in kernel 1
+constexpr int S_PERM_P = MAX_P + 4; // x read in row pairs (2q, 2q+1), kernel 3
 
-// Shared memory in floats. Padded strides keep the transposed stores free of
-// bank conflicts.
-__host__ __device__ inline int smem_floats(int Q, int P, int N) {
-  return N * (P + 1)       // St[n][p]: the state, transposed
-         + N * (TQ + 1)    // Ct[n][i]: C of the row tile, transposed
-         + TK * (N + 1)    // Bs[j][n]: B of the key tile
-         + TK * P          // Xs[j][p]: x of the key tile
-         + TK * (TQ + 1)   // Pt[j][i]: decayed, masked scores, transposed
-         + 2 * Q;          // cum and dt of the chunk
+__host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+__host__ __device__ inline int chunk_state_smem_floats(int Q) {
+  return 2 * KT * (S_COL_P + S_COL_N) + round_up(Q, KT);
 }
 
-__global__ void __launch_bounds__(THREADS)
-ssd_chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ b,
-                      const float* __restrict__ c, const float* __restrict__ dt,
-                      const float* __restrict__ cum, float* __restrict__ y,
-                      int nc, int Q, int P, int N) {
-  extern __shared__ float smem[];
-  const int SP = P + 1, SQ = TQ + 1, SB = N + 1;
-  float* St = smem;
-  float* Ct = St + N * SP;
-  float* Bs = Ct + N * SQ;
-  float* Xs = Bs + TK * SB;
-  float* Pt = Xs + TK * P;
-  float* cum_s = Pt + TK * SQ;
-  float* dt_s = cum_s + Q;
+__host__ __device__ inline int chunk_output_smem_floats(int Q) {
+  return RT * S_K + 2 * KT * S_K + 2 * KT * S_PERM_P + 2 * Q;
+}
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;          // rows ty*RM .. of a 64x64 tile
-  const int tx = tid % 16;          // columns tx*CN .. of a 64x64 tile
-  const int cn = tid % MAX_N;       // carry: state column n ...
-  const int cp = tid / MAX_N;       // ... and rows p = cp, cp + 2, ...
-  const int n_rt = (Q + TQ - 1) / TQ;
+// ---- cp.async ------------------------------------------------------------
 
-  for (int e = tid; e < N * SP; e += THREADS) St[e] = 0.f;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  for (int ch = 0; ch < nc; ++ch) {
-    const size_t chunk = (size_t)blockIdx.x * nc + ch;
-    const float* xg = x + chunk * Q * P;
-    const float* bg = b + chunk * Q * N;
-    const float* cg = c + chunk * Q * N;
-    float* yg = y + chunk * Q * P;
-    __syncthreads();  // the previous chunk's readers of cum_s/dt_s are done
-    for (int e = tid; e < Q; e += THREADS) {
-      cum_s[e] = cum[chunk * Q + e];
-      dt_s[e] = dt[chunk * Q + e];
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `rows` rows of `width` floats (global row stride `width`) into shared rows
+// of stride `stride`; rows at or past `valid` are zero-filled. `vec`: 16-byte
+// copies (width a multiple of 4, 16-byte aligned base).
+__device__ __forceinline__ void load_rows(float* dst, int stride, const float* src,
+                                          int width, int rows, int valid, bool vec) {
+  if (vec) {
+    const int w4 = width / 4;
+    for (int e = threadIdx.x; e < rows * w4; e += blockDim.x) {
+      const int r = e / w4, col = (e - r * w4) * 4;
+      const bool ok = r < valid;
+      cp_async16(dst + r * stride + col, ok ? src + (size_t)r * width + col : src, ok);
     }
-    float sl[MAX_P / 2];  // this thread's share of x^T (w o B)
-#pragma unroll
-    for (int r = 0; r < MAX_P / 2; ++r) sl[r] = 0.f;
-    float total = 0.f;
-
-    for (int it = 0; it < n_rt; ++it) {
-      const int i0 = it * TQ;
-      const bool last = it == n_rt - 1;
-      __syncthreads();  // Ct is free
-      for (int e = tid; e < TQ * N; e += THREADS) {
-        const int i = e / N, n = e % N;
-        Ct[n * SQ + i] = (i0 + i < Q) ? cg[(size_t)(i0 + i) * N + n] : 0.f;
-      }
-      __syncthreads();
-      total = cum_s[Q - 1];
-
-      // inter-chunk term, from the state entering this chunk
-      float yi[RM][CN], ya[RM][CN];
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int q = 0; q < CN; ++q) yi[r][q] = ya[r][q] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float a[RM], s[CN];
-#pragma unroll
-        for (int r = 0; r < RM; ++r) a[r] = Ct[n * SQ + ty * RM + r];
-#pragma unroll
-        for (int q = 0; q < CN; ++q) {
-          const int p = tx * CN + q;
-          s[q] = p < P ? St[n * SP + p] : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < RM; ++r)
-#pragma unroll
-          for (int q = 0; q < CN; ++q) yi[r][q] = fmaf(a[r], s[q], yi[r][q]);
-      }
-#pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        const int i = i0 + ty * RM + r;
-        const float d = i < Q ? expf(cum_s[i]) : 0.f;
-#pragma unroll
-        for (int q = 0; q < CN; ++q) yi[r][q] *= d;
-      }
-
-      // intra-chunk term over the causal key tiles
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * TK;
-        __syncthreads();  // Bs, Xs and Pt are free
-        for (int e = tid; e < TK * N; e += THREADS) {
-          const int j = e / N, n = e % N;
-          Bs[j * SB + n] = (j0 + j < Q) ? bg[(size_t)(j0 + j) * N + n] : 0.f;
-        }
-        for (int e = tid; e < TK * P; e += THREADS) {
-          const int j = e / P, p = e % P;
-          Xs[e] = (j0 + j < Q) ? xg[(size_t)(j0 + j) * P + p] : 0.f;
-        }
-        __syncthreads();
-
-        float s[RM][CN];
-#pragma unroll
-        for (int r = 0; r < RM; ++r)
-#pragma unroll
-          for (int q = 0; q < CN; ++q) s[r][q] = 0.f;
-        for (int n = 0; n < N; ++n) {
-          float a[RM], bb[CN];
-#pragma unroll
-          for (int r = 0; r < RM; ++r) a[r] = Ct[n * SQ + ty * RM + r];
-#pragma unroll
-          for (int q = 0; q < CN; ++q) bb[q] = Bs[(tx * CN + q) * SB + n];
-#pragma unroll
-          for (int r = 0; r < RM; ++r)
-#pragma unroll
-            for (int q = 0; q < CN; ++q) s[r][q] = fmaf(a[r], bb[q], s[r][q]);
-        }
-#pragma unroll
-        for (int r = 0; r < RM; ++r) {
-          const int i = i0 + ty * RM + r;
-#pragma unroll
-          for (int q = 0; q < CN; ++q) {
-            const int j = j0 + tx * CN + q;
-            // select, never multiply: exp(cum_i - cum_j) overflows for j > i
-            float v = 0.f;
-            if (j <= i && i < Q) v = s[r][q] * (expf(cum_s[i] - cum_s[j]) * dt_s[j]);
-            Pt[(tx * CN + q) * SQ + ty * RM + r] = v;
-          }
-        }
-        __syncthreads();
-        for (int k = 0; k < TK; ++k) {
-          float a[RM], xv[CN];
-#pragma unroll
-          for (int r = 0; r < RM; ++r) a[r] = Pt[k * SQ + ty * RM + r];
-#pragma unroll
-          for (int q = 0; q < CN; ++q) {
-            const int p = tx * CN + q;
-            xv[q] = p < P ? Xs[k * P + p] : 0.f;
-          }
-#pragma unroll
-          for (int r = 0; r < RM; ++r)
-#pragma unroll
-            for (int q = 0; q < CN; ++q) ya[r][q] = fmaf(a[r], xv[q], ya[r][q]);
-        }
-        // the last row tile meets every key tile: accumulate the carry here
-        if (last && cn < N) {
-          for (int k = 0; k < TK && j0 + k < Q; ++k) {
-            const int j = j0 + k;
-            const float wb = (expf(total - cum_s[j]) * dt_s[j]) * Bs[k * SB + cn];
-#pragma unroll
-            for (int r = 0; r < MAX_P / 2; ++r) {
-              const int p = cp + 2 * r;
-              if (p < P) sl[r] = fmaf(Xs[k * P + p], wb, sl[r]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        const int i = i0 + ty * RM + r;
-        if (i >= Q) continue;
-#pragma unroll
-        for (int q = 0; q < CN; ++q) {
-          const int p = tx * CN + q;
-          if (p < P) yg[(size_t)i * P + p] = ya[r][q] + yi[r][q];
-        }
-      }
-    }
-    __syncthreads();  // every read of the entering state precedes its update
-    if (cn < N) {
-      const float decay = expf(total);
-#pragma unroll
-      for (int r = 0; r < MAX_P / 2; ++r) {
-        const int p = cp + 2 * r;
-        if (p < P) St[cn * SP + p] = decay * St[cn * SP + p] + sl[r];
-      }
+  } else {
+    for (int e = threadIdx.x; e < rows * width; e += blockDim.x) {
+      const int r = e / width, col = e - r * width;
+      const bool ok = r < valid;
+      cp_async4(dst + r * stride + col, ok ? src + (size_t)r * width + col : src, ok);
     }
   }
 }
 
-}  // namespace
+// ---- split TF32 on the tensor cores --------------------------------------
 
-// x, y (BH, nc, Q, P); b, c (BH, nc, Q, N); dt, cum (BH, nc, Q): float32,
-// contiguous, BH = batch * heads. Launches on `stream`; returns
-// cudaErrorInvalidValue for shapes the kernel does not take, else
-// cudaGetLastError().
-extern "C" int ssd_chunk_scan(const void* x, const void* b, const void* c,
-                              const void* dt, const void* cum, void* y,
-                              int BH, int nc, int Q, int P, int N,
-                              void* stream) {
-  if (BH < 1 || nc < 1 || Q < 1 || P < 1 || P > MAX_P || N < 1 || N > MAX_N)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * static_cast<size_t>(smem_floats(Q, P, N));
+__device__ __forceinline__ uint32_t to_tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
+}
+
+// a = hi + lo, both TF32: hi = cvt.rna.tf32(a), lo = cvt.rna.tf32(a - hi),
+// a - hi exact in float32. hi is rounded as the instruction rounds (half away
+// from zero at bit 13, the 13 low bits cleared) but without the tests for NaN
+// and infinity that cvt compiles to: the same value for every a that is not
+// NaN, and a NaN still reaches the product through lo.
+__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = to_tf32(a - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[t] += a b[t] for T n-tiles in 3xTF32, the two small cross terms first;
+// each pass runs over every tile before the next, so that no product waits
+// for the one before it on the same accumulator
+template <int T>
+__device__ __forceinline__ void mma_3xtf32(float (*d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t (*bh)[2],
+                                           uint32_t (*bl)[2]) {
+#pragma unroll
+  for (int t = 0; t < T; ++t) mma_tf32(d[t], al, bh[t]);
+#pragma unroll
+  for (int t = 0; t < T; ++t) mma_tf32(d[t], ah, bl[t]);
+#pragma unroll
+  for (int t = 0; t < T; ++t) mma_tf32(d[t], ah, bh[t]);
+}
+
+// The m16n8k8 fragments, lane = 4 g + q: A (16 x 8) holds (g, q), (g+8, q),
+// (g, q+4), (g+8, q+4); B (8 x 8) holds (k = q, n = g), (q+4, g); the
+// accumulator holds (g, 2q), (g, 2q+1), (g+8, 2q), (g+8, 2q+1).
+
+// Kernel 3's products over N (C B^T and C S_in^T) read both operands from
+// rows of N floats: a lane reads 16 bytes, columns c0 + 4q .. c0 + 4q + 3,
+// which stand for k = q, q + 4 of one k-step and k = q, q + 4 of the next.
+// A and B share that order of K, so each sum is unchanged.
+
+// d[t] += sum over the MAX_N columns of A's rows a_row (+ g, + g + 8) times
+// B's row b_row + 8t + g, for T n-tiles (columns past N are zero in both)
+template <int T>
+__device__ __forceinline__ void product_rows(float (*d)[4], const float* a, int a_row,
+                                             const float* b, int b_row, int q) {
+#pragma unroll 2
+  for (int c0 = 0; c0 < MAX_N; c0 += 16) {
+    const float4 r0 = *reinterpret_cast<const float4*>(a + a_row * S_K + c0 + 4 * q);
+    const float4 r1 = *reinterpret_cast<const float4*>(a + (a_row + 8) * S_K + c0 + 4 * q);
+    uint32_t ah[2][4], al[2][4];
+    split(r0.x, ah[0][0], al[0][0]);
+    split(r1.x, ah[0][1], al[0][1]);
+    split(r0.y, ah[0][2], al[0][2]);
+    split(r1.y, ah[0][3], al[0][3]);
+    split(r0.z, ah[1][0], al[1][0]);
+    split(r1.z, ah[1][1], al[1][1]);
+    split(r0.w, ah[1][2], al[1][2]);
+    split(r1.w, ah[1][3], al[1][3]);
+#pragma unroll
+    for (int t0 = 0; t0 < T; t0 += 4) {
+      uint32_t bh[2][4][2], bl[2][4][2];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float4 r =
+            *reinterpret_cast<const float4*>(b + (b_row + 8 * (t0 + t)) * S_K + c0 + 4 * q);
+        split(r.x, bh[0][t][0], bl[0][t][0]);
+        split(r.y, bh[0][t][1], bl[0][t][1]);
+        split(r.z, bh[1][t][0], bl[1][t][0]);
+        split(r.w, bh[1][t][1], bl[1][t][1]);
+      }
+      mma_3xtf32<4>(d + t0, ah[0], al[0], bh[0], bl[0]);
+      mma_3xtf32<4>(d + t0, ah[1], al[1], bh[1], bl[1]);
+    }
+  }
+}
+
+// ---- 1. chunk state --------------------------------------------------------
+
+// grid (nc, BH); warp w owns S rows p in [16 (w % 4), +16), columns n in
+// [64 (w / 4), +64).
+__global__ void __launch_bounds__(CS_THREADS)
+ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ b,
+                       const float* __restrict__ dt, const float* __restrict__ cum,
+                       float* __restrict__ states, int nc, int Q, int P, int N, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* Xs = smem;                   // [2][KT][S_COL_P]
+  float* Bs = Xs + 2 * KT * S_COL_P;  // [2][KT][S_COL_N]
+  float* ws = Bs + 2 * KT * S_COL_N;  // w of the chunk, 0 past Q
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const size_t chunk = (size_t)blockIdx.y * nc + blockIdx.x;
+  const float* xg = x + chunk * Q * P;
+  const float* bg = b + chunk * Q * N;
+  const float* cg = cum + chunk * Q;
+  const float* dg = dt + chunk * Q;
+  const int nkt = (Q + KT - 1) / KT;
+
+  auto load_tile = [&](int kt) {
+    const int j0 = kt * KT;
+    load_rows(Xs + (kt & 1) * KT * S_COL_P, S_COL_P, xg + (size_t)j0 * P, P, KT, Q - j0, vec);
+    load_rows(Bs + (kt & 1) * KT * S_COL_N, S_COL_N, bg + (size_t)j0 * N, N, KT, Q - j0, vec);
+    cp_async_commit();
+  };
+  load_tile(0);
+  const float total = cg[Q - 1];
+  for (int j = threadIdx.x; j < nkt * KT; j += CS_THREADS)
+    ws[j] = j < Q ? expf(total - cg[j]) * dg[j] : 0.f;
+
+  const int m0 = 16 * (warp & 3), n0 = 64 * (warp >> 2);
+  const bool active = m0 < P && n0 < N;
+  float acc[8][4];
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[t][r] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {
+      load_tile(kt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile kt (and, the first time, ws) is in place
+    if (active) {
+      const float* xs = Xs + (kt & 1) * KT * S_COL_P;
+      const float* bs = Bs + (kt & 1) * KT * S_COL_N;
+      const float* w = ws + kt * KT;
+#pragma unroll
+      for (int k0 = 0; k0 < KT; k0 += 8) {
+        // A = (x o w)^T: A[p][j] read from x's rows j, columns p
+        const float w0 = w[k0 + q], w1 = w[k0 + q + 4];
+        const float* x0 = xs + (k0 + q) * S_COL_P + m0 + g;
+        const float* x1 = x0 + 4 * S_COL_P;
+        uint32_t ah[4], al[4];
+        split(x0[0] * w0, ah[0], al[0]);
+        split(x0[8] * w0, ah[1], al[1]);
+        split(x1[0] * w1, ah[2], al[2]);
+        split(x1[8] * w1, ah[3], al[3]);
+        const float* b0 = bs + (k0 + q) * S_COL_N + n0 + g;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          uint32_t bh[1][2], bl[1][2];
+          split(b0[8 * t], bh[0][0], bl[0][0]);
+          split(b0[8 * t + 4 * S_COL_N], bh[0][1], bl[0][1]);
+          mma_3xtf32<1>(acc + t, ah, al, bh, bl);
+        }
+      }
+    }
+    __syncthreads();  // slot kt & 1 is free for tile kt + 2
+  }
+
+  if (!active) return;
+  float* sg = states + chunk * P * N;
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = m0 + g + 8 * h, n = n0 + 8 * t + 2 * q;
+      if (p >= P) continue;
+      if (n < N) sg[(size_t)p * N + n] = acc[t][2 * h];
+      if (n + 1 < N) sg[(size_t)p * N + n + 1] = acc[t][2 * h + 1];
+    }
+}
+
+// ---- 2. state passing ------------------------------------------------------
+
+// grid (ceil(P N / SP_THREADS), BH): in place over the scratch, chunk by
+// chunk; `final_state` (BH, P, N) may be null.
+__global__ void __launch_bounds__(SP_THREADS)
+ssd_state_passing_kernel(float* __restrict__ states, const float* __restrict__ cum,
+                         float* __restrict__ final_state, int nc, int Q, int PN) {
+  const int e = blockIdx.x * SP_THREADS + threadIdx.x;
+  if (e >= PN) return;
+  const size_t bh = blockIdx.y;
+  float* s = states + bh * nc * PN + e;
+  const float* total = cum + bh * nc * Q + (Q - 1);
+  float S = 0.f;
+  float next = s[0];
+  for (int c = 0; c < nc; ++c) {
+    const float local = next;
+    if (c + 1 < nc) next = s[(size_t)(c + 1) * PN];
+    s[(size_t)c * PN] = S;  // the state entering chunk c
+    S = expf(total[(size_t)c * Q]) * S + local;
+  }
+  if (final_state != nullptr) final_state[bh * PN + e] = S;
+}
+
+// ---- 3. chunk output -------------------------------------------------------
+
+// grid (n_rt * nc * BH): block k takes row tile n_rt - 1 - k / (nc BH), so
+// the row tiles with the most causal key tiles start first.
+__global__ void __launch_bounds__(CO_THREADS, 2)
+ssd_chunk_output_kernel(const float* __restrict__ x, const float* __restrict__ b,
+                        const float* __restrict__ c, const float* __restrict__ dt,
+                        const float* __restrict__ cum, const float* __restrict__ states,
+                        float* __restrict__ y, int nc, int Q, int P, int N, int n_rt,
+                        int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* Cs = smem;                  // [RT][S_K]: C of the row tile
+  float* Bs = Cs + RT * S_K;         // [2][KT][S_K]; S_in over both first
+  float* Xs = Bs + 2 * KT * S_K;     // [2][KT][S_PERM_P]
+  float* cum_s = Xs + 2 * KT * S_PERM_P;
+  float* dt_s = cum_s + Q;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int per_rt = gridDim.x / n_rt;       // nc * BH
+  const size_t chunk = blockIdx.x % per_rt;  // bh * nc + chunk index
+  const int i0 = (n_rt - 1 - blockIdx.x / per_rt) * RT;
+  const bool has_state = chunk % nc != 0;  // chunk 0 enters with S = 0
+  const float* xg = x + chunk * Q * P;
+  const float* bg = b + chunk * Q * N;
+
+  // columns [N, MAX_N) of C, B and S_in (rows contiguous from Cs on): the
+  // loads never write them, and the products run over all MAX_N
+  const int pad = MAX_N - N;
+  for (int e = threadIdx.x; e < 2 * RT * pad; e += CO_THREADS)
+    Cs[e / pad * S_K + N + e % pad] = 0.f;
+  for (int e = threadIdx.x; e < Q; e += CO_THREADS) {
+    cum_s[e] = cum[chunk * Q + e];
+    dt_s[e] = dt[chunk * Q + e];
+  }
+  load_rows(Cs, S_K, c + chunk * Q * N + (size_t)i0 * N, N, RT, Q - i0, vec);
+  if (has_state) load_rows(Bs, S_K, states + chunk * P * N, N, P, P, vec);
+  cp_async_commit();
+
+  const int m0 = 16 * warp;        // this warp's rows in the tile
+  const int r0 = i0 + m0;          // ... and in the chunk
+  const bool rows_live = r0 < Q;
+  const int ia = r0 + g, ib = ia + 8;  // this thread's two rows
+  float yacc[8][4];  // y columns 8u + 2q, + 1 of rows ia and ib
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) yacc[u][r] = 0.f;
+
+  if (has_state) {  // y = (C S_in^T) o exp(cum) first
+    cp_async_wait<0>();
+    __syncthreads();
+    if (rows_live) {
+      product_rows<8>(yacc, Cs, m0 + g, Bs, g, q);
+      const float da = ia < Q ? expf(cum_s[ia]) : 0.f;
+      const float db = ib < Q ? expf(cum_s[ib]) : 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        yacc[u][0] *= da;
+        yacc[u][1] *= da;
+        yacc[u][2] *= db;
+        yacc[u][3] *= db;
+      }
+    }
+    __syncthreads();  // every read of S_in precedes key tile 0's load
+  }
+
+  const int k_end = min(Q, i0 + RT);  // keys past the tile's last row are masked
+  const int nkt = (k_end + KT - 1) / KT;
+  auto load_tile = [&](int kt) {
+    const int j0 = kt * KT;
+    load_rows(Bs + (kt & 1) * KT * S_K, S_K, bg + (size_t)j0 * N, N, KT, Q - j0, vec);
+    load_rows(Xs + (kt & 1) * KT * S_PERM_P, S_PERM_P, xg + (size_t)j0 * P, P, KT, Q - j0,
+              vec);
+    cp_async_commit();
+  };
+  load_tile(0);
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {
+      load_tile(kt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile kt (and, the first time, C, cum and dt) is in place
+    const int j0 = kt * KT;
+    if (rows_live && j0 <= r0 + 15) {
+      const float* xs = Xs + (kt & 1) * KT * S_PERM_P;
+      float sc[4][4];  // scores of rows ia, ib and keys j0 + 8t + 2q, + 1
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sc[t][r] = 0.f;
+      product_rows<4>(sc, Cs, m0 + g, Bs + (kt & 1) * KT * S_K, g, q);  // C B^T
+      const float ca = cum_s[min(ia, Q - 1)], cb = cum_s[min(ib, Q - 1)];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // decay, and the causal mask as a selection
+          const int j = j0 + 8 * t + 2 * q + h;
+          const int jc = min(j, Q - 1);
+          const float lj = dt_s[jc], cj = cum_s[jc];
+          sc[t][h] = (j <= ia && ia < Q) ? sc[t][h] * (expf(ca - cj) * lj) : 0.f;
+          sc[t][2 + h] = (j <= ib && ib < Q) ? sc[t][2 + h] * (expf(cb - cj) * lj) : 0.f;
+        }
+        // (scores o L) x: the accumulator is the A fragment of k-step t with
+        // k = q <-> key 8t + 2q and k = q + 4 <-> key 8t + 2q + 1
+        uint32_t ah[4], al[4];
+        split(sc[t][0], ah[0], al[0]);
+        split(sc[t][2], ah[1], al[1]);
+        split(sc[t][1], ah[2], al[2]);
+        split(sc[t][3], ah[3], al[3]);
+        const float* x0 = xs + (8 * t + 2 * q) * S_PERM_P + g;
+        uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {  // columns past P only reach y's columns past P
+          split(x0[8 * u], bh[u][0], bl[u][0]);
+          split(x0[8 * u + S_PERM_P], bh[u][1], bl[u][1]);
+        }
+        mma_3xtf32<8>(yacc, ah, al, bh, bl);
+      }
+    }
+    __syncthreads();  // slot kt & 1 is free for tile kt + 2
+  }
+
+  if (!rows_live) return;
+  float* yg = y + chunk * Q * P;
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = ia + 8 * h, p = 8 * u + 2 * q;
+      if (i >= Q) continue;
+      if (p < P) yg[(size_t)i * P + p] = yacc[u][2 * h];
+      if (p + 1 < P) yg[(size_t)i * P + p + 1] = yacc[u][2 * h + 1];
+    }
+}
+
+// ---- host ------------------------------------------------------------------
+
+bool bad_shape(int BH, int nc, int Q, int P, int N) {
+  return BH < 1 || BH > 65535 || nc < 1 || Q < 1 || P < 1 || P > MAX_P || N < 1 ||
+         N > MAX_N;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// 16-byte copies need rows of whole 16-byte vectors on 16-byte boundaries
+int vector_loads(int P, int N, const void* a, const void* b, const void* c) {
+  return P % 4 == 0 && N % 4 == 0 && aligned16(a) && aligned16(b) && aligned16(c);
+}
+
+// the kernel's dynamic shared memory, set before each launch
+cudaError_t set_smem(const void* kernel, size_t bytes) {
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem > static_cast<size_t>(max_smem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  if (bytes > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace
+
+// Shapes, all float32 and contiguous, BH = batch * heads: x, y (BH, nc, Q, P);
+// b, c (BH, nc, Q, N); dt, cum (BH, nc, Q); states (BH, nc, P, N);
+// final_state (BH, P, N). Each entry point launches on `stream`, returns
+// cudaErrorInvalidValue for shapes the kernels do not take, else
+// cudaGetLastError() after its launch.
+
+// kernel 1: states[c] = x^T (w o B) of chunk c
+extern "C" int ssd_chunk_state(const void* x, const void* b, const void* dt,
+                               const void* cum, void* states, int BH, int nc, int Q,
+                               int P, int N, void* stream) {
+  if (bad_shape(BH, nc, Q, P, N)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * static_cast<size_t>(chunk_state_smem_floats(Q));
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(ssd_chunk_state_kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_scan_kernel<<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  ssd_chunk_state_kernel<<<dim3(nc, BH), CS_THREADS, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(b),
+      static_cast<const float*>(dt), static_cast<const float*>(cum),
+      static_cast<float*>(states), nc, Q, P, N, vector_loads(P, N, x, b, x));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kernel 2, in place: states[c] becomes the state entering chunk c; the
+// state after the last chunk goes to final_state unless it is null
+extern "C" int ssd_state_passing(void* states, const void* cum, void* final_state,
+                                 int BH, int nc, int Q, int P, int N, void* stream) {
+  if (bad_shape(BH, nc, Q, P, N)) return static_cast<int>(cudaErrorInvalidValue);
+  const int PN = P * N;
+  ssd_state_passing_kernel<<<dim3((PN + SP_THREADS - 1) / SP_THREADS, BH), SP_THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(states), static_cast<const float*>(cum),
+      static_cast<float*>(final_state), nc, Q, PN);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kernel 3: y from x, B, C and the states entering each chunk
+extern "C" int ssd_chunk_output(const void* x, const void* b, const void* c,
+                                const void* dt, const void* cum, const void* states,
+                                void* y, int BH, int nc, int Q, int P, int N,
+                                void* stream) {
+  if (bad_shape(BH, nc, Q, P, N)) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_rt = (Q + RT - 1) / RT;
+  if (static_cast<long long>(n_rt) * nc * BH > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * static_cast<size_t>(chunk_output_smem_floats(Q));
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(ssd_chunk_output_kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_chunk_output_kernel<<<n_rt * nc * BH, CO_THREADS, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(b),
       static_cast<const float*>(c), static_cast<const float*>(dt),
-      static_cast<const float*>(cum), static_cast<float*>(y), nc, Q, P, N);
+      static_cast<const float*>(cum), static_cast<const float*>(states),
+      static_cast<float*>(y), nc, Q, P, N, n_rt,
+      vector_loads(P, N, x, b, c) && aligned16(states));
   return static_cast<int>(cudaGetLastError());
+}
+
+// the scan: the three kernels back to back, `states` as their scratch
+extern "C" int ssd_chunk_scan_staged(const void* x, const void* b, const void* c,
+                                     const void* dt, const void* cum, void* states,
+                                     void* y, int BH, int nc, int Q, int P, int N,
+                                     void* stream) {
+  int err = ssd_chunk_state(x, b, dt, cum, states, BH, nc, Q, P, N, stream);
+  if (err == 0) err = ssd_state_passing(states, cum, nullptr, BH, nc, Q, P, N, stream);
+  if (err == 0) err = ssd_chunk_output(x, b, c, dt, cum, states, y, BH, nc, Q, P, N, stream);
+  return err;
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -30,12 +30,14 @@ def attention(q, k, v, *, causal=True, window=None, scale=None,
     return o.transpose(1, 2)
 
 
-def ssd(xh, Bm, Cm, dt, A, *, chunk: int = 128) -> torch.Tensor:
-    """Mamba2 SSD through the chunk kernel.
+def ssd_prep(xh, Bm, Cm, dt, A, *, chunk: int = 128):
+    """The SSD kernel's five inputs, as the reference's ``ops.ssd`` makes
+    them: x, B and C per head and dt chunked to (B,H,nc,Q,...), and the
+    inclusive cumsum of dt*A inside each chunk, all float32 and contiguous.
 
     xh: (B,L,H,P); Bm/Cm: (B,L,G,N); dt: (B,L,H) float32 post-softplus;
-    A: (H,) negative. Head h reads group ``h // (H // G)``. Returns y:
-    (B,L,H,P) float32. The chunk is ``min(chunk, L)`` and must divide L.
+    A: (H,) negative. Head h reads group ``h // (H // G)``. The chunk is
+    ``min(chunk, L)`` and must divide L.
     """
     B, L, H, P = xh.shape
     G = Bm.shape[2]
@@ -50,9 +52,14 @@ def ssd(xh, Bm, Cm, dt, A, *, chunk: int = 128) -> torch.Tensor:
         t = t.reshape(B, nc, Q, *t.shape[2:]).movedim(3, 1)
         return t.to(torch.float32).contiguous()
 
-    bc = chunked(Bm.repeat_interleave(rep, dim=2))
-    cc = chunked(Cm.repeat_interleave(rep, dim=2))
-    dtc = chunked(dt)
-    cum = torch.cumsum(chunked(dt * A), dim=-1)
-    y = ssd_chunk_scan_gpu(chunked(xh), bc, cc, dtc, cum)
+    return (chunked(xh), chunked(Bm.repeat_interleave(rep, dim=2)),
+            chunked(Cm.repeat_interleave(rep, dim=2)), chunked(dt),
+            torch.cumsum(chunked(dt * A), dim=-1))
+
+
+def ssd(xh, Bm, Cm, dt, A, *, chunk: int = 128) -> torch.Tensor:
+    """Mamba2 SSD through the chunk kernels: :func:`ssd_prep`'s inputs
+    (see there for the shapes) to y (B,L,H,P) float32."""
+    B, L, H, P = xh.shape
+    y = ssd_chunk_scan_gpu(*ssd_prep(xh, Bm, Cm, dt, A, chunk=chunk))
     return y.movedim(1, 3).reshape(B, L, H, P)

@@ -1,11 +1,15 @@
 """Mamba2 SSD chunk scan (state-space duality) over precomputed chunk tensors.
 
-The port of ``repro.kernels.ssd_scan``. On CUDA tensors it launches the
-hand-written kernel in ``csrc/ssd_scan.cu`` (see the note there for its
-design and bound); on CPU tensors it computes the plain version,
-:func:`ssd_chunk_scan_plain`. Which one runs is decided by the tensors'
-device alone. The chunking and cumsum prep lives in
-:func:`repro_torch.kernels.ops.ssd`.
+The port of ``repro.kernels.ssd_scan``, in three stages laid out as the
+reference's plain ``_ssd_scan``: the chunk states (parallel over chunks),
+the state passing (in order over chunks), and the chunk output (parallel
+over query tiles and chunks). On CUDA tensors each stage is a hand-written
+kernel in ``csrc/ssd_scan.cu`` (see the note there for their design and
+bound), and :func:`ssd_chunk_scan_gpu` launches all three from one C entry
+point; on CPU tensors it composes the stages' plain versions. Which one runs
+is decided by the tensors' device alone. :func:`ssd_chunk_scan_plain`, the
+one-loop version of what the TPU kernel computes, is the oracle of both. The
+chunking and cumsum prep lives in :func:`repro_torch.kernels.ops.ssd_prep`.
 """
 from __future__ import annotations
 
@@ -15,13 +19,23 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: Launches of the CUDA kernel in this process (the CPU path never counts).
+#: Scans run through the CUDA kernels in this process, one per call (the
+#: CPU path never counts).
 LAUNCHES = 0
+#: Launches of each of the three CUDA kernels.
+STAGE_LAUNCHES = {"chunk_state": 0, "state_passing": 0, "chunk_output": 0}
 
-#: Largest head dim and state dim the CUDA kernel's thread layout covers
+#: Largest head dim and state dim the CUDA kernels' tiles cover
 #: (mamba2-130m: 64 and 128).
 MAX_HEADDIM = 64
 MAX_STATE = 128
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+    for stage in STAGE_LAUNCHES:
+        STAGE_LAUNCHES[stage] = 0
 
 
 def ssd_chunk_scan_plain(xc, bc, cc, dtc, cum) -> torch.Tensor:
@@ -52,6 +66,47 @@ def ssd_chunk_scan_plain(xc, bc, cc, dtc, cum) -> torch.Tensor:
     return torch.stack(ys, dim=2)
 
 
+def ssd_chunk_state_plain(xc, bc, dtc, cum) -> torch.Tensor:
+    """Stage 1: each chunk's own contribution to the carried state,
+    ``x^T (w o B)`` with ``w_j = exp(total - cum_j) dt_j``, as
+    (B, H, nc, P, N) float32."""
+    w = torch.exp(cum[..., -1:] - cum) * dtc                   # (B,H,nc,Q)
+    return torch.einsum("bhcjp,bhcjn->bhcpn", xc, w[..., None] * bc)
+
+
+def ssd_state_passing_plain(states, cum) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2: from the chunk states, the state entering each chunk (zero
+    for the first) and the state after the last, in order over the chunks:
+    ``S <- exp(total_c) S + states[c]``."""
+    lam = torch.exp(cum[..., -1])                                # (B,H,nc)
+    S = torch.zeros_like(states[:, :, 0])
+    entering = torch.empty_like(states)
+    for c in range(states.shape[2]):
+        entering[:, :, c] = S
+        S = lam[:, :, c, None, None] * S + states[:, :, c]
+    return entering, S
+
+
+def ssd_chunk_output_plain(xc, bc, cc, dtc, cum, entering) -> torch.Tensor:
+    """Stage 3: y of every chunk from its inputs and the state entering it,
+    ``(C B^T o L) x + (C S_in^T) o exp(cum)``; the causal mask selects."""
+    Q = xc.shape[3]
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=xc.device).tril()
+    lmat = torch.exp(cum[..., :, None] - cum[..., None, :]) * dtc[..., None, :]
+    lmat = torch.where(causal, lmat, 0.0)
+    scores = torch.einsum("bhcin,bhcjn->bhcij", cc, bc)
+    y_intra = torch.einsum("bhcij,bhcjp->bhcip", scores * lmat, xc)
+    y_inter = torch.einsum("bhcin,bhcpn->bhcip", cc, entering)
+    return y_intra + y_inter * torch.exp(cum)[..., None]
+
+
+def ssd_staged_plain(xc, bc, cc, dtc, cum) -> torch.Tensor:
+    """The three plain stages composed: what the CUDA kernels compute."""
+    entering, _ = ssd_state_passing_plain(
+        ssd_chunk_state_plain(xc, bc, dtc, cum), cum)
+    return ssd_chunk_output_plain(xc, bc, cc, dtc, cum, entering)
+
+
 def _validate(xc, bc, cc, dtc, cum) -> None:
     if xc.ndim != 5 or bc.ndim != 5:
         raise ValueError(
@@ -80,33 +135,114 @@ def _validate(xc, bc, cc, dtc, cum) -> None:
                 f"ssd_chunk_scan: xc on {xc.device}, {name} on {t.device}")
 
 
-def _signature(lib: ctypes.CDLL):
-    fn = lib.ssd_chunk_scan
-    fn.restype = ctypes.c_int
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 6 + [i] * 5 + [p]
-    return fn
+def _validate_states(states, xc, bc) -> None:
+    want = (*xc.shape[:3], xc.shape[-1], bc.shape[-1])
+    if tuple(states.shape) != want:
+        raise ValueError(f"ssd states: expected (B,H,nc,P,N) = {want}, got "
+                         f"{tuple(states.shape)}")
+    if states.dtype != torch.float32 or states.device != xc.device:
+        raise ValueError(f"ssd states: expected float32 on {xc.device}, got "
+                         f"{states.dtype} on {states.device}")
 
 
-def _launch(xc, bc, cc, dtc, cum) -> torch.Tensor:
-    global LAUNCHES
+def _checked(xc, bc, *tensors) -> tuple[int, ...]:
+    """The C interface's (BH, nc, Q, P, N), after the CUDA kernels' own
+    limits: P, N and contiguity."""
     B, H, nc, Q, P = xc.shape
     N = bc.shape[-1]
     if P > MAX_HEADDIM or N > MAX_STATE:
         raise ValueError(
-            f"ssd_chunk_scan: the CUDA kernel takes P <= {MAX_HEADDIM} and "
+            f"ssd_chunk_scan: the CUDA kernels take P <= {MAX_HEADDIM} and "
             f"N <= {MAX_STATE}, got P={P}, N={N}")
-    if not all(t.is_contiguous() for t in (xc, bc, cc, dtc, cum)):
-        raise ValueError("ssd_chunk_scan: the CUDA kernel takes contiguous "
+    if not all(t.is_contiguous() for t in (xc, bc, *tensors)):
+        raise ValueError("ssd_chunk_scan: the CUDA kernels take contiguous "
                          "inputs")
-    y = torch.empty_like(xc)
+    return B * H, nc, Q, P, N
+
+
+def _call(entry: str, pointers, dims, device) -> None:
+    """One C entry point of the library: pointers (tensors or None), then
+    the five ints, then the stream."""
     lib = _build.load("ssd_scan")
-    stream = torch.cuda.current_stream(xc.device).cuda_stream
-    code = _signature(lib)(xc.data_ptr(), bc.data_ptr(), cc.data_ptr(),
-                           dtc.data_ptr(), cum.data_ptr(), y.data_ptr(),
-                           B * H, nc, Q, P, N, stream)
-    _build.check(lib, code, "ssd_chunk_scan")
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    code = fn(*(None if t is None else t.data_ptr() for t in pointers), *dims,
+              stream)
+    _build.check(lib, code, entry)
+
+
+def _on_cuda(what: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for any other."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {t.device}")
+    return t.device.type == "cuda"
+
+
+def ssd_chunk_state_gpu(xc, bc, dtc, cum) -> torch.Tensor:
+    """Stage 1 (:func:`ssd_chunk_state_plain`): kernel 1 on a card."""
+    _validate(xc, bc, bc, dtc, cum)
+    if not _on_cuda("ssd_chunk_state", xc):
+        return ssd_chunk_state_plain(xc, bc, dtc, cum)
+    dims = _checked(xc, bc, dtc, cum)
+    states = xc.new_empty((*xc.shape[:3], dims[3], dims[4]))
+    _call("ssd_chunk_state", (xc, bc, dtc, cum, states), dims, xc.device)
+    STAGE_LAUNCHES["chunk_state"] += 1
+    return states
+
+
+def ssd_state_passing_gpu(states, cum) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2 (:func:`ssd_state_passing_plain`): kernel 2 on a card, run
+    over a copy of ``states`` (the scan itself runs it in place)."""
+    if (states.ndim != 5 or cum.ndim != 4
+            or tuple(cum.shape[:3]) != tuple(states.shape[:3])):
+        raise ValueError(f"ssd_state_passing: states (B,H,nc,P,N) "
+                         f"{tuple(states.shape)} and cum (B,H,nc,Q) "
+                         f"{tuple(cum.shape)} disagree")
+    if states.dtype != torch.float32 or cum.dtype != torch.float32:
+        raise TypeError(f"ssd_state_passing: states and cum must be float32, "
+                        f"got {states.dtype} and {cum.dtype}")
+    if cum.device != states.device:
+        raise ValueError(f"ssd_state_passing: states on {states.device}, cum "
+                         f"on {cum.device}")
+    if not _on_cuda("ssd_state_passing", states):
+        return ssd_state_passing_plain(states, cum)
+    B, H, nc, P, N = states.shape
+    entering = states.contiguous().clone()
+    final = states.new_empty((B, H, P, N))
+    _call("ssd_state_passing", (entering, cum.contiguous(), final),
+          (B * H, nc, cum.shape[-1], P, N), states.device)
+    STAGE_LAUNCHES["state_passing"] += 1
+    return entering, final
+
+
+def ssd_chunk_output_gpu(xc, bc, cc, dtc, cum, entering) -> torch.Tensor:
+    """Stage 3 (:func:`ssd_chunk_output_plain`): kernel 3 on a card."""
+    _validate(xc, bc, cc, dtc, cum)
+    _validate_states(entering, xc, bc)
+    if not _on_cuda("ssd_chunk_output", xc):
+        return ssd_chunk_output_plain(xc, bc, cc, dtc, cum, entering)
+    dims = _checked(xc, bc, cc, dtc, cum, entering)
+    y = torch.empty_like(xc)
+    _call("ssd_chunk_output", (xc, bc, cc, dtc, cum, entering, y), dims,
+          xc.device)
+    STAGE_LAUNCHES["chunk_output"] += 1
+    return y
+
+
+def _launch(xc, bc, cc, dtc, cum) -> torch.Tensor:
+    global LAUNCHES
+    dims = _checked(xc, bc, cc, dtc, cum)
+    # the kernels' scratch: each chunk's state, then the state entering it
+    states = xc.new_empty((*xc.shape[:3], dims[3], dims[4]))
+    y = torch.empty_like(xc)
+    _call("ssd_chunk_scan_staged", (xc, bc, cc, dtc, cum, states, y), dims,
+          xc.device)
     LAUNCHES += 1
+    for stage in STAGE_LAUNCHES:
+        STAGE_LAUNCHES[stage] += 1
     return y
 
 
@@ -120,8 +256,6 @@ def ssd_chunk_scan_gpu(
     """SSD chunk scan -> y (B, H, nc, Q, P), all float32, the state starting
     at zero in each (batch, head)."""
     _validate(xc, bc, cc, dtc, cum)
-    if xc.device.type == "cpu":
-        return ssd_chunk_scan_plain(xc, bc, cc, dtc, cum)
-    if xc.device.type != "cuda":
-        raise ValueError(f"ssd_chunk_scan: no kernel for device {xc.device}")
+    if not _on_cuda("ssd_chunk_scan", xc):
+        return ssd_staged_plain(xc, bc, cc, dtc, cum)
     return _launch(xc, bc, cc, dtc, cum)

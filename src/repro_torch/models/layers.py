@@ -32,7 +32,7 @@ def _init(gen: torch.Generator, shape, dtype, scale=None, *,
 # -- RMSNorm ---------------------------------------------------------------
 
 def rmsnorm_init(d: int, dtype, *, stack: int | None = None,
-                 device: torch.device | str = "cpu") -> Params:
+                 device: torch.device | str) -> Params:
     shape = (stack, d) if stack is not None else (d,)
     return {"scale": torch.ones(shape, dtype=dtype, device=device)}
 

@@ -153,7 +153,7 @@ def ssm_block(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # -- decode -----------------------------------------------------------------
 
 def ssm_decode_init(cfg: ModelConfig, batch: int, *,
-                    device: torch.device | str = "cpu") -> dict:
+                    device: torch.device | str) -> dict:
     conv_ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, conv_ch),

@@ -46,6 +46,8 @@ FLASH_CASES = [  # B, H, KV, Sq, Sk, D, Dv, causal, window
 ]
 SSD_CASES = [(L, chunk, G) for L, chunk in ((64, 32), (128, 32), (256, 64))
              for G in (1, 2)]  # TestSSDKernel's; B 2, H 4, P 32, N 32
+# and one chunk (nc = 1), and L < chunk (Q = 16)
+SSD_STAGED_CASES = SSD_CASES + [(32, 32, 1), (16, 32, 2)]
 
 
 @pytest.fixture(autouse=True)
@@ -170,6 +172,42 @@ def test_ssd_matches_reference_kernel(L, chunk, G):
     got = pt_ssd.ssd_chunk_scan_gpu(*[torch.from_numpy(a) for a in chunks])
     assert got.shape == chunks[0].shape and got.dtype == torch.float32
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("L,chunk,G", SSD_STAGED_CASES)
+def test_ssd_staged_plain_matches_one_loop_oracle(L, chunk, G):
+    """The three plain stages (the CUDA kernels' layout: chunk states,
+    state passing, chunk output) composed against the one-loop oracle, to
+    float32 rounding; the CPU path of the scan is that composition."""
+    chunks = [torch.from_numpy(a) for a in _ssd_chunks(
+        np.random.default_rng(8), L, chunk, G)]
+    want = pt_ssd.ssd_chunk_scan_plain(*chunks)
+    got = pt_ssd.ssd_staged_plain(*chunks)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+    assert torch.equal(pt_ssd.ssd_chunk_scan_gpu(*chunks), got)
+    xc, bc, cc, dtc, cum = chunks
+    states = pt_ssd.ssd_chunk_state_gpu(xc, bc, dtc, cum)
+    assert states.shape == (*xc.shape[:3], xc.shape[-1], bc.shape[-1])
+    entering, final = pt_ssd.ssd_state_passing_gpu(states, cum)
+    assert not entering[:, :, 0].any()  # the first chunk enters with zero
+    for c in range(1, xc.shape[2]):  # chunk c enters with the state after c-1
+        assert torch.equal(entering[:, :, c], pt_ssd.ssd_state_passing_plain(
+            states[:, :, :c], cum[:, :, :c])[1])
+    assert torch.equal(
+        pt_ssd.ssd_chunk_output_gpu(xc, bc, cc, dtc, cum, entering), got)
+
+
+def test_ssd_stages_count_nothing_on_the_cpu():
+    s0, st0 = pt_ssd.LAUNCHES, dict(pt_ssd.STAGE_LAUNCHES)
+    chunks = [torch.from_numpy(a) for a in _ssd_chunks(
+        np.random.default_rng(9), 64, 32, 1)]
+    xc, bc, cc, dtc, cum = chunks
+    entering, _ = pt_ssd.ssd_state_passing_gpu(
+        pt_ssd.ssd_chunk_state_gpu(xc, bc, dtc, cum), cum)
+    pt_ssd.ssd_chunk_output_gpu(xc, bc, cc, dtc, cum, entering)
+    pt_ssd.ssd_chunk_scan_gpu(*chunks)
+    assert pt_ssd.LAUNCHES == s0 and pt_ssd.STAGE_LAUNCHES == st0
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-3), ("bfloat16", 0.6)])
@@ -298,6 +336,19 @@ class TestShapeValidation:
             pt_ssd.ssd_chunk_scan_gpu(x, b.bfloat16(), b, d, d)
         with pytest.raises(TypeError, match="dtc must be float32"):
             pt_ssd.ssd_chunk_scan_gpu(x, b, b, d.double(), d)
+
+    def test_ssd_stages_validate(self):
+        x, b = torch.ones((1, 2, 3, 16, 8)), torch.ones((1, 2, 3, 16, 4))
+        d = torch.ones((1, 2, 3, 16))
+        s = torch.ones((1, 2, 3, 8, 4))
+        with pytest.raises(ValueError, match="disagree"):
+            pt_ssd.ssd_state_passing_gpu(s[:, :, :2], d)
+        with pytest.raises(TypeError, match="must be float32"):
+            pt_ssd.ssd_state_passing_gpu(s.double(), d)
+        with pytest.raises(ValueError, match="states on cpu, cum on meta"):
+            pt_ssd.ssd_state_passing_gpu(s, d.to("meta"))
+        with pytest.raises(ValueError, match=r"expected \(B,H,nc,P,N\)"):
+            pt_ssd.ssd_chunk_output_gpu(x, b, b, d, d, s[..., :2])
 
     def test_ssd_chunk_must_divide_length(self):
         with pytest.raises(ValueError, match="not divisible by the chunk 32"):
@@ -439,15 +490,36 @@ def test_cuda_kernels_match_plain_versions():
         assert pt_fa.VARIANT_LAUNCHES == (
             {"wgmma": len(FLASH_CASES), "ffma": 1} if tc
             else {"wgmma": 0, "ffma": len(FLASH_CASES)})
-    n0 = pt_ssd.LAUNCHES
+    pt_ssd.reset_launches()
     mamba_head = [(2048, 256, 1, 1, 24, 64, 128)]  # L, chunk, G, B, H, P, N
-    for L, chunk, G, B, H, P, N in [
-            (*case, 2, 4, 32, 32) for case in SSD_CASES] + mamba_head:
+    ragged = [(96, 48, 1, 1, 2, 30, 20)]  # Q 48; P, N take the 4-byte copies
+    cases = ([(*case, 2, 4, 32, 32) for case in SSD_STAGED_CASES] + ragged
+             + mamba_head)
+    for L, chunk, G, B, H, P, N in cases:
         chunks = [torch.from_numpy(a).cuda() for a in _ssd_chunks(
             rng, L, chunk, G, B=B, H=H, P=P, N=N)]
         got = pt_ssd.ssd_chunk_scan_gpu(*chunks)
         want = pt_ssd.ssd_chunk_scan_plain(*chunks)
         bad = ref.outside_tolerance(got, want, 2e-4)
         assert not bad.any(), (L, chunk, G, int(bad.sum()))
-    assert pt_ssd.LAUNCHES == n0 + len(SSD_CASES) + 1
+        # each kernel against its plain stage, on the same inputs
+        xc, bc, cc, dtc, cum = chunks
+        states = pt_ssd.ssd_chunk_state_gpu(xc, bc, dtc, cum)
+        bad = ref.outside_tolerance(
+            states, pt_ssd.ssd_chunk_state_plain(xc, bc, dtc, cum), 2e-4)
+        assert not bad.any(), ("chunk_state", L, chunk, G, int(bad.sum()))
+        entering, final = pt_ssd.ssd_state_passing_gpu(states, cum)
+        for got, want in zip((entering, final),
+                             pt_ssd.ssd_state_passing_plain(states, cum)):
+            bad = ref.outside_tolerance(got, want, 2e-4)
+            assert not bad.any(), ("state_passing", L, chunk, int(bad.sum()))
+        got = pt_ssd.ssd_chunk_output_gpu(xc, bc, cc, dtc, cum, entering)
+        want = pt_ssd.ssd_chunk_output_plain(xc, bc, cc, dtc, cum, entering)
+        bad = ref.outside_tolerance(got, want, 2e-4)
+        assert not bad.any(), ("chunk_output", L, chunk, G, int(bad.sum()))
+    n = len(cases)
+    assert pt_ssd.LAUNCHES == n
+    assert pt_ssd.STAGE_LAUNCHES == {"chunk_state": 2 * n,
+                                     "state_passing": 2 * n,
+                                     "chunk_output": 2 * n}
     torch.cuda.synchronize()

@@ -146,6 +146,26 @@ def test_ssd_scan_matches_reference(L, chunk, with_init):
             atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("L,chunk", [(64, 16), (128, 32), (96, 32)])
+def test_staged_final_state_matches_reference(L, chunk):
+    """TestSSD's cases through the port's staged plain versions (the CUDA
+    kernels' layout) from a zero state: the state after the last chunk and
+    y against the reference's ``_ssd_scan``, at its 1e-4."""
+    ref_cfg, cfg = _cfg_pair(ssm_chunk=chunk)
+    H, P, G, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
+    (xj, bj, cj, dj, aj), (xt, bt, ct, dtt, at) = _both(
+        _ssd_inputs(11, 2, L, H, P, G, N))
+    y_ref, s_ref = ref_ssm._ssd_scan(xj, bj, cj, dj, aj, ref_cfg)
+    xc, bc, cc, dtc, cum = ops.ssd_prep(xt, bt, ct, dtt, at, chunk=chunk)
+    states = ssd_scan.ssd_chunk_state_plain(xc, bc, dtc, cum)
+    entering, final = ssd_scan.ssd_state_passing_plain(states, cum)
+    assert final.shape == (2, H, P, N) and final.dtype == torch.float32
+    np.testing.assert_allclose(_np(final), _np(s_ref), atol=1e-4, rtol=1e-4)
+    y = ssd_scan.ssd_chunk_output_plain(xc, bc, cc, dtc, cum, entering)
+    np.testing.assert_allclose(_np(y.movedim(1, 3).reshape(2, L, H, P)),
+                               _np(y_ref), atol=1e-4, rtol=1e-4)
+
+
 def _block_setup(dtype_name, seed=0, L=32):
     import jax
 
@@ -229,7 +249,7 @@ def test_ssm_decode_step_matches_reference():
     """Eight decode steps of one block: outputs, conv ring and state."""
     ref_cfg, cfg, ref_p, p, _, _ = _block_setup("float32")
     ref_cache = ref_ssm.ssm_decode_init(ref_cfg, 2)
-    cache = ssm.ssm_decode_init(cfg, 2)
+    cache = ssm.ssm_decode_init(cfg, 2, device="cpu")
     xs = np.random.default_rng(6).standard_normal(
         (8, 2, 1, cfg.d_model)).astype(np.float32)
     for x in xs:
@@ -250,7 +270,7 @@ def test_block_decode_matches_its_chunked_forward():
     _, cfg, _, p, _, xt = _block_setup("float32", L=48)
     cfg = dataclasses.replace(cfg, ssm_chunk=16)
     full = ssm.ssm_block(p, xt, cfg)
-    cache = ssm.ssm_decode_init(cfg, 2)
+    cache = ssm.ssm_decode_init(cfg, 2, device="cpu")
     for t in range(xt.shape[1]):
         out, cache = ssm.ssm_decode_step(p, xt[:, t:t + 1], cache, cfg)
         np.testing.assert_allclose(_np(out[:, 0]), _np(full[:, t]),
