@@ -23,11 +23,14 @@ Phases (any failed check raises and exits non-zero):
      tolerances, and for bf16 a bound scaled to each output row); then a
      planted fault at full width (one tile skipped) that the bound must
      fail;
+     the bf16 backward of a product with K = 100 (ROADMAP C5: dx's N is
+     100, computed padded to 104); B2 at the models' attention shapes;
      The SSD scan likewise: the reference's cases at 2e-4; at
      mamba2-130m's full shape each of its three kernels (chunk state, state
      passing, chunk output) against its plain stage, then the scan against
      the one-loop oracle; and two planted faults: a plain version that drops
      one chunk's carry update, and the oracle run in single-pass TF32;
+     the three kernels and the scan at zamba2-1.2b's shape too;
   4. the streaming executor over 36-stage granite-8b-width matmul and
      attention chains (bf16) — untiered oracle, unpaced probe, balanced
      throttle, best of 3 runs with prefetch on and off, every output
@@ -35,24 +38,35 @@ Phases (any failed check raises and exits non-zero):
      the stages run (every bf16 launch through the tensor-core variant),
      the mean stage compute beside the unpaced copy of one stage's bytes,
      then the simulator calibrated and replayed;
-  5. the mamba2-130m path, all 24 layers at full width in bf16: ``forward``
-     over 4 x 2048 tokens with every weight on the card (the oracle), then
-     with the weights placed by ``host_offload`` at local fractions 0.5
-     and 0.0, prefetch on and off, every logits tensor ``torch.equal`` to
-     the oracle, best-of-3 ms, bytes and peak memory per placement; greedy
-     serving of 4 prompts through ``decode_step`` (local and offloaded,
-     tokens equal); the SSD scan's launches, and those of each of its three
-     kernels, equal to 24 x the forwards.
-     Then the same forward with the plain SSD version (a path-level check
-     of the kernels): in bf16 reported beside its floor (the plain version
-     nudged by float32 rounding), held to a bound in float32; and decode
-     against forward in float32 over 512 tokens;
+  5. the model paths at full width in bf16, through ``get_model``'s entry
+     points: mamba2-130m (24 layers), granite-8b (``[dense]``: 36 layers,
+     8.05 B parameters, B2 in every layer) and zamba2-1.2b (``[hybrid]``: 38
+     Mamba2 layers and the shared attention block after every 6, so B3 and
+     B2 in one forward). For each: the weights drawn on the card from a
+     seed and kept on the host; ``forward`` over 4 x 2048 tokens with every
+     weight on the card (the oracle), then placed by ``host_offload`` at
+     local fractions 0.5 and 0.0, prefetch on and off, every logits tensor
+     ``torch.equal`` to the oracle, best-of-3 ms, host ms, bytes and peak
+     memory per placement; greedy serving of 4 prompts through
+     ``decode_step`` (local and at 0.5, tokens equal); each kernel's
+     launches equal to its count a forward times the forwards (granite-8b:
+     36 B2; zamba2-1.2b: 6 B2 and 38 B3; mamba2-130m: 24 B3), every B2
+     launch through wgmma and each SSD kernel once a scan. Then the path
+     check: the same forward with the kernels' plain versions (the plain
+     SSD, the models' plain flash), in bf16 printed beside its floor (the
+     plain forward with one plain version's output nudged) and held to
+     ``PATH_BOUND`` in float32 (granite-8b on 8 layers); and decode against
+     forward in float32 over 512 tokens (granite-8b on 2 layers,
+     zamba2-1.2b on 12);
   6. kernel times at the main paths' shapes (CUDA events), per variant
      (the tensor-core kernel on the path and the FFMA kernel on the same
      bf16 inputs), beside the plain version's, one library call's (none for
      the SSD scan), and the card's bound (for the SSD scan at the rate of
      the instruction it uses, 3xTF32); the SSD scan's three kernels alone
-     and ``ops.ssd_prep``, the prep in front of it;
+     and ``ops.ssd_prep``, the prep in front of it; then B2 and B3 at the
+     models' shapes (phase 3 checks them there too): B2 at granite-8b's
+     and zamba2-1.2b's attention through the models' route, B3 and
+     ``ops.ssd_prep`` at zamba2-1.2b's scan;
   7. one JSON line ``{"kernels": [...]}``;
   8. the last line, ``{"ok": true, "device": {...}}``.
 
@@ -77,7 +91,12 @@ import torch  # noqa: E402
 
 from repro_torch.configs.granite_8b import CONFIG as GRANITE_8B  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M  # noqa: E402
-from repro_torch.core.tiering import TieringConfig, place_params  # noqa: E402
+from repro_torch.configs.zamba2_1_2b import CONFIG as ZAMBA2_1_2B  # noqa: E402
+from repro_torch.core.tiering import (  # noqa: E402
+    TieringConfig,
+    map_leaves,
+    place_params,
+)
 from repro_torch.core.exec import (  # noqa: E402
     StreamingExecutor,
     attention_chain,
@@ -97,10 +116,12 @@ from repro_torch.kernels.ref import (  # noqa: E402
     flash_ref,
     matmul_ref,
     outside_tolerance,
+    reference_attention,
     tolerance_ratio,
 )
 from repro_torch.models import make_batch  # noqa: E402
-from repro_torch.models import transformer as mamba  # noqa: E402
+from repro_torch.models import flash as mflash  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W); "tf32" is
 # the tensor cores' TF32 rate, which the SSD kernels use in three passes
@@ -123,6 +144,8 @@ FLASH_CASES = [  # B, H, KV, Sq, Sk, D, Dv, causal, window
 # bf16 shapes that the variant rules send to the FFMA kernels: K % 8 != 0
 # (matmul), D and Dv not multiples of 16 (flash)
 MATMUL_FFMA_BF16 = [(128, 100, 128)]
+# a bf16 product whose backward's dx has N = K = 100 (ROADMAP C5)
+MATMUL_C5 = (256, 100, 256)
 FLASH_FFMA_BF16 = [(1, 2, 2, 128, 128, 40, 40, True, None)]
 # the tensor-core instructions counted in each library's SASS, and those
 # each library must hold at least one of: HGMMA (wgmma) or HMMA (mma.sync)
@@ -140,6 +163,11 @@ SSD_CASES = [(64, 32, 1), (64, 32, 2), (128, 32, 1), (128, 32, 2),
 SSD_RAGGED = dict(B=1, H=2, L=96, P=30, N=20, chunk=48, G=1)
 # mamba2-130m's chunk scan at the path's batch and prompt length
 SSD_FULL = dict(B=4, H=24, L=2048, P=64, N=128, chunk=256, G=1)
+# zamba2-1.2b's chunk scan, and B2 at the two models' attention shapes
+# (causal, Dv = D), at the same batch and prompt length
+SSD_ZAMBA = dict(B=4, H=64, L=2048, P=64, N=64, chunk=256, G=1)
+FLASH_MODELS = {"granite-8b": dict(B=4, H=32, KV=8, S=2048, D=128),
+                "zamba2-1.2b": dict(B=4, H=32, KV=32, S=2048, D=64)}
 BEST_OF = 3
 # the float32 plain-SSD forward's bound, as a share of max(1, max|logits|),
 # float32's bound for decode against forward; why the check is held in
@@ -295,6 +323,21 @@ def phase_kernel_checks(mm_data, fa_data) -> dict:
     max_err(wg.grad, matmul_ref(x.t(), g), MATMUL_TOL[x.dtype],
             f"matmul backward dw = x^T @ g full width {x.dtype}")
     del xg, wg, g
+    # ROADMAP C5: a bf16 product with K = 100. Its backward's dx = g @ w^T
+    # has N = 100, which the kernels compute padded to 104 zero columns
+    M, K, N = MATMUL_C5
+    x5 = rand(rng, (M, K), torch.bfloat16).requires_grad_(True)
+    w5 = rand(rng, (K, N), torch.bfloat16).requires_grad_(True)
+    g5 = rand(rng, (M, N), torch.bfloat16)
+    sm.streaming_matmul(x5, w5).backward(g5)
+    Np = sm.padded_columns(K, torch.bfloat16)
+    max_err(x5.grad, matmul_ref(g5, w5.detach().t()), MATMUL_TOL[x5.dtype],
+            f"matmul backward dx = g @ w^T, x {M}x{K} w {K}x{N} bf16 (C5: "
+            f"N {K} padded to {Np}) {sm._variant(x5.dtype, N, Np)}")
+    max_err(w5.grad, matmul_ref(x5.detach().t(), g5), MATMUL_TOL[x5.dtype],
+            f"matmul backward dw = x^T @ g, x {M}x{K} w {K}x{N} bf16 "
+            f"{sm._variant(x5.dtype, M, N)}")
+    del x5, w5, g5
     q, k, v = fa_data
     err_fa = max_err(fa.flash_attention_gpu(q, k, v, causal=True,
                                             block_q=128, block_k=128),
@@ -478,7 +521,14 @@ def phase_ssd_checks(full) -> float:
     max_err(ssd.ssd_chunk_scan_gpu(*args), ssd.ssd_chunk_scan_plain(*args),
             SSD_TOL, "ssd_scan ragged " + " ".join(
                 f"{k}{v}" for k, v in SSD_RAGGED.items()) + " float32")
-    shape = " ".join(f"{k}{v}" for k, v in SSD_FULL.items()) + " float32"
+    return check_ssd_full(full, SSD_FULL)
+
+
+def check_ssd_full(full, dims: dict) -> float:
+    """Each of B3's three kernels against its plain stage on the same
+    inputs, then the scan against the one-loop oracle, at a path's full
+    shape ``dims``; the scan's max|err|."""
+    shape = " ".join(f"{k}{v}" for k, v in dims.items()) + " float32"
     xc, bc, cc, dtc, cum = full
     states = ssd.ssd_chunk_state_gpu(xc, bc, dtc, cum)
     max_err(states, ssd.ssd_chunk_state_plain(xc, bc, dtc, cum), SSD_TOL,
@@ -549,7 +599,7 @@ def phase_ssd_fault(full) -> None:
               f"bound (worst {ratio.max().item():.3g}x it), rejected")
 
 
-# -- 5. the mamba2-130m path ----------------------------------------------------
+# -- 5. the model paths: mamba2-130m, granite-8b, zamba2-1.2b -----------------
 def timed_ms(fn):
     """(result, ms, host ms) of one call that ends with the card idle; the
     host ms is how long ``fn`` took to return, before the synchronise (when
@@ -565,33 +615,34 @@ def timed_ms(fn):
 def greedy(params, cfg, prompts, n_new: int, plan=None):
     """The reference engine's serving loop: prefill token by token through
     ``decode_step``, then ``n_new`` greedy tokens. Returns the new tokens
-    and the ms of each decode step."""
-    cache = mamba.init_decode_cache(cfg, prompts.shape[0],
-                                    prompts.shape[1] + n_new)
-    step_ms, out = [], []
+    and, for each decode step, its ms and its host ms (``timed_ms``)."""
+    cache = tf.init_decode_cache(cfg, prompts.shape[0],
+                                 prompts.shape[1] + n_new)
+    steps, out = [], []
     logits = None
     for t in range(prompts.shape[1]):
-        (logits, cache), ms, _ = timed_ms(lambda: mamba.decode_step(
+        (logits, cache), *ms = timed_ms(lambda: tf.decode_step(
             params, cache, prompts[:, t:t + 1], cfg, plan=plan))
-        step_ms.append(ms)
+        steps.append(ms)
     for _ in range(n_new):
         cur = logits[:, :, :cfg.vocab_size].argmax(-1).to(torch.int32)
         out.append(cur)
-        (logits, cache), ms, _ = timed_ms(lambda: mamba.decode_step(
+        (logits, cache), *ms = timed_ms(lambda: tf.decode_step(
             params, cache, cur, cfg, plan=plan))
-        step_ms.append(ms)
-    return torch.cat(out, dim=1), step_ms
+        steps.append(ms)
+    return torch.cat(out, dim=1), steps
 
 
-def forward_with_ssd(params, batch, cfg, scan) -> torch.Tensor:
+def forward_with(params, batch, cfg, *, scan=None, flash=None):
     """``forward``'s logits with ``ops.ssd``'s chunk scan replaced by
-    ``scan``."""
-    kernel_fn = ops.ssd_chunk_scan_gpu
-    ops.ssd_chunk_scan_gpu = scan
+    ``scan`` and the models' flash route to B2 by ``flash``."""
+    kernels = ops.ssd_chunk_scan_gpu, mflash._b2
+    ops.ssd_chunk_scan_gpu = scan or kernels[0]
+    mflash._b2 = flash or kernels[1]
     try:
-        return mamba.forward(params, batch, cfg)[0]
+        return tf.forward(params, batch, cfg)[0]
     finally:
-        ops.ssd_chunk_scan_gpu = kernel_fn
+        ops.ssd_chunk_scan_gpu, mflash._b2 = kernels
 
 
 def logits_diff(got, want, V: int) -> tuple[float, float, float, float]:
@@ -606,74 +657,71 @@ def logits_diff(got, want, V: int) -> tuple[float, float, float, float]:
 
 def widened(params):
     """The parameter tree with every tensor in float32."""
-    return {k: widened(v) if isinstance(v, dict) else v.float()
-            for k, v in params.items()}
+    return map_leaves(lambda _k, t: t.float(), params)
 
 
-def phase_mamba() -> dict:
-    """The port's model path at mamba2-130m's full width; see the module
-    docstring (phase 5)."""
-    cfg = MAMBA2_130M
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.perf_counter()
-    # drawn on the card, kept on the host: each placement below then holds
-    # on the card only what it places there
-    params = mamba.init_params(gen, cfg, device="cpu")
-    batch = make_batch(cfg, gen, 4, 2048)
-    prompts = make_batch(cfg, gen, 4, 64)["tokens"]
-    n_params = sum(t.numel() for _, t in _leaves_with_keys(params))
-    print(f"[mamba] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params / 1e6:.1f} M parameters ({cfg.dtype}), batch "
-          f"{tuple(batch['tokens'].shape)}, made in "
-          f"{time.perf_counter() - t0:.1f} s")
+def cut_depth(params, depth: int):
+    """The parameter tree with only the first ``depth`` stacked layers."""
+    return {**params, "layers": map_leaves(lambda _k, t: t[:depth],
+                                           params["layers"])}
 
-    zero_counts()
-    n_fwd = 0
-    placements = [("none", 1.0, True), ("host_offload", 0.5, True),
-                  ("host_offload", 0.5, False), ("host_offload", 0.0, True),
-                  ("host_offload", 0.0, False)]
+
+def n_bytes(params) -> int:
+    return sum(t.numel() * t.element_size()
+               for _, t in _leaves_with_keys(params))
+
+
+def drive_placements(tag: str, cfg, params, batch) -> tuple:
+    """``forward`` with every weight on the card (the oracle), then with
+    the weights placed by ``host_offload`` at 0.5 and 0.0, prefetch on and
+    off; every logits tensor ``torch.equal`` to the oracle. Returns (the
+    oracle on the host, per-placement rows, forwards run)."""
     oracle = None  # on the host, so that no placement's peak includes it
-    rows = {}
-    for mode, frac, prefetch in placements:
+    rows, n_fwd = {}, 0
+    for mode, frac in (("none", 1.0), ("host_offload", 0.5),
+                       ("host_offload", 0.0)):
         placed, plan = place_params(params, TieringConfig(
             mode=mode, local_fraction=frac))
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        runs = []
-        for _ in range(1 + BEST_OF):  # the first is the warm-up
-            (logits, _), ms, host_ms = timed_ms(lambda: mamba.forward(
-                placed, batch, cfg, prefetch=prefetch, plan=plan))
-            n_fwd += 1
-            runs.append((ms, host_ms))
-            logits = logits.cpu()
-            if oracle is None:
-                oracle = logits
-            require(torch.equal(logits, oracle),
-                    f"mamba {mode} {frac} prefetch={prefetch}: logits != the "
-                    f"all-local oracle")
-            del logits
-        label = (mode if mode == "none"
-                 else f"{mode} {frac} prefetch {'on' if prefetch else 'off'}")
-        local = plan.local_bytes if plan else sum(
-            t.numel() * t.element_size() for _, t in _leaves_with_keys(params))
-        remote = plan.remote_bytes if plan else 0
-        best, best_host = min(runs[1:])
-        rows[label] = {"ms": best, "host_ms": best_host, "local_bytes": local,
-                       "remote_bytes": remote,
-                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        print(f"[mamba] forward {label}: best of {BEST_OF} {best:.3f} ms "
-              f"({best_host:.3f} ms on the host before the synchronise; "
-              f"runs {', '.join(f'{m:.3f}' for m, _ in runs)}), local "
-              f"{local / 2**20:.1f} MiB, remote {remote / 2**20:.1f} MiB, "
-              f"peak {rows[label]['peak_gib']:.3f} GiB, logits torch.equal "
-              f"to the oracle")
+        for prefetch in ((True,) if mode == "none" else (True, False)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            runs = []
+            for _ in range(1 + BEST_OF):  # the first is the warm-up
+                (logits, _), ms, host_ms = timed_ms(lambda: tf.forward(
+                    placed, batch, cfg, prefetch=prefetch, plan=plan))
+                n_fwd += 1
+                runs.append((ms, host_ms))
+                logits = logits.cpu()
+                if oracle is None:
+                    oracle = logits
+                require(torch.equal(logits, oracle),
+                        f"{tag} {mode} {frac} prefetch={prefetch}: logits != "
+                        f"the all-local oracle")
+                del logits
+            label = (mode if mode == "none" else
+                     f"{mode} {frac} prefetch {'on' if prefetch else 'off'}")
+            local = plan.local_bytes if plan else n_bytes(params)
+            remote = plan.remote_bytes if plan else 0
+            best, best_host = min(runs[1:])
+            rows[label] = {"ms": best, "host_ms": best_host,
+                           "local_bytes": local, "remote_bytes": remote,
+                           "peak_gib": torch.cuda.max_memory_allocated()
+                           / 2**30}
+            print(f"[{tag}] forward {label}: best of {BEST_OF} {best:.3f} ms "
+                  f"({best_host:.3f} ms on the host before the synchronise; "
+                  f"runs {', '.join(f'{m:.3f}' for m, _ in runs)}), local "
+                  f"{local / 2**20:.1f} MiB, remote {remote / 2**20:.1f} MiB,"
+                  f" peak {rows[label]['peak_gib']:.3f} GiB, logits "
+                  f"torch.equal to the oracle")
         del placed
-    require(bool(torch.isfinite(oracle).all()), "mamba: non-finite logits")
-    oracle = oracle.cuda()
-    params = place_params(params, TieringConfig())[0]
+    require(bool(torch.isfinite(oracle).all()), f"{tag}: non-finite logits")
+    return oracle, rows, n_fwd
 
-    # serving: greedy decode of 4 prompts, all local and offloaded
+
+def serve(tag: str, cfg, params, prompts) -> int:
+    """Greedy decode of 4 prompts, all local and at host_offload 0.5; the
+    tokens must agree. Returns the decode steps run."""
     served = {}
     for label, frac in (("local", None), ("host_offload 0.5", 0.5)):
         if frac is None:
@@ -681,91 +729,202 @@ def phase_mamba() -> dict:
         else:
             placed, plan = place_params(params, TieringConfig(
                 mode="host_offload", local_fraction=frac))
-        toks, step_ms = greedy(placed, cfg, prompts, 16, plan=plan)
-        served[label] = (toks, step_ms)
-        steady = sorted(step_ms[1:])
-        print(f"[serve] {label}: 4 prompts x {prompts.shape[1]} tokens "
-              f"prefilled token by token, 16 new each; decode step median "
-              f"{steady[len(steady) // 2]:.3f} ms, min {steady[0]:.3f} ms "
-              f"over {len(step_ms)} steps; tokens "
+        toks, steps = greedy(placed, cfg, prompts, 16, plan=plan)
+        served[label] = (toks, steps)
+        steady = sorted(steps[1:])
+        host = sorted(h for _, h in steps[1:])
+        print(f"[serve] {cfg.name} {label}: 4 prompts x {prompts.shape[1]} "
+              f"tokens prefilled token by token, 16 new each; decode step "
+              f"median {steady[len(steady) // 2][0]:.3f} ms (host "
+              f"{host[len(host) // 2]:.3f} ms before the synchronise), min "
+              f"{steady[0][0]:.3f} ms over {len(steps)} steps; tokens "
               f"{toks[0, :8].tolist()}...")
+        del placed
     require(torch.equal(served["local"][0], served["host_offload 0.5"][0]),
-            "mamba: offloaded greedy tokens != local tokens")
+            f"{tag}: offloaded greedy tokens != local tokens")
+    return sum(len(steps) for _, steps in served.values())
+
+
+def drive_model(tag: str, cfg, per_forward: dict[str, int]) -> dict:
+    """The port's model path at ``cfg``'s full width: the weights drawn on
+    the card from a seed and kept on the host (each placement then holds on
+    the card only what it places there), ``forward`` over 4 x 2048 tokens
+    per placement, then serving. The kernels' launches over the whole path
+    must be ``per_forward`` times the forwards (decode runs no kernel of
+    the reference's), every flash launch through the tensor cores, and each
+    SSD kernel once a scan. Returns the path's numbers, the weights (now on
+    the card), the batch and the oracle's logits."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = tf.init_params(gen, cfg, device="cpu")
+    batch = make_batch(cfg, gen, 4, 2048)
+    prompts = make_batch(cfg, gen, 4, 64)["tokens"]
+    n_params = sum(t.numel() for _, t in _leaves_with_keys(params))
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.4f} B parameters ({cfg.dtype}, "
+          f"{n_bytes(params) / 1e9:.2f} GB), batch "
+          f"{tuple(batch['tokens'].shape)}, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    zero_counts()
+    oracle, rows, n_fwd = drive_placements(tag, cfg, params, batch)
+    params = place_params(params, TieringConfig())[0]
+    n_steps = serve(tag, cfg, params, prompts)
     launches = counts()
-    print(f"[mamba] launches over {n_fwd} forwards and "
-          f"{2 * len(served['local'][1])} decode steps: {launches}")
-    require(launches == {"streaming_matmul": 0, "flash_attention": 0,
-                         "ssd_scan": cfg.n_layers * n_fwd},
-            f"mamba: launches {launches}, expected ssd_scan "
-            f"{cfg.n_layers} x {n_fwd} and no other kernel")
+    variants = dict(fa.VARIANT_LAUNCHES)
     stages = dict(ssd.STAGE_LAUNCHES)
-    require(all(k == cfg.n_layers * n_fwd for k in stages.values()),
-            f"mamba: SSD kernel launches {stages}, expected each "
-            f"{cfg.n_layers} x {n_fwd}")
-    print(f"[mamba] SSD kernels launched: {stages}")
+    print(f"[{tag}] launches over {n_fwd} forwards and {n_steps} decode "
+          f"steps: {launches}; flash by variant {variants}; SSD kernels "
+          f"{stages}")
+    want = {name: per_forward.get(name, 0) * n_fwd for name in launches}
+    require(launches == want, f"{tag}: launches {launches}, expected {want} "
+                              f"({per_forward} a forward)")
+    require(variants["ffma"] == 0, f"{tag}: flash launches {variants}, "
+                                   f"expected every one through wgmma")
+    require(all(k == launches["ssd_scan"] for k in stages.values()),
+            f"{tag}: SSD kernel launches {stages}, expected each "
+            f"{launches['ssd_scan']}")
+    return {"launches": launches, "forwards": n_fwd, "rows": rows,
+            "params": params, "batch": batch, "oracle": oracle.cuda()}
 
-    # path-level check of the kernels: the same forward through the plain
-    # SSD. In bf16 the random-weight model is chaotic: ops.ssd's y is
-    # rounded to bf16, and a y element that rounds one bf16 unit apart is
-    # carried on through 24 layers by the bf16 residual stream, so any
-    # kernel that is not bit-identical to the plain version moves the
-    # logits by several percent. The bf16 comparison is printed beside its
-    # floor -- the plain forward against itself with y nudged by relative
-    # noise of 2^-24, float32's own rounding -- and the check is held in
-    # float32 (the same weights widened, the same tokens), where rounding
-    # does not grow.
+
+def path_check(tag: str, cfg, run: dict, plain: dict, nudged: dict,
+               what: str, floor_what: str, depth32: int) -> None:
+    """The model's kernel forward against the same forward through the
+    kernels' plain versions (``plain``: ``forward_with``'s arguments).
+
+    In bf16 the random-weight model is chaotic: an activation that rounds
+    one bf16 unit apart is carried on through every layer by the bf16
+    residual stream, so any kernel that is not bit-identical to its plain
+    version moves the logits by several percent. The bf16 comparison is
+    printed beside its floor -- the plain forward against itself with one
+    kernel's output nudged (``nudged``) -- and the check is held in float32
+    (the same weights widened, cut to ``depth32`` layers where the whole
+    stack would not fit the time, the same tokens), where rounding does not
+    grow: within ``PATH_BOUND`` of max(1, max|logits|)."""
     V = cfg.vocab_size
-    plain = forward_with_ssd(params, batch, cfg, ssd.ssd_chunk_scan_plain)
-    noise = torch.Generator(device="cuda").manual_seed(5)
+    params, batch = run["params"], run["batch"]
+    want = forward_with(params, batch, cfg, **plain)
+    floor = forward_with(params, batch, cfg, **nudged)
+    for label, got, ref in ((f"kernel forward vs {what} forward",
+                             run["oracle"], want),
+                            (f"floor: {what} forward vs itself with "
+                             f"{floor_what}", floor, want)):
+        worst, scale, mean, agree = logits_diff(got, ref, V)
+        print(f"[{tag}] bf16 {label}: max|diff| {worst:.4g} "
+              f"({worst / max(scale, 1.0):.4g} of max|logits| {scale:.4g}), "
+              f"mean|diff| {mean:.4g}, greedy tokens agree at {agree:.2%}")
+    del want, floor
+    depth32 = min(depth32, cfg.n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=depth32)
+    p32 = widened(cut_depth(params, depth32))
+    worst, scale, mean, agree = logits_diff(
+        tf.forward(p32, batch, cfg32)[0],
+        forward_with(p32, batch, cfg32, **plain), V)
+    require(worst <= PATH_BOUND * max(scale, 1.0),
+            f"{tag} f32: {what} forward differs by {worst:.4g} > "
+            f"{PATH_BOUND} x max(1, {scale:.4g})")
+    print(f"[{tag}] float32 kernel forward vs {what} forward, {depth32} of "
+          f"{cfg.n_layers} layers: max|diff| {worst:.4g} "
+          f"({worst / max(scale, 1.0):.4g} of max|logits| {scale:.4g}; bound "
+          f"{PATH_BOUND}), mean|diff| {mean:.4g}, greedy tokens agree at "
+          f"{agree:.2%}")
 
-    def nudged(*chunks):
+
+def nudged_kernels(seed: int = 5) -> dict:
+    """Plain versions with their output perturbed, for the bf16 floors:
+    the SSD scan's float32 y moved by relative noise of 2^-24 (float32's
+    own rounding) before the model rounds it to bf16; the flash's bf16
+    output moved by 2^-9 (a quarter to a half of a bf16 unit) and rounded
+    again, so that some of its elements move by one unit."""
+    noise = torch.Generator(device="cuda").manual_seed(seed)
+
+    def scan(*chunks):
         y = ssd.ssd_chunk_scan_plain(*chunks)
         return y + y * (2.0 ** -24 * torch.randn(
             y.shape, generator=noise, device=y.device))
 
-    floor = forward_with_ssd(params, batch, cfg, nudged)
-    for what, got, want in (("kernel forward vs plain-SSD forward", oracle,
-                             plain),
-                            ("floor: plain-SSD forward vs itself with y "
-                             "nudged by 2^-24", floor, plain)):
-        worst, scale, mean, agree = logits_diff(got, want, V)
-        print(f"[mamba] bf16 {what}: max|diff| {worst:.4g} "
-              f"({worst / max(scale, 1.0):.4g} of max|logits| {scale:.4g}), "
-              f"mean|diff| {mean:.4g}, greedy tokens agree at {agree:.2%}")
-    del plain, floor, oracle
-    p32 = widened(params)
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    worst, scale, mean, agree = logits_diff(
-        mamba.forward(p32, batch, cfg32)[0],
-        forward_with_ssd(p32, batch, cfg32, ssd.ssd_chunk_scan_plain), V)
-    require(worst <= PATH_BOUND * max(scale, 1.0),
-            f"mamba f32: plain-SSD forward differs by {worst:.4g} > "
-            f"{PATH_BOUND} x max(1, {scale:.4g})")
-    print(f"[mamba] float32 kernel forward vs plain-SSD forward: max|diff| "
-          f"{worst:.4g} ({worst / max(scale, 1.0):.4g} of max|logits| "
-          f"{scale:.4g}; bound {PATH_BOUND}), mean|diff| {mean:.4g}, greedy "
-          f"tokens agree at {agree:.2%}")
-    del p32
+    def flash(q, k, v, **kw):
+        o = mflash.blocked_flash(q, k, v, **kw)
+        return (o.float() * (1.0 + 2.0 ** -9 * torch.randn(
+            o.shape, generator=noise, device=o.device))).to(o.dtype)
 
-    # the reference's decode-matches-forward contract, full width, float32
+    return {"scan": scan, "flash": flash}
+
+
+def decode_vs_forward(tag: str, cfg, depth: int, n_tok: int = 512) -> None:
+    """The reference's decode-matches-forward contract at full width in
+    float32, ``depth`` layers: token-by-token decode over 2 x ``n_tok``
+    tokens against the forward, max|diff| < 1e-3 x max(1, max|logits|)."""
+    depth = min(depth, cfg.n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=depth)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    p32 = mamba.init_params(gen, cfg32)
-    tok = make_batch(cfg32, gen, 2, 512)["tokens"]
-    full, _ = mamba.forward(p32, {"tokens": tok}, cfg32)
-    cache = mamba.init_decode_cache(cfg32, 2, 512)
+    p32 = tf.init_params(gen, cfg32)
+    tok = make_batch(cfg32, gen, 2, n_tok)["tokens"]
+    full, _ = tf.forward(p32, {"tokens": tok}, cfg32)
+    cache = tf.init_decode_cache(cfg32, 2, n_tok)
     errs = torch.zeros((), device="cuda")
-    for t in range(tok.shape[1]):
-        lg, cache = mamba.decode_step(p32, cache, tok[:, t:t + 1], cfg32)
+    for t in range(n_tok):
+        lg, cache = tf.decode_step(p32, cache, tok[:, t:t + 1], cfg32)
         errs = torch.maximum(errs, (lg[:, 0] - full[:, t]).abs().max())
-    scale32 = full[..., :V].abs().max().item()
-    err32 = errs.item()
-    require(err32 < 1e-3 * max(scale32, 1.0),
-            f"mamba f32: decode drifts from forward by {err32:.4g} "
-            f"(scale {scale32:.4g})")
-    print(f"[mamba] float32 decode vs forward over 2 x {tok.shape[1]} tokens "
-          f"({tok.shape[1] // cfg32.ssm_chunk} chunks): max|diff| {err32:.4g} "
-          f"< 1e-3 x max(1, {scale32:.4g})")
-    return {"launches": launches["ssd_scan"], "forwards": n_fwd, "rows": rows}
+    scale = full[..., :cfg.vocab_size].abs().max().item()
+    err = errs.item()
+    require(err < PATH_BOUND * max(scale, 1.0),
+            f"{tag} f32: decode drifts from forward by {err:.4g} (scale "
+            f"{scale:.4g})")
+    print(f"[{tag}] float32 decode vs forward, {depth} of {cfg.n_layers} "
+          f"layers, over 2 x {n_tok} tokens: max|diff| {err:.4g} < 1e-3 x "
+          f"max(1, {scale:.4g})")
+
+
+def phase_mamba() -> dict:
+    """mamba2-130m, all 24 layers: 24 SSD scans a forward; the path checked
+    against the plain SSD, and decode against forward at full depth."""
+    cfg = MAMBA2_130M
+    run = drive_model("mamba", cfg, {"ssd_scan": cfg.n_layers})
+    nudged = nudged_kernels()
+    path_check("mamba", cfg, run, {"scan": ssd.ssd_chunk_scan_plain},
+               {"scan": nudged["scan"]}, "plain-SSD",
+               "y nudged by 2^-24", cfg.n_layers)
+    del run["params"], run["batch"], run["oracle"]
+    decode_vs_forward("mamba", cfg, cfg.n_layers)
+    return run
+
+
+def phase_dense() -> dict:
+    """granite-8b at full width: 36 B2 launches a forward (B4 H32 KV8 S2048
+    D128 causal); the path checked against the plain flash in float32 on 8
+    layers, and decode against forward on 2."""
+    cfg = GRANITE_8B
+    run = drive_model("dense", cfg, {"flash_attention": cfg.n_layers})
+    path_check("dense", cfg, run, {"flash": mflash.blocked_flash},
+               {"flash": nudged_kernels()["flash"]}, "plain-flash",
+               "the attention output nudged by 2^-9", 8)
+    del run["params"], run["batch"], run["oracle"]
+    torch.cuda.empty_cache()
+    decode_vs_forward("dense", cfg, 2)
+    return run
+
+
+def phase_hybrid() -> dict:
+    """zamba2-1.2b at full width: 38 SSD scans (B4 H64 L2048 P64 N64) and 6
+    B2 launches (B4 H32 KV32 S2048 D64 causal) a forward; the path checked
+    against the plain flash and SSD in float32 on all 38 layers, and decode
+    against forward on 12 (two passes through the shared block)."""
+    cfg = ZAMBA2_1_2B
+    run = drive_model("hybrid", cfg, {
+        "ssd_scan": cfg.n_layers,
+        "flash_attention": cfg.n_layers // cfg.hybrid_attn_every})
+    nudged = nudged_kernels()
+    path_check("hybrid", cfg, run,
+               {"scan": ssd.ssd_chunk_scan_plain, "flash": mflash.blocked_flash},
+               {"scan": nudged["scan"], "flash": mflash.blocked_flash},
+               "plain-flash and plain-SSD", "the SSD's y nudged by 2^-24",
+               cfg.n_layers)
+    del run["params"], run["batch"], run["oracle"]
+    torch.cuda.empty_cache()
+    decode_vs_forward("hybrid", cfg, 2 * cfg.hybrid_attn_every)
+    return run
 
 
 # -- 6. kernel times ----------------------------------------------------------
@@ -786,16 +945,9 @@ def phase_times(mm_data, fa_data, ssd_data) -> dict:
         "bound_ms": mm_bound, "bound_by": mm_by,
     }
     q, k, v = fa_data
-    B, H, S, D = q.shape
-    Dv = v.shape[3]
-    live_pairs = S * (S + 1) / 2          # causal, Sq == Sk
-    fa_bound, fa_by = bound(
-        B * H * live_pairs * 2.0 * (D + Dv),
-        (q.numel() + k.numel() + v.numel() + B * H * S * Dv)
-        * q.element_size(), PEAK_FLOPS[q.dtype])
-    G = H // k.shape[1]
-    k_rep = k.repeat_interleave(G, dim=1)  # outside the timed region
-    v_rep = v.repeat_interleave(G, dim=1)
+    D, Dv = q.shape[3], v.shape[3]
+    fa_bound, fa_by = flash_bound(q, k, v)
+    k_rep, v_rep = gqa_repeated(q, k, v)  # outside the timed region
     fa_t = {
         "variant": fa._variant(q.dtype, D, Dv),
         "ms": time_ms(lambda: fa.flash_attention_gpu(
@@ -812,22 +964,8 @@ def phase_times(mm_data, fa_data, ssd_data) -> dict:
     xc, bc, cc, dtc, cum = ssd_data
     B, H, nc, Q, P = xc.shape
     N = bc.shape[-1]
-    # what the function needs per (b, h, chunk): the causal half of C B^T
-    # and of its product with x, then C S^T and the carry x^T (w o B)
-    live = Q * (Q + 1) / 2
-    ssd_flops = B * H * nc * (2.0 * live * (N + P) + 4.0 * Q * N * P)
-    ssd_bytes = sum(t.numel() for t in ssd_data + (xc,)) * 4  # y is xc-sized
-    # at the rate of the instruction the kernels use: mma.sync in TF32,
-    # three passes a product (3xTF32)
-    ssd_bound, ssd_by = bound(TF32_PASSES * ssd_flops, ssd_bytes,
-                              PEAK_FLOPS["tf32"])
-    ssd_t = {
-        "variant": "mma_tf32x3",  # three kernels, mma.sync in split TF32
-        "ms": time_ms(lambda: ssd.ssd_chunk_scan_gpu(*ssd_data), 10),
-        "plain_ms": time_ms(lambda: ssd.ssd_chunk_scan_plain(*ssd_data), 3),
-        "library_ms": None,  # no single PyTorch call computes the SSD scan
-        "bound_ms": ssd_bound, "bound_by": ssd_by,
-    }
+    ssd_t = ssd_times(ssd_data)
+    ssd_flops, ssd_bytes = ssd_work(ssd_data)
     # the three kernels alone, on preallocated outputs and scratch
     dims = (B * H, nc, Q, P, N)
     states = torch.empty((B, H, nc, P, N), device="cuda")
@@ -847,17 +985,7 @@ def phase_times(mm_data, fa_data, ssd_data) -> dict:
         "ssd_chunk_output", xc, bc, cc, dtc, cum, states, y), 10)
     scratch = states.numel() * 4
     del states, y
-    # the prep in front of the kernels (ops.ssd_prep), from the layer's own
-    # tensors: x, B and C in bf16 (G = 1, so B and C are repeated 24x)
-    rng = torch.Generator(device="cuda").manual_seed(4)
-    L, G = nc * Q, SSD_FULL["G"]
-    xh = torch.randn((B, L, H, P), generator=rng, device="cuda").bfloat16()
-    Bm, Cm = (torch.randn((B, L, G, N), generator=rng, device="cuda")
-              .bfloat16() for _ in range(2))
-    dt = torch.rand((B, L, H), generator=rng, device="cuda")
-    A = -torch.rand((H,), generator=rng, device="cuda") - 0.5
-    prep_ms = time_ms(lambda: ops.ssd_prep(xh, Bm, Cm, dt, A, chunk=Q), 10)
-    del xh, Bm, Cm, dt
+    prep_ms = ssd_prep_ms(SSD_FULL)
     out = {"streaming_matmul": mm, "flash_attention": fa_t, "ssd_scan": ssd_t}
     for name, t in out.items():
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
@@ -885,8 +1013,141 @@ def phase_times(mm_data, fa_data, ssd_data) -> dict:
     print(f"[time] ssd_scan kernels alone: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in stage_ms.items())
         + f" (sum {sum(stage_ms.values()):.4f})")
-    print(f"[time] ssd prep (ops.ssd_prep, bf16 x/B/C of B{B} L{L} H{H} "
-          f"P{P} G{G} N{N}): {prep_ms:.4f} ms")
+    print(f"[time] ssd prep (ops.ssd_prep, bf16 x/B/C of B{B} L{nc * Q} "
+          f"H{H} P{P} G{SSD_FULL['G']} N{N}): {prep_ms:.4f} ms")
+    return out
+
+
+def flash_bound(q, k, v) -> tuple[float, str]:
+    """B2's bound for causal self-attention over (B, H, S, D) q: the live
+    (causal) pairs' two products at the card's rate for q's type, or each
+    input read and the output written once."""
+    B, H, S, D = q.shape
+    Dv = v.shape[3]
+    live_pairs = S * (S + 1) / 2          # causal, Sq == Sk
+    return bound(B * H * live_pairs * 2.0 * (D + Dv),
+                 (q.numel() + k.numel() + v.numel() + B * H * S * Dv)
+                 * q.element_size(), PEAK_FLOPS[q.dtype])
+
+
+def gqa_repeated(q, k, v):
+    """k and v with each KV head repeated for its query heads, for SDPA."""
+    G = q.shape[1] // k.shape[1]
+    return k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+
+
+def ssd_work(ssd_data) -> tuple[float, int]:
+    """The SSD scan's operations and bytes: per (b, h, chunk) the causal
+    half of C B^T and of its product with x, then C S^T and the carry
+    x^T (w o B); the five float32 inputs read and y written once."""
+    xc, bc = ssd_data[0], ssd_data[1]
+    B, H, nc, Q, P = xc.shape
+    N = bc.shape[-1]
+    live = Q * (Q + 1) / 2
+    flops = B * H * nc * (2.0 * live * (N + P) + 4.0 * Q * N * P)
+    return flops, sum(t.numel() for t in ssd_data + (xc,)) * 4
+
+
+def ssd_times(ssd_data) -> dict:
+    flops, nbytes = ssd_work(ssd_data)
+    # at the rate of the instruction the kernels use: mma.sync in TF32,
+    # three passes a product (3xTF32)
+    ssd_bound, ssd_by = bound(TF32_PASSES * flops, nbytes, PEAK_FLOPS["tf32"])
+    return {
+        "variant": "mma_tf32x3",  # three kernels, mma.sync in split TF32
+        "ms": time_ms(lambda: ssd.ssd_chunk_scan_gpu(*ssd_data), 10),
+        "plain_ms": time_ms(lambda: ssd.ssd_chunk_scan_plain(*ssd_data), 3),
+        "library_ms": None,  # no single PyTorch call computes the SSD scan
+        "bound_ms": ssd_bound, "bound_by": ssd_by,
+    }
+
+
+def ssd_prep_ms(dims: dict) -> float:
+    """``ops.ssd_prep``, the prep in front of the kernels, from a layer's
+    own tensors at ``dims``: x, B and C in bf16, B and C repeated per head
+    (G = 1)."""
+    rng = torch.Generator(device="cuda").manual_seed(4)
+    B, L, H, P, N, G = (dims[k] for k in ("B", "L", "H", "P", "N", "G"))
+    xh = torch.randn((B, L, H, P), generator=rng, device="cuda").bfloat16()
+    Bm, Cm = (torch.randn((B, L, G, N), generator=rng, device="cuda")
+              .bfloat16() for _ in range(2))
+    dt = torch.rand((B, L, H), generator=rng, device="cuda")
+    A = -torch.rand((H,), generator=rng, device="cuda") - 0.5
+    return time_ms(lambda: ops.ssd_prep(xh, Bm, Cm, dt, A,
+                                        chunk=dims["chunk"]), 10)
+
+
+# -- 6b. the kernels at the models' own shapes ---------------------------------
+def model_flash_data(shape: dict) -> tuple:
+    """Random bf16 q, k, v in the models' (B, S, H, D) layout, as
+    ``gqa_attention`` hands them to ``flash_attention``."""
+    rng = np.random.default_rng(6)
+    B, H, KV, S, D = (shape[k] for k in ("B", "H", "KV", "S", "D"))
+    return (rand(rng, (B, S, H, D), torch.bfloat16),
+            rand(rng, (B, S, KV, D), torch.bfloat16),
+            rand(rng, (B, S, KV, D), torch.bfloat16))
+
+
+def phase_model_shape_checks(fa_inputs: dict, ssd_inputs: dict) -> dict:
+    """B2 at granite-8b's and zamba2-1.2b's attention shapes, through the
+    models' route (``ops.attention`` on the strided (B, S, H, D) tensors),
+    against the dense oracle within ``FLASH_TOL``'s bf16 bound; B3's three
+    kernels and the scan at zamba2-1.2b's shape within ``SSD_TOL``. Returns
+    each kernel's largest max|err|."""
+    errs = {"flash_attention": 0.0}
+    for label, (q, k, v) in fa_inputs.items():
+        S = q.shape[1]
+        got = ops.attention(q, k, v, causal=True, block_q=S, block_k=S)
+        want = reference_attention(q, k, v, causal=True)
+        B, _, H, D = q.shape
+        err = max_err(got, want, FLASH_TOL[q.dtype],
+                      f"flash at {label}'s shape B{B} H{H} KV{k.shape[2]} "
+                      f"S{S} D{D} causal bf16 "
+                      f"{fa._variant(q.dtype, D, v.shape[3])}, the models' "
+                      f"strided layout")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        del got, want
+    errs["ssd_scan"] = max(check_ssd_full(full, dims)
+                           for full, dims in ssd_inputs.values())
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_model_shape_times(fa_inputs: dict, ssd_inputs: dict) -> dict:
+    """``[time]`` lines for B2 and B3 at the models' shapes: the kernel,
+    the models' plain version, the library call (SDPA for B2) and the
+    bound; for B3 also ``ops.ssd_prep`` at that shape."""
+    out = {}
+    for label, (q, k, v) in fa_inputs.items():
+        S = q.shape[1]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        fa_bound, fa_by = flash_bound(qt, kt, vt)
+        k_rep, v_rep = gqa_repeated(qt, kt, vt)
+        out[f"flash_attention {label}"] = {
+            "ms": time_ms(lambda: ops.attention(
+                q, k, v, causal=True, block_q=S, block_k=S), 10),
+            "plain_ms": time_ms(lambda: mflash.blocked_flash(
+                q, k, v, causal=True), 3),
+            "library_ms": time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, k_rep, v_rep, is_causal=True), 10),
+            "bound_ms": fa_bound, "bound_by": fa_by,
+            "shape": f"B{q.shape[0]} H{q.shape[2]} KV{k.shape[2]} S{S} "
+                     f"D{q.shape[3]} causal bf16"}
+        del k_rep, v_rep
+    for label, (full, dims) in ssd_inputs.items():
+        t = ssd_times(full)
+        t["prep_ms"] = ssd_prep_ms(dims)
+        t["shape"] = " ".join(f"{k}{v}" for k, v in dims.items())
+        out[f"ssd_scan {label}"] = t
+    for name, t in out.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        prep = (f", ops.ssd_prep {t['prep_ms']:.4f} ms" if "prep_ms" in t
+                else "")
+        print(f"[time] {name} ({t['shape']}): kernel_ms {t['ms']:.4f}, "
+              f"plain_ms {t['plain_ms']:.4f}, library_ms {lib}, bound_ms "
+              f"{t['bound_ms']:.4f} ({t['bound_by']}), roofline share "
+              f"{t['bound_ms'] / t['ms']:.2%}{prep}")
     return out
 
 
@@ -916,9 +1177,15 @@ def main() -> None:
     ssd_data = ssd_chunks(np.random.default_rng(3), **SSD_FULL)
     errs["ssd_scan"] = phase_ssd_checks(ssd_data)
     phase_ssd_fault(ssd_data)
+    fa_models = {name: model_flash_data(shape)
+                 for name, shape in FLASH_MODELS.items()}
+    ssd_models = {"zamba2-1.2b": (ssd_chunks(np.random.default_rng(7),
+                                             **SSD_ZAMBA), SSD_ZAMBA)}
+    for name, err in phase_model_shape_checks(fa_models, ssd_models).items():
+        errs[name] = max(errs[name], err)
 
     torch.cuda.reset_peak_memory_stats()
-    paths = {
+    chains = {
         "streaming_matmul": drive_chain("matmul chain", mm_stages, mm_x0, sm),
         "flash_attention": drive_chain("attention chain", at_stages, at_q0,
                                        fa),
@@ -926,9 +1193,23 @@ def main() -> None:
     print(f"[path] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     del mm_stages, at_stages
-    paths["ssd_scan"] = phase_mamba()
+    # each kernel's launches on every path: the chains, then the models
+    by_path = {name: {} for name in ("streaming_matmul", "flash_attention",
+                                     "ssd_scan")}
+    for name, chain in chains.items():
+        by_path[name][f"{name.split('_')[-1]} chain"] = chain["launches"]
+    for label, phase in (("mamba2-130m", phase_mamba),
+                         ("granite-8b", phase_dense),
+                         ("zamba2-1.2b", phase_hybrid)):
+        for name, n in phase()["launches"].items():
+            if n:
+                by_path[name][label] = n
+    for name, paths in by_path.items():
+        print(f"[path] {name} launches by path: {paths}")
+        require(sum(paths.values()) > 0, f"{name}: launched on no path")
 
     times = phase_times(mm_data, fa_data, ssd_data)
+    model_times = phase_model_shape_times(fa_models, ssd_models)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"{dev['smi']}")
     replaces = {
@@ -939,9 +1220,14 @@ def main() -> None:
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-         "replaces": replaces[name], "launches": paths[name]["launches"],
+         "replaces": replaces[name],
+         "launches": sum(by_path[name].values()),
+         "launches_by_path": by_path[name],
          "max_abs_err": errs[name],
-         **{k: v for k, v in times[name].items() if k != "ffma_ms"}}
+         **{k: v for k, v in times[name].items() if k != "ffma_ms"},
+         "model_shapes": {k.split(" ", 1)[1]: v
+                          for k, v in model_times.items()
+                          if k.startswith(name)}}
         for name in ("streaming_matmul", "flash_attention", "ssd_scan")
     ]
     print(json.dumps({"kernels": kernels}))

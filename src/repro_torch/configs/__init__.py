@@ -1,11 +1,11 @@
 """Model configurations of the port: ``--arch <id>`` resolution and the
 reduced configs of the CPU tests.
 
-A copy of ``repro.configs`` restricted to the configurations the port has
-reached (granite-8b's width for the streaming executor, mamba2-130m for the
-SSM path); the other eight wait for the dense-decoder slice and beyond.
-``reduced_config`` applies the reference's overrides with the same numbers,
-so both packages build identical reduced configs.
+A copy of ``repro.configs``: all ten configurations, as data. The models
+serve the dense, vlm, ssm and hybrid families; the moe family waits for
+ROADMAP A7 and the enc-dec family for A9. ``reduced_config`` applies the
+reference's overrides with the same numbers, so both packages build
+identical reduced configs.
 """
 from __future__ import annotations
 
@@ -15,8 +15,16 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 ARCH_IDS = [
+    "granite-34b",
+    "glm4-9b",
     "granite-8b",
+    "starcoder2-7b",
+    "seamless-m4t-medium",
+    "mixtral-8x7b",
+    "deepseek-v3-671b",
     "mamba2-130m",
+    "zamba2-1.2b",
+    "internvl2-1b",
 ]
 
 

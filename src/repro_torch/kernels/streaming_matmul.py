@@ -5,9 +5,11 @@ a hand-written kernel in ``csrc/streaming_matmul.cu`` (see the note there
 for its design and bound); on a CPU tensor it computes the plain version,
 :func:`repro_torch.kernels.ref.matmul_ref`. Which one runs is decided by the
 tensors' device alone, and which CUDA kernel by :func:`_variant`, a plain
-rule on dtype and shape: bf16 with K and N multiples of 8 takes the
-tensor-core kernel (``"wgmma"``), everything else the CUDA-core one
-(``"ffma"``).
+rule on dtype and shape: bf16 with K a multiple of 8 takes the tensor-core
+kernel (``"wgmma"``), everything else the CUDA-core one (``"ffma"``). Both
+kernels read w's rows in 16-byte units, so :func:`_launch` first pads w
+with zero columns to :func:`padded_columns` and drops them from the result:
+exact, because each output column reads its own column of w alone.
 
 The block arguments keep the reference's contract: each is clamped to its
 dim, and a dim that its block does not divide raises a :class:`ValueError`
@@ -48,10 +50,20 @@ def _variant(dtype: torch.dtype, K: int, N: int) -> str:
     ``"wgmma"`` (tensor cores, TMA) for bf16 whose row strides are whole
     16-byte units, i.e. K and N multiples of 8; ``"ffma"`` (CUDA cores)
     for the rest, float32 included (TF32 would miss the reference's
-    float32 tolerance)."""
+    float32 tolerance). :func:`_launch` asks with N already padded
+    (:func:`padded_columns`)."""
     if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0:
         return "wgmma"
     return "ffma"
+
+
+def padded_columns(N: int, dtype: torch.dtype) -> int:
+    """The column count the CUDA kernels compute for a w with ``N`` columns
+    of ``dtype``: N rounded up to whole 16-byte units of a row (8 bf16 or
+    4 float32 elements). The FFMA kernel streams w in 16-byte vectors and
+    the wgmma kernel's TMA map needs 16-byte row strides."""
+    vec = 16 // dtype.itemsize
+    return -(-N // vec) * vec
 
 
 def _validate_tiles(where: str, **dims: tuple[int, int]) -> None:
@@ -92,27 +104,29 @@ def _launch(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("streaming_matmul: x and w must be contiguous")
     M, K = x.shape
     N = w.shape[1]
-    variant = variant or _variant(x.dtype, K, N)
-    vec = 16 // w.element_size()
-    if N % vec or w.data_ptr() % 16:
-        raise ValueError(
-            f"streaming_matmul: the CUDA kernel streams w in 16-byte vectors; "
-            f"N={N} must be a multiple of {vec} and w 16-byte aligned")
+    Np = padded_columns(N, w.dtype)
+    if Np != N:  # zero columns, dropped from the result below
+        w = torch.nn.functional.pad(w, (0, Np - N))
+    variant = variant or _variant(x.dtype, K, Np)
+    if w.data_ptr() % 16:
+        raise ValueError("streaming_matmul: the CUDA kernel streams w in "
+                         "16-byte vectors; w must be 16-byte aligned")
     if variant == "wgmma" and x.data_ptr() % 16:
         raise ValueError("streaming_matmul: TMA needs x 16-byte aligned")
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    out = torch.empty((M, Np), dtype=x.dtype, device=x.device)
     lib = _build.load("streaming_matmul")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     fn = _signature(lib, variant)
     if variant == "wgmma":
-        code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, stream)
+        code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, Np, K,
+                  stream)
     else:
         code = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
-                  out.data_ptr(), M, N, K, stream)
+                  out.data_ptr(), M, Np, K, stream)
     _build.check(lib, code, f"streaming_matmul ({variant})")
     LAUNCHES += 1
     VARIANT_LAUNCHES[variant] += 1
-    return out
+    return out if Np == N else out[:, :N].contiguous()
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

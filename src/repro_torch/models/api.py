@@ -26,13 +26,20 @@ def get_model(cfg: ModelConfig) -> types.ModuleType:
 
 def make_batch(cfg: ModelConfig, gen: torch.Generator, batch: int, seq: int,
                *, device: str | torch.device = "cuda") -> dict[str, Any]:
-    """A random batch of token ids (int32) drawn from ``gen``, on
-    ``device``; the labels are the tokens."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    """A random batch drawn from ``gen``, on ``device``: token ids (int32),
+    the labels (the tokens), and for the vlm family the stub frontend's
+    patch embeddings (batch, frontend_len, d_model), N(0, 1) in the
+    model's dtype."""
+    if cfg.family in ("encdec", "audio"):
         raise NotImplementedError(
-            f"make_batch: the {cfg.family} family's frontend inputs wait for "
-            f"its slice")
+            f"make_batch: the {cfg.family} family's frames wait for "
+            f"ROADMAP A9")
+    dev = resolve_device(device)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
-                           dtype=torch.int32, device=gen.device)
-    tokens = tokens.to(resolve_device(device))
-    return {"tokens": tokens, "labels": tokens}
+                           dtype=torch.int32, device=gen.device).to(dev)
+    out = {"tokens": tokens, "labels": tokens}
+    if cfg.family == "vlm":
+        out["patches"] = torch.randn(
+            (batch, cfg.frontend_len, cfg.d_model), generator=gen,
+            dtype=torch.float32, device=gen.device).to(cfg.dtype).to(dev)
+    return out

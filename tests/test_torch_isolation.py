@@ -10,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py", ROOT / "profile_models.py"]
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -21,6 +21,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.configs.granite_8b, repro_torch.configs.mamba2_130m\n"
         "import repro_torch.models, repro_torch.models.transformer\n"
         "import repro_torch.core.tiering, repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.models.flash, repro_torch.models.layers\n"
+        "from repro_torch.configs import ARCH_IDS, get_config\n"
+        "configs = [get_config(a) for a in ARCH_IDS]\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))))\n"

@@ -245,6 +245,21 @@ def test_matmul_variant_rule(M, K, N):
     assert pt_sm._variant(torch.bfloat16, K + 4, N) == "ffma"
 
 
+@pytest.mark.parametrize("N,dtype,want", [
+    (100, torch.bfloat16, 104), (104, torch.bfloat16, 104),
+    (1, torch.bfloat16, 8), (100, torch.float32, 100),
+    (101, torch.float32, 104), (4096, torch.bfloat16, 4096)])
+def test_matmul_pads_columns_to_whole_vectors(N, dtype, want):
+    """The CUDA kernels compute w's columns padded with zeros to whole
+    16-byte units (ROADMAP C5: a bf16 backward's dx = g @ w^T has N = K,
+    which may be any width). Each output column reads its own column of w
+    alone, so the first N columns are the product. A bf16 product whose K
+    is whole 16-byte units then takes the tensor cores at any N."""
+    assert pt_sm.padded_columns(N, dtype) == want
+    if dtype == torch.bfloat16:
+        assert pt_sm._variant(dtype, 128, want) == "wgmma"
+
+
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,D,Dv,causal,window",
                          FLASH_CASES + [(1, 32, 8, 4096, 4096, 128, 128, True,
                                          None)])
@@ -436,7 +451,7 @@ def test_cuda_kernels_match_plain_versions():
     ``ref.outside_tolerance``'s bound: the reference's test cases through
     both variants (bf16 through the tensor-core kernels, float32 and a bf16
     shape the rule sends to the CUDA cores through the FFMA kernels), the
-    matmul's backward, and for the SSD scan also mamba2-130m's head shape
+    matmul's backward (K = 100 included: ROADMAP C5), and for the SSD scan also mamba2-130m's head shape
     (P 64, N 128, chunk 256)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: no CUDA device here")
@@ -459,8 +474,6 @@ def test_cuda_kernels_match_plain_versions():
                                          block_k=128)
             bad = ref.outside_tolerance(got, ref.matmul_ref(x, w), mm_tol)
             assert not bad.any(), (M, K, N, dtype, int(bad.sum()))
-            if (M, K, N) not in MATMUL_SHAPES:
-                continue  # dx's N = K = 100: no bf16 kernel takes it
             # the backward: dx = g w^T, dw = x^T g through the same kernel
             x.requires_grad_(True)
             w.requires_grad_(True)
@@ -471,10 +484,13 @@ def test_cuda_kernels_match_plain_versions():
                               (w.grad, ref.matmul_ref(x.detach().t(), g))):
                 bad = ref.outside_tolerance(got, want, mm_tol)
                 assert not bad.any(), ("grad", M, K, N, dtype, int(bad.sum()))
-        # each reference shape: forward, forward again, dx and dw
+        # each shape: forward, forward again, dx and dw; the bf16 K = 100
+        # forwards take the FFMA kernel, its dx (N = 100, padded to 104)
+        # and dw the tensor cores
         n = 4 * len(MATMUL_SHAPES)
         assert pt_sm.VARIANT_LAUNCHES == (
-            {"wgmma": n, "ffma": len(ffma_bf16_mm)} if tc
+            {"wgmma": n + 2 * len(ffma_bf16_mm),
+             "ffma": 2 * len(ffma_bf16_mm)} if tc
             else {"wgmma": 0, "ffma": n})
         pt_fa.reset_launches()
         for case in FLASH_CASES + (ffma_bf16_fa if tc else []):

@@ -33,6 +33,8 @@ from repro_torch.core.tiering import (
 from repro_torch.models import get_model, make_batch
 from repro_torch.models import transformer as tf
 
+from _torch_model_parity import check_init_shapes
+
 B, S = 2, 32
 FRACTIONS = [1.0, 0.5, 0.0]
 
@@ -73,26 +75,8 @@ def test_configs_match_reference(arch):
 
 
 def test_init_params_matches_reference_shapes():
-    ref_cfg = ref_reduced_config(ref_get_config("mamba2-130m"))
+    got = check_init_shapes("mamba2-130m")
     cfg = reduced_config(get_config("mamba2-130m"))
-    want = ref_tf.init_params(jax.random.PRNGKey(0), ref_cfg)
-    got = tf.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    flat_w = {jax.tree_util.keystr(k): v for k, v in
-              jax.tree_util.tree_leaves_with_path(want)}
-    flat_g = {}
-
-    def walk(t, key=""):
-        if isinstance(t, dict):
-            for k, v in t.items():
-                walk(v, f"{key}[{k!r}]")
-        else:
-            flat_g[key] = t
-
-    walk(got)
-    assert flat_g.keys() == flat_w.keys()
-    for k, v in flat_w.items():
-        assert tuple(flat_g[k].shape) == v.shape, k
-        assert str(flat_g[k].dtype) == "torch." + str(v.dtype), k
     # the reference's scales: embedding 1, in_proj 1/sqrt(d_model)
     assert 0.9 < got["embed"]["embedding"].float().std() < 1.1
     std = got["layers"]["ssm"]["in_proj"].float().std() * cfg.d_model ** 0.5
@@ -310,15 +294,24 @@ def test_tiered_scan_checks_the_stack():
 
 
 def test_other_families_name_their_roadmap_item():
-    cfg = reduced_config(get_config("granite-8b"))
-    model = get_model(cfg)
-    with pytest.raises(NotImplementedError, match="A3"):
-        model.init_params(torch.Generator(), cfg, device="cpu")
-    hybrid = dataclasses.replace(cfg, family="hybrid")
-    with pytest.raises(NotImplementedError, match="A8"):
-        model.forward({}, {"tokens": torch.zeros((1, 1))}, hybrid)
+    """The dense, vlm, ssm and hybrid families are served; the moe family
+    names ROADMAP A7 and the enc-dec family A9."""
+    moe = reduced_config(get_config("mixtral-8x7b"))
+    model = get_model(moe)
+    with pytest.raises(NotImplementedError, match="A7"):
+        model.init_params(torch.Generator(), moe, device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        model.forward({}, {"tokens": torch.zeros((1, 1))}, moe)
+    with pytest.raises(NotImplementedError, match="A7"):
+        model.init_decode_cache(moe, 1, 4, device="cpu")
+    encdec = reduced_config(get_config("seamless-m4t-medium"))
     with pytest.raises(NotImplementedError, match="A9"):
-        get_model(dataclasses.replace(cfg, family="encdec"))
+        get_model(encdec)
+    with pytest.raises(NotImplementedError, match="A9"):
+        make_batch(encdec, torch.Generator(), 1, 4, device="cpu")
+    for arch in ("granite-8b", "internvl2-1b", "zamba2-1.2b"):
+        cfg = reduced_config(get_config(arch))
+        assert get_model(cfg).init_decode_cache(cfg, 1, 4, device="cpu")
 
 
 def test_make_batch():
