@@ -70,6 +70,17 @@ Phases (any failed check raises and exits non-zero):
   7. one JSON line ``{"kernels": [...]}``;
   8. the last line, ``{"ok": true, "device": {...}}``.
 
+Two checks ride along. ``[hpc]`` (after the build): DOLMA's runtime and
+its eight HPC workloads through the port, on this machine's Python and
+numpy: ``benchmarks/run.py --bench-json``'s loop must give
+``BENCH_pr3.json``'s simulated microseconds exactly (an InfiniBand-100G
+fabric model on a simulated clock, not times taken on the card) and every
+tiered checksum the oracle's, and the Fig 7 sweep the reference's average
+memory saving at no more than 16 % slowdown. ``[c6]`` (in phase 5, on
+granite-8b's weights): a decode step at and past the KV cache's length on
+the card raises no device assert, a scalar step writes only the cache's
+last slot, and a lane past the cache leaves its rows unchanged.
+
 It imports nothing of JAX or the reference package ``repro``.
 """
 from __future__ import annotations
@@ -253,6 +264,47 @@ def phase_device() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return {"kind": kind, "count": count, "smi": smi}
+
+
+# -- [hpc]: DOLMA's runtime and the eight HPC workloads ---------------------
+def phase_hpc(dev: dict) -> None:
+    """``benchmarks/run.py --bench-json``'s loop through the port must give
+    ``BENCH_pr3.json``'s four simulated values for every workload (and
+    every tiered checksum the oracle's: the loop asserts it), and the Fig 7
+    sweep the reference's average saving. Host work, numpy; the numbers
+    are simulated microseconds of the InfiniBand-100G fabric model."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_hpc_parity as H
+
+    pkg = H.package("repro_torch")
+    t0 = time.perf_counter()
+    rows = H.bench_pr3(pkg)
+    want = H.committed("BENCH_pr3")["workloads"]
+    require(set(rows) == set(want),
+            f"[hpc] workloads {sorted(rows)} != {sorted(want)}")
+    for name, row in rows.items():
+        print(f"[hpc] {name}: simulated oracle {row['oracle_elapsed_us']!r} "
+              f"us, legacy {row['legacy_elapsed_us']!r} us, pipeline "
+              f"{row['pipeline_elapsed_us']!r} us, speedup "
+              f"{row['pipeline_speedup']!r}; checksum {row['checksum']!r} "
+              f"(the oracle's on every leg)")
+        for key in H.BENCH_KEYS:
+            require(row[key] == want[name][key],
+                    f"[hpc] {name} {key} {row[key]!r} != BENCH_pr3.json's "
+                    f"{want[name][key]!r}")
+    bench_s = time.perf_counter() - t0
+    fig = H.fig7(pkg)
+    avg = fig["avg_saving_at_16pct_slowdown"]
+    require(avg == H.FIG7_AVG_SAVING,
+            f"[hpc] Fig 7 average saving {avg!r} != {H.FIG7_AVG_SAVING!r}")
+    print(f"[hpc] Fig 7: average memory saving at <= 16 % slowdown {avg!r} "
+          f"(the reference's); per workload " + ", ".join(
+              f"{s['workload']} {s['best_saving_at_16pct']:.4f}"
+              for s in fig["summary"]))
+    print(f"[hpc] BENCH_pr3.json reproduced exactly for {len(rows)} "
+          f"workloads; wall {bench_s:.1f} s for the bench loop, "
+          f"{time.perf_counter() - t0:.1f} s with Fig 7 (host, numpy "
+          f"{np.__version__}); {dev['smi']}")
 
 
 # -- 2. build -------------------------------------------------------------------
@@ -877,6 +929,46 @@ def decode_vs_forward(tag: str, cfg, depth: int, n_tok: int = 512) -> None:
           f"max(1, {scale:.4g})")
 
 
+def decode_past_the_cache(tag: str, cfg, params, S: int = 16) -> None:
+    """ROADMAP C6 on the card, at full width: fill a 4-lane cache of ``S``
+    slots, then one scalar step at pos ``S`` (it must rewrite only slot
+    ``S - 1``) and one per-lane step with lane 0 at ``S + 5`` (its rows
+    must stay ``torch.equal`` to what they were, the other lanes write
+    their slots). Each step is synchronised at once, so a device-side
+    assert fails here."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tok = make_batch(cfg, gen, 4, S + 2)["tokens"]
+    cache = tf.init_decode_cache(cfg, 4, S)
+    for t in range(S):
+        _, cache = tf.decode_step(params, cache, tok[:, t:t + 1], cfg)
+    torch.cuda.synchronize()
+    before = {k: cache[k].clone() for k in ("k", "v")}
+    logits, cache = tf.decode_step(params, cache, tok[:, S:S + 1], cfg)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logits")
+    for k in ("k", "v"):
+        require(torch.equal(cache[k][:, :, :S - 1], before[k][:, :, :S - 1]),
+                f"{tag}: a scalar step at pos {S} wrote below slot {S - 1}")
+        require(not torch.equal(cache[k][:, :, S - 1], before[k][:, :, S - 1]),
+                f"{tag}: a scalar step at pos {S} left slot {S - 1} as it was")
+    lanes = [S + 5, 3, 7, S - 1]
+    cache["pos"] = torch.tensor(lanes, dtype=torch.int32, device="cuda")
+    before = {k: cache[k].clone() for k in ("k", "v")}
+    logits, cache = tf.decode_step(params, cache, tok[:, S + 1:S + 2], cfg)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logits")
+    for k in ("k", "v"):
+        require(torch.equal(cache[k][:, 0], before[k][:, 0]),
+                f"{tag}: lane 0 at pos {S + 5} changed its cache rows")
+        for b, pos in enumerate(lanes[1:], start=1):
+            require(not torch.equal(cache[k][:, b, pos], before[k][:, b, pos]),
+                    f"{tag}: lane {b} did not write slot {pos}")
+    print(f"[{tag}] {cfg.name} decode past a {S}-slot cache on the card: a "
+          f"scalar step at pos {S} wrote only slot {S - 1}; a per-lane step "
+          f"at {lanes} left lane 0's rows torch.equal and wrote the others; "
+          f"no device assert")
+
+
 def phase_mamba() -> dict:
     """mamba2-130m, all 24 layers: 24 SSD scans a forward; the path checked
     against the plain SSD, and decode against forward at full depth."""
@@ -900,6 +992,7 @@ def phase_dense() -> dict:
     path_check("dense", cfg, run, {"flash": mflash.blocked_flash},
                {"flash": nudged_kernels()["flash"]}, "plain-flash",
                "the attention output nudged by 2^-9", 8)
+    decode_past_the_cache("c6", cfg, run["params"])
     del run["params"], run["batch"], run["oracle"]
     torch.cuda.empty_cache()
     decode_vs_forward("dense", cfg, 2)
@@ -1155,6 +1248,7 @@ def main() -> None:
     dev = phase_device()
     t0 = time.perf_counter()
     phase_build()
+    phase_hpc(dev)
 
     cfg = GRANITE_8B
     L, d, heads, kv, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads,

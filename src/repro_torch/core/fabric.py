@@ -252,6 +252,9 @@ LOCAL_DDR = FabricModel(
 )
 
 # TPU-side constants (the adaptation targets; used by roofline + tiering).
+# TPU_V5E_HBM_GBPS is the reference's TPU v5e HBM rate, not the H100's: the
+# "auto" tiering budget prices a step's compute with it so that the port's
+# plans stay equal to the reference's.
 TPU_V5E_HBM_GBPS = 819.0
 TPU_V5E_PEAK_BF16_TFLOPS = 197.0
 TPU_V5E_ICI_GBPS_PER_LINK = 50.0

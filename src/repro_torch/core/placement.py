@@ -12,9 +12,9 @@ Small (<= 4 KiB) and short-lived objects stay local (they are served by the
 local data-object region / remote atomics, §4.1). Pinned objects never move.
 
 A copy of ``repro.core.placement``. In this package the plan is consumed by
-:meth:`repro_torch.core.exec.StreamingExecutor.plan_tiers`. The sizing
-solver (``"auto"`` budgets) and slab-aware planning (``stripe_bytes``) wait
-for the port of ``core/sizing.py`` and ``core/alloc.py``.
+the host runtime (:mod:`repro_torch.core.dual_buffer` over a remote store or
+pool), :meth:`repro_torch.core.exec.StreamingExecutor.plan_tiers` and the
+layer loop's host offload (:mod:`repro_torch.core.tiering`).
 """
 from __future__ import annotations
 
@@ -203,10 +203,14 @@ class PlacementPolicy:
         self,
         catalog: ObjectCatalog,
         *,
-        local_fraction: float | None = None,
-        local_budget_bytes: int | None = None,
+        local_fraction: float | str | None = None,
+        local_budget_bytes: int | str | None = None,
         n_nodes: int = 1,
         node_capacity_bytes: int | None = None,
+        profile: "object | None" = None,
+        degradation_target: float = 0.16,
+        sizing_config: "object | None" = None,
+        stripe_bytes: int | None = None,
         node_frag_bytes: Mapping[int, float] | None = None,
     ) -> PlacementPlan:
         """Demote ranked objects until local usage fits the budget.
@@ -215,18 +219,58 @@ class PlacementPolicy:
         memory node, greedily least-loaded-first; ``node_capacity_bytes`` is
         a hard per-node constraint — an object that fits on no node is kept
         LOCAL (remote capacity, like local capacity, is finite at rack scale).
-        ``node_frag_bytes`` (measured per-node fragmentation) shrinks each
-        node's effective capacity.
 
-        The reference's ``"auto"`` budgets and slab-aware ``stripe_bytes``
-        planning wait for the port of ``core/sizing.py`` and
-        ``core/alloc.py``.
+        Passing ``"auto"`` for either budget knob invokes the quantitative
+        sizing solver (:func:`repro_torch.core.sizing.advise_local_size`) on the
+        supplied ``profile`` (a ``WorkloadProfile``): the budget becomes the
+        smallest one whose predicted degradation meets
+        ``degradation_target``; ``sizing_config`` (a ``ModelConfig``) sets
+        the fabric/topology the cost model prices against.
+
+        **Slab-aware planning** (``stripe_bytes`` given): each object's
+        per-node load is its slab footprint — full stripes plus the
+        class-rounded tail (:func:`repro_torch.core.alloc.object_footprint_bytes`)
+        — so ``node_load`` prices the bytes the pool's allocator will
+        actually hold, and ``node_frag_bytes`` (measured per-node
+        fragmentation, e.g. ``MemoryPool.fragmentation_stats()``) shrinks
+        each node's effective capacity. Footprints are deterministic in the
+        catalog alone, so replanning around a compaction — which changes
+        fragmentation but neither sizes nor membership — yields an
+        identical plan (and an empty :func:`diff_plans` diff) unless the
+        freed fragmentation newly unblocks a capacity-bound demotion:
+        steady-state compaction moves nothing.
         """
+        if local_fraction == "auto" or local_budget_bytes == "auto":
+            if profile is None:
+                raise ValueError(
+                    "budget 'auto' needs a WorkloadProfile (profile=...): "
+                    "record one with DolmaRuntime(record_profile=True)"
+                )
+            from repro_torch.core.sizing import advise_local_size
+
+            advice = advise_local_size(
+                profile, degradation_target, policy=self,
+                **({"config": sizing_config} if sizing_config is not None
+                   else {"n_nodes": n_nodes,
+                         "node_capacity_bytes": node_capacity_bytes}),
+            )
+            local_budget_bytes = advice.advised_budget_bytes
+            local_fraction = None
         peak = catalog.total_bytes
         if local_budget_bytes is None:
             if local_fraction is None:
                 raise ValueError("pass local_fraction or local_budget_bytes")
             local_budget_bytes = int(peak * local_fraction)
+
+        if stripe_bytes is not None:
+            from repro_torch.core.alloc import object_footprint_bytes
+
+            def footprint(nbytes: int) -> int:
+                return object_footprint_bytes(nbytes,
+                                              stripe_bytes=stripe_bytes)
+        else:
+            def footprint(nbytes: int) -> int:
+                return nbytes
         frag = dict(node_frag_bytes or {})
 
         tiers: dict[str, Tier] = {o.name: Tier.LOCAL for o in catalog}
@@ -243,7 +287,7 @@ class PlacementPolicy:
             home = min(node_load, key=lambda i: (node_load[i], i))
             tiers[obj.name] = Tier.REMOTE
             node_of[obj.name] = home
-            node_load[home] += obj.size_bytes
+            node_load[home] += footprint(obj.size_bytes)
             local_bytes -= obj.size_bytes
         for obj in demotion_order(catalog):
             if not self.all_large_remote and local_bytes <= local_budget_bytes:
@@ -253,13 +297,13 @@ class PlacementPolicy:
             home = min(node_load, key=lambda i: (node_load[i], i))
             if (
                 node_capacity_bytes is not None
-                and node_load[home] + obj.size_bytes
+                and node_load[home] + footprint(obj.size_bytes)
                 > node_capacity_bytes - frag.get(home, 0)
             ):
                 continue  # no node can take it: stays local
             tiers[obj.name] = Tier.REMOTE
             node_of[obj.name] = home
-            node_load[home] += obj.size_bytes
+            node_load[home] += footprint(obj.size_bytes)
             local_bytes -= obj.size_bytes
 
         remote_bytes = peak - local_bytes

@@ -12,8 +12,8 @@ The port of the forward part of ``repro.core.tiering``. One backend so far:
 
 ``mode="none"`` keeps every leaf on the device. The reference's
 ``fsdp_stream`` (peer HBM as the remote tier) waits for the sharding slice
-(ROADMAP A11); the ``"auto"`` budget waits for the sizing port (A4), and
-optimizer state and the remat branch for the training slice (A9).
+(ROADMAP A11), and optimizer state and the remat branch for the training
+slice (A9).
 
 :func:`tiered_scan` is the paper's dual buffer over layers: with
 ``prefetch`` it posts layer i+1's fetch before layer i computes, and the
@@ -30,6 +30,7 @@ from typing import Any, Callable, Literal
 import torch
 
 from repro_torch.core.exec import HostFetchEngine, host_tensor, resolve_device
+from repro_torch.core.fabric import TPU_V5E_HBM_GBPS
 from repro_torch.core.metadata import Tier
 from repro_torch.core.objects import (
     DataObject,
@@ -38,6 +39,7 @@ from repro_torch.core.objects import (
     _leaves_with_keys,
 )
 from repro_torch.core.placement import PlacementPlan, PlacementPolicy
+from repro_torch.core.sizing import synthetic_profile
 
 TieringMode = Literal["none", "host_offload", "fsdp_stream"]
 
@@ -47,12 +49,15 @@ class TieringConfig:
     """How params tier out of HBM during the layer loop.
 
     ``local_fraction`` is the share of param bytes kept resident on the
-    device. Whether the layer loop prefetches is the caller's argument
-    (``forward(..., prefetch=)``), as in the reference's model API.
+    device, or ``"auto"`` to let the sizing solver pick it for
+    ``degradation_target`` (0.16 = the paper's knee). Whether the layer loop
+    prefetches is the caller's argument (``forward(..., prefetch=)``), as in
+    the reference's model API.
     """
 
     mode: TieringMode = "none"
     local_fraction: float | str = 1.0
+    degradation_target: float = 0.16
 
     def __post_init__(self):
         if self.mode == "fsdp_stream":
@@ -64,25 +69,37 @@ class TieringConfig:
 
 
 def plan_for_params(params: Any, *, config: TieringConfig,
-                    opt_state: Any = None) -> PlacementPlan:
+                    opt_state: Any = None, profile: Any = None,
+                    ) -> PlacementPlan:
     """A placement plan over the parameters, named ``"params" + keystr`` as
     the reference names them. Each parameter is read twice and written once
-    a step (forward + backward, update), the reference's defaults."""
+    a step (forward + backward, update), the reference's defaults.
+
+    With ``config.local_fraction == "auto"`` the budget comes from the sizing
+    solver: pass a recorded ``WorkloadProfile``, or omit ``profile`` to have
+    one synthesized from this catalog (each leaf fetched once a step, the
+    step's compute estimated from the leaves' bytes at the reference's HBM
+    rate), as the reference does.
+    """
     if opt_state is not None:
         raise NotImplementedError(
             "plan_for_params: optimizer state waits for the training slice "
             "(ROADMAP A9)")
-    if not isinstance(config.local_fraction, (int, float)):
-        raise NotImplementedError(
-            f"plan_for_params: local_fraction={config.local_fraction!r}; the "
-            f"'auto' budget waits for the sizing port (ROADMAP A4)")
     catalog = ObjectCatalog()
     for key, leaf in _leaves_with_keys(params):
         catalog.add(DataObject(name="params" + key, shape=tuple(leaf.shape),
                                dtype=leaf.dtype, kind=ObjectKind.PARAM,
                                n_reads=2, n_writes=1))
-    return PlacementPolicy().plan(catalog,
-                                  local_fraction=float(config.local_fraction))
+    if config.local_fraction == "auto" and profile is None:
+        # one read of every leaf a step at the HBM rate approximates the
+        # step's compute floor; the rate is the reference's TPU figure, kept
+        # so that the port's "auto" plans equal the reference's
+        compute_us = catalog.total_bytes / (TPU_V5E_HBM_GBPS * 1e3)
+        profile = synthetic_profile(catalog, compute_us_per_step=compute_us,
+                                    source="plan_for_params")
+    return PlacementPolicy().plan(
+        catalog, local_fraction=config.local_fraction, profile=profile,
+        degradation_target=config.degradation_target)
 
 
 def map_leaves(fn: Callable[[str, torch.Tensor], torch.Tensor], tree: Any,

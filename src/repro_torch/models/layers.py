@@ -163,6 +163,10 @@ def gqa_decode_step(
     own slots, so each lane's arithmetic is independent of the others and
     bit-identical to running that lane alone at the same batch shape.
 
+    At a position at or past a full cache's length the write follows the
+    reference: a scalar position writes the last slot, and a lane past the
+    cache writes nothing. The mask is the reference's either way.
+
     Unlike the reference, the new K/V are written into ``cache_k`` and
     ``cache_v`` in place (no copy of the cache per step); the returned
     caches are those same tensors.
@@ -182,8 +186,15 @@ def gqa_decode_step(
         lane_pos = positions[:, 0].long()
         slot = lane_pos % S_cache if cfg.sliding_window else lane_pos
         lanes = torch.arange(B, device=x.device)
-        cache_k[lanes, slot] = k_new[:, 0]
-        cache_v[lanes, slot] = v_new[:, 0]
+        # A lane past the cache keeps its slots, as the reference's scatter
+        # drops an out-of-range write: it rewrites the value already there
+        # (a mask, not boolean indexing, so the host never waits).
+        keep = (slot >= S_cache)[:, None, None]
+        row = slot.clamp(max=S_cache - 1)
+        cache_k[lanes, row] = torch.where(keep, cache_k[lanes, row],
+                                          k_new[:, 0])
+        cache_v[lanes, row] = torch.where(keep, cache_v[lanes, row],
+                                          v_new[:, 0])
         if cfg.sliding_window:
             valid = (idx[None, :] <= slot[:, None]) | (
                 lane_pos[:, None] >= S_cache)
@@ -193,8 +204,11 @@ def gqa_decode_step(
     else:
         lane_pos = pos.long()
         slot = lane_pos % S_cache if cfg.sliding_window else lane_pos
-        cache_k.index_copy_(1, slot.reshape(1), k_new)
-        cache_v.index_copy_(1, slot.reshape(1), v_new)
+        # past the cache the write lands in the last slot, as the
+        # reference's dynamic_update_slice clamps it
+        row = slot.clamp(max=S_cache - 1).reshape(1)
+        cache_k.index_copy_(1, row, k_new)
+        cache_v.index_copy_(1, row, v_new)
         if cfg.sliding_window:  # ring: all valid once wrapped
             valid = (idx <= slot) | (lane_pos >= S_cache)
         else:

@@ -10,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py", ROOT / "profile_models.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py", ROOT / "profile_models.py",
+    ROOT / "tests" / "_torch_hpc_parity.py"]
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -22,14 +23,19 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.models, repro_torch.models.transformer\n"
         "import repro_torch.core.tiering, repro_torch.kernels.ssd_scan\n"
         "import repro_torch.models.flash, repro_torch.models.layers\n"
+        "import repro_torch.hpc, repro_torch.core.pool, repro_torch.core.sizing\n"
+        "import repro_torch.core.dual_buffer, repro_torch.core.scheduler\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "configs = [get_config(a) for a in ARCH_IDS]\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_hpc_parity as H\n"
+        "H.run_mode(H.package('repro_torch'), 'CG', 'auto', n_iters=1)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", code], env=env,
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
@@ -59,3 +65,4 @@ def test_scan_reaches_every_port_package():
         "__init__.py")}
     assert {p.parent for p in PORT_FILES} >= packages
     assert ROOT / "src" / "repro_torch" / "models" in packages
+    assert ROOT / "src" / "repro_torch" / "hpc" in packages
