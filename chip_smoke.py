@@ -47,8 +47,9 @@ Phases (any failed check raises and exits non-zero):
      weight on the card (the oracle), then placed by ``host_offload`` at
      local fractions 0.5 and 0.0, prefetch on and off, every logits tensor
      ``torch.equal`` to the oracle, best-of-3 ms, host ms, bytes and peak
-     memory per placement; greedy serving of 4 prompts through
-     ``decode_step`` (local and at 0.5, tokens equal); each kernel's
+     memory per placement; greedy serving of 4 prompts (all local through
+     ``ServingEngine.generate``, at 0.5 through the hand loop ``greedy``
+     over ``decode_step``; tokens equal); each kernel's
      launches equal to its count a forward times the forwards (granite-8b:
      36 B2; zamba2-1.2b: 6 B2 and 38 B3; mamba2-130m: 24 B3), every B2
      launch through wgmma and each SSD kernel once a scan. Then the path
@@ -57,7 +58,8 @@ Phases (any failed check raises and exits non-zero):
      plain forward with one plain version's output nudged) and held to
      ``PATH_BOUND`` in float32 (granite-8b on 8 layers); and decode against
      forward in float32 over 512 tokens (granite-8b on 2 layers,
-     zamba2-1.2b on 12);
+     zamba2-1.2b on 12). On granite-8b's weights, ``[engine]``: the port's
+     serving layer at full width (below);
   6. kernel times at the main paths' shapes (CUDA events), per variant
      (the tensor-core kernel on the path and the FFMA kernel on the same
      bf16 inputs), beside the plain version's, one library call's (none for
@@ -70,7 +72,26 @@ Phases (any failed check raises and exits non-zero):
   7. one JSON line ``{"kernels": [...]}``;
   8. the last line, ``{"ok": true, "device": {...}}``.
 
-Two checks ride along. ``[hpc]`` (after the build): DOLMA's runtime and
+``[engine]`` (in phase 5, granite-8b at full width, bf16): two
+``ServingEngine.generate`` waves (4 prompts of 64 tokens, 16 new, a
+128-slot cache, ``reset`` between) with tokens equal to the hand loop's; an
+engine whose HBM budget demotes the K and V caches into a 2-node pool with 2
+replicas, tokens equal and each demoted tier's pool payload equal to the
+cache's bf16 bytes, ``offload_memory_kind`` ``"pinned_host"``; a
+``ContinuousScheduler`` over that engine in lane mode (two tenants, 6
+requests joining in pairs, one tenant's lanes offloaded to its pool arena),
+every request's tokens equal to it run alone through a fresh lane-mode
+engine; the engine's and ``decode_lanes``' step latencies (median, min) and
+their device time and kernels a step under ``torch.profiler``; then
+``python -m repro_torch.launch.serve --full``'s tokens/s. Decode launches
+none of the port's kernels, so this path's launches are 0.
+
+Three checks ride along. ``[serving-bench]`` (after ``[hpc]``):
+``benchmarks/fig_autoscale.py``'s and ``fig_serving_mt.py``'s loops through
+the port, the reduced granite-8b engine in float32 on the card, must give
+``BENCH_pr5.json``'s and ``BENCH_pr9.json``'s values exactly (``latency_us``
+printed, not compared), with autoscaled tokens equal to untiered ones and
+lanes to the sequential oracle. ``[hpc]`` (after the build): DOLMA's runtime and
 its eight HPC workloads through the port, on this machine's Python and
 numpy: ``benchmarks/run.py --bench-json``'s loop must give
 ``BENCH_pr3.json``'s simulated microseconds exactly (an InfiniBand-100G
@@ -100,6 +121,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from profile_models import profiled  # noqa: E402
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.configs.granite_8b import CONFIG as GRANITE_8B  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M  # noqa: E402
 from repro_torch.configs.zamba2_1_2b import CONFIG as ZAMBA2_1_2B  # noqa: E402
@@ -122,6 +145,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import streaming_matmul as sm  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     NEG_INF,
     flash_ref,
@@ -133,6 +157,13 @@ from repro_torch.kernels.ref import (  # noqa: E402
 from repro_torch.models import make_batch  # noqa: E402
 from repro_torch.models import flash as mflash  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    ContinuousScheduler,
+    EngineConfig,
+    Request,
+    SchedulerConfig,
+    ServingEngine,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W); "tf32" is
 # the tensor cores' TF32 rate, which the SSD kernels use in three passes
@@ -184,6 +215,19 @@ BEST_OF = 3
 # float32's bound for decode against forward; why the check is held in
 # float32 is written where it is used (phase_mamba)
 PATH_BOUND = 1e-3
+# [engine]: granite-8b served through ServingEngine at full width: waves of 4
+# prompts of 64 tokens and 16 new ones in a 128-slot cache; a budget of 32
+# MiB demotes every parameter and then the K and V caches (37.7 MB each)
+ENGINE = dict(max_batch=4, max_len=128)
+ENGINE_NEW = 16
+ENGINE_TIERED = dict(hbm_budget_bytes=32 << 20, pool_nodes=2,
+                     pool_replication=2)
+# the lanes: two tenants, 6 requests of 16-token prompts and 16 new tokens,
+# joining in three pairs while earlier ones decode
+LANE_PROMPT, LANE_NEW, LANE_REQUESTS = 16, 16, 6
+# steps of a profiled engine wave (8 prompt tokens, 8 new) and of the timed
+# and profiled lane steps
+PROFILE_STEPS = 16
 
 
 def zero_counts() -> None:
@@ -664,12 +708,15 @@ def timed_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3
 
 
-def greedy(params, cfg, prompts, n_new: int, plan=None):
-    """The reference engine's serving loop: prefill token by token through
-    ``decode_step``, then ``n_new`` greedy tokens. Returns the new tokens
-    and, for each decode step, its ms and its host ms (``timed_ms``)."""
+def greedy(params, cfg, prompts, n_new: int, plan=None,
+           max_len: int | None = None):
+    """The serving loop written by hand: prefill token by token through
+    ``decode_step``, then ``n_new`` greedy tokens, in a cache of ``max_len``
+    slots (the prompt and the new tokens by default). Returns the new
+    tokens and, for each decode step, its ms and its host ms
+    (``timed_ms``)."""
     cache = tf.init_decode_cache(cfg, prompts.shape[0],
-                                 prompts.shape[1] + n_new)
+                                 max_len or prompts.shape[1] + n_new)
     steps, out = [], []
     logits = None
     for t in range(prompts.shape[1]):
@@ -771,30 +818,49 @@ def drive_placements(tag: str, cfg, params, batch) -> tuple:
     return oracle, rows, n_fwd
 
 
+def step_stats(step_us: list[float]) -> str:
+    """Median and min of a wave's per-step latencies (µs) in ms."""
+    ms = sorted(u / 1e3 for u in step_us)
+    return f"median {ms[len(ms) // 2]:.3f} ms, min {ms[0]:.3f} ms"
+
+
+def engine_wave(eng, prompts: np.ndarray, n_new: int) -> tuple[np.ndarray, str]:
+    """One ``generate`` wave; its tokens and a line of its step latencies
+    (the engine's own ``wave_step_us``) and wall ms a step."""
+    toks, wall_ms, _ = timed_ms(lambda: eng.generate(prompts, n_new))
+    n = len(eng.wave_step_us)
+    return toks, (f"{n} steps, engine step {step_stats(eng.wave_step_us)}, "
+                  f"wall {wall_ms / n:.3f} ms a step")
+
+
 def serve(tag: str, cfg, params, prompts) -> int:
-    """Greedy decode of 4 prompts, all local and at host_offload 0.5; the
-    tokens must agree. Returns the decode steps run."""
-    served = {}
-    for label, frac in (("local", None), ("host_offload 0.5", 0.5)):
-        if frac is None:
-            placed, plan = params, None
-        else:
-            placed, plan = place_params(params, TieringConfig(
-                mode="host_offload", local_fraction=frac))
-        toks, steps = greedy(placed, cfg, prompts, 16, plan=plan)
-        served[label] = (toks, steps)
-        steady = sorted(steps[1:])
-        host = sorted(h for _, h in steps[1:])
-        print(f"[serve] {cfg.name} {label}: 4 prompts x {prompts.shape[1]} "
-              f"tokens prefilled token by token, 16 new each; decode step "
-              f"median {steady[len(steady) // 2][0]:.3f} ms (host "
-              f"{host[len(host) // 2]:.3f} ms before the synchronise), min "
-              f"{steady[0][0]:.3f} ms over {len(steps)} steps; tokens "
-              f"{toks[0, :8].tolist()}...")
-        del placed
-    require(torch.equal(served["local"][0], served["host_offload 0.5"][0]),
-            f"{tag}: offloaded greedy tokens != local tokens")
-    return sum(len(steps) for _, steps in served.values())
+    """Greedy decode of 4 prompts: all local through the port's serving
+    entry point (``ServingEngine.generate``), then at host_offload 0.5
+    through the hand loop (``greedy(plan=)``: the engine, like the
+    reference's, does not offload parameters); the tokens must agree.
+    Returns the decode steps run."""
+    n_new = 16
+    eng = ServingEngine(cfg, params, EngineConfig(
+        max_batch=prompts.shape[0], max_len=prompts.shape[1] + n_new))
+    local, line = engine_wave(eng, prompts.cpu().numpy(), n_new)
+    n_steps = len(eng.wave_step_us)
+    print(f"[serve] {cfg.name} local (ServingEngine.generate): 4 prompts x "
+          f"{prompts.shape[1]} tokens prefilled token by token, {n_new} new "
+          f"each; {line}; tokens {local[0, :8].tolist()}...")
+    del eng
+    placed, plan = place_params(params, TieringConfig(
+        mode="host_offload", local_fraction=0.5))
+    toks, steps = greedy(placed, cfg, prompts, n_new, plan=plan)
+    steady = sorted(steps[1:])
+    host = sorted(h for _, h in steps[1:])
+    print(f"[serve] {cfg.name} host_offload 0.5 (greedy): decode step median "
+          f"{steady[len(steady) // 2][0]:.3f} ms (host "
+          f"{host[len(host) // 2]:.3f} ms before the synchronise), min "
+          f"{steady[0][0]:.3f} ms over {len(steps)} steps")
+    del placed
+    require(np.array_equal(local, toks.cpu().numpy()),
+            f"{tag}: offloaded greedy tokens != the engine's local tokens")
+    return n_steps + len(steps)
 
 
 def drive_model(tag: str, cfg, per_forward: dict[str, int]) -> dict:
@@ -837,7 +903,8 @@ def drive_model(tag: str, cfg, per_forward: dict[str, int]) -> dict:
             f"{tag}: SSD kernel launches {stages}, expected each "
             f"{launches['ssd_scan']}")
     return {"launches": launches, "forwards": n_fwd, "rows": rows,
-            "params": params, "batch": batch, "oracle": oracle.cuda()}
+            "params": params, "batch": batch, "oracle": oracle.cuda(),
+            "prompts": prompts}
 
 
 def path_check(tag: str, cfg, run: dict, plain: dict, nudged: dict,
@@ -969,6 +1036,212 @@ def decode_past_the_cache(tag: str, cfg, params, S: int = 16) -> None:
           f"no device assert")
 
 
+def as_bytes(t: torch.Tensor) -> np.ndarray:
+    """A bf16 tensor's bytes on the host, as uint16."""
+    return t.contiguous().view(torch.int16).cpu().numpy().view(np.uint16)
+
+
+def device_per_step(label: str, fn, n_steps: int, step_ms: float) -> dict:
+    """``fn`` (``n_steps`` decode steps) under ``torch.profiler``: the
+    device time summed over kernels and the kernels, per step, beside the
+    step's time measured without the profiler (``step_ms``, which the
+    profiler would inflate); the host's share is 1 - device / step."""
+    wall, kernels = profiled(fn)
+    dev_ms = sum(ms for ms, _ in kernels.values()) / n_steps
+    launches = sum(n for _, n in kernels.values()) / n_steps
+    require(dev_ms > 0, f"[engine] {label}: the profiler recorded no device "
+                        f"time")
+    print(f"[engine] {label} under the profiler: device {dev_ms:.3f} ms a "
+          f"step (sum of kernels), {launches:.1f} kernels a step, profiled "
+          f"wall {wall / n_steps:.3f} ms a step; against the unprofiled "
+          f"step of {step_ms:.3f} ms the host's share is "
+          f"{max(0.0, 1 - dev_ms / step_ms):.2%}")
+    return {"device_ms": dev_ms, "kernels": launches}
+
+
+def phase_engine(cfg, params, prompts, smi: str) -> dict:
+    """granite-8b at full width through the port's serving layer: two
+    ``generate`` waves with a ``reset`` between, tokens equal to the hand
+    loop's; an engine whose budget demotes the caches into a 2-node pool
+    with 2 replicas, tokens equal and the pool's bf16 payloads the cache's
+    bytes; a ``ContinuousScheduler`` in lane mode over that engine (two
+    tenants, requests joining mid-stream), each request's tokens equal to
+    it run alone through a fresh lane-mode engine; the steps timed and
+    profiled; then ``launch.serve --full``. Returns each kernel's
+    launches over the phase (decode runs none of them)."""
+    zero_counts()
+    P = prompts.shape[1]
+    host_prompts = prompts.cpu().numpy()
+
+    def hand_loop(turn: int) -> np.ndarray:
+        toks, steps = greedy(params, cfg, prompts, ENGINE_NEW,
+                             max_len=ENGINE["max_len"])
+        ms = sorted(m for m, _ in steps)
+        print(f"[engine] hand loop (greedy, synchronised each step), turn "
+              f"{turn}: {len(ms)} steps, median {ms[len(ms) // 2]:.3f} ms, "
+              f"min {ms[0]:.3f} ms")
+        return toks.cpu().numpy()
+
+    # in turns on one card: hand loop, engine, engine, hand loop
+    want = hand_loop(0)
+    eng = ServingEngine(cfg, params, EngineConfig(**ENGINE))
+    steps_ms = []
+    for wave in range(2):
+        if wave:
+            eng.reset()
+        toks, line = engine_wave(eng, host_prompts, ENGINE_NEW)
+        require(np.array_equal(toks, want),
+                f"[engine] wave {wave}: tokens != the hand loop's")
+        steps_ms += [u / 1e3 for u in eng.wave_step_us]
+        print(f"[engine] {cfg.name} generate wave {wave} (max_batch "
+              f"{ENGINE['max_batch']}, max_len {ENGINE['max_len']}): 4 "
+              f"prompts x {P} + {ENGINE_NEW} new: {line}; tokens equal to "
+              f"the hand loop's")
+    require(np.array_equal(hand_loop(1), want),
+            "[engine] the hand loop's tokens moved between turns")
+    step_ms = sorted(steps_ms)[len(steps_ms) // 2]
+    eng.reset()
+    device_per_step(
+        f"{cfg.name} generate", lambda: eng.generate(host_prompts[:, :8], 8),
+        PROFILE_STEPS, step_ms)
+
+    tiered = ServingEngine(cfg, params, EngineConfig(**ENGINE, **ENGINE_TIERED))
+    demoted = tiered._demoted_cache_names()
+    require({"cache['k']", "cache['v']"} <= set(demoted),
+            f"[engine] the budget demoted {demoted}, not the K and V caches")
+    toks, line = engine_wave(tiered, host_prompts, ENGINE_NEW)
+    require(np.array_equal(toks, want), "[engine] tiered tokens != untiered")
+    for key in ("k", "v"):
+        got = tiered.pool.payload(f"cache['{key}']")
+        require(got.dtype == np.uint16
+                and np.array_equal(got, as_bytes(tiered.cache[key]))
+                and bool(got.any()),
+                f"[engine] the pool's cache['{key}'] != the cache's bf16 bytes")
+    summary = tiered.placement_summary()
+    require(summary["offload_memory_kind"] == "pinned_host",
+            f"[engine] offload_memory_kind {summary['offload_memory_kind']}")
+    pool = tiered.pool.stats()
+    print(f"[engine] tiered (budget {ENGINE_TIERED['hbm_budget_bytes']} B, "
+          f"pool 2 nodes x 2 replicas): {line}; tokens equal to the "
+          f"untiered engine's; pool payloads of {demoted} equal to the bf16 "
+          f"cache's bytes ({pool['bytes_written']} B written); "
+          f"placement_summary {summary}")
+
+    lanes = phase_lanes(cfg, params, tiered)
+    out = launch_serve.main(["--arch", cfg.name, "--full"])
+    print(f"[engine] launch.serve --arch {cfg.name} --full: "
+          f"{out['tokens']} tokens in {out['seconds']:.3f} s = "
+          f"{out['tokens_per_s']:.1f} tokens/s batched; {smi}")
+    launches = counts()
+    require(all(n == 0 for n in launches.values()),
+            f"[engine] launches {launches}: decode runs no kernel of the "
+            f"reference's")
+    return {"launches": launches, "step_ms": step_ms, **lanes}
+
+
+def phase_lanes(cfg, params, eng) -> dict:
+    """Continuous batching over ``eng`` (switched to lane mode): two
+    tenants' requests join in pairs while earlier ones decode; mid-run one
+    tenant's lanes are offloaded to its pool arena (bf16 bytes checked).
+    Every request's tokens must equal the same request run alone through a
+    fresh lane-mode engine with the same ``max_batch``. No admission pass
+    runs (``readvise_every=0``): at this width the simulator replays 16 GB
+    of objects a pass; ``[serving-bench]`` holds admission on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    prompts = make_batch(cfg, gen, LANE_REQUESTS, LANE_PROMPT)["tokens"]
+    reqs = [Request(tenant=("acme", "blue")[i % 2],
+                    prompt=prompts[i].cpu().numpy(), max_new=LANE_NEW)
+            for i in range(LANE_REQUESTS)]
+    sched = ContinuousScheduler(eng, SchedulerConfig(readvise_every=0))
+    ids = []
+    for pair in range(LANE_REQUESTS // 2):
+        ids += [sched.submit(dataclasses.replace(r))
+                for r in reqs[2 * pair:2 * pair + 2]]
+        for _ in range(5):
+            sched.step()
+        if pair == 1:
+            held = sorted(sched.tenants["acme"].lanes)
+            eng.offload_tenant_kv("acme", held)
+            for key in ("k", "v"):
+                got = eng.pool.payload(f"kv:acme:cache['{key}']")
+                require(np.array_equal(
+                    got, as_bytes(eng.cache[key][:, held])),
+                    f"[engine] acme's pool cache['{key}'] != its lanes' bytes")
+    sched.drain(max_steps=1000)
+    got = {r["request_id"]: r["tokens"]
+           for rs in sched.results().values() for r in rs}
+    require(sorted(got) == sorted(ids), f"[engine] completed {sorted(got)}")
+
+    oracle_eng = ServingEngine(cfg, params, EngineConfig(**ENGINE))
+    oracle = ContinuousScheduler(oracle_eng, SchedulerConfig(readvise_every=0))
+    for rid, req in zip(ids, reqs):
+        one = oracle.submit(dataclasses.replace(req))
+        oracle.drain(max_steps=1000)
+        alone = oracle.tenants[req.tenant].completed[-1]["tokens"]
+        require(np.array_equal(got[rid], alone),
+                f"[engine] lane tokens of {rid} != the request alone ({one})")
+    lat = sched.latency_stats()
+    print(f"[engine] lanes: {LANE_REQUESTS} requests of 2 tenants "
+          f"({LANE_PROMPT}-token prompts, {LANE_NEW} new) joining in pairs, "
+          f"{sched._step_id} shared steps, acme's lanes {held} offloaded to "
+          f"its pool arena (bytes equal); every request's tokens equal to "
+          f"it alone through a fresh lane-mode engine; decode_lanes step "
+          f"p50 " + ", ".join(f"{t} {s['p50_step_us'] / 1e3:.3f} ms"
+                               for t, s in lat.items()))
+
+    feed = np.zeros(ENGINE["max_batch"], np.int32)
+    step_us = [oracle_eng.decode_lanes(feed)[1] for _ in range(PROFILE_STEPS)]
+    step_ms = sorted(step_us)[len(step_us) // 2] / 1e3
+    print(f"[engine] decode_lanes alone: {step_stats(step_us)} over "
+          f"{PROFILE_STEPS} steps (its step_us ends with the host copy of "
+          f"the tokens)")
+
+    def lane_steps():
+        for _ in range(PROFILE_STEPS):
+            oracle_eng.decode_lanes(feed)
+
+    prof = device_per_step("decode_lanes", lane_steps, PROFILE_STEPS, step_ms)
+    return {"lane_step_ms": step_ms, "lane_device_ms": prof["device_ms"]}
+
+
+def phase_serving_bench(dev: dict) -> None:
+    """``benchmarks/fig_autoscale.py``'s and ``fig_serving_mt.py``'s loops
+    through the port, the reduced granite-8b engine in float32 on the card:
+    ``BENCH_pr5.json``'s and ``BENCH_pr9.json``'s values exactly (their
+    wall-clock ``latency_us`` printed, not compared). The loops require
+    autoscaled tokens equal to an untiered engine's and every lane's tokens
+    equal to the sequential oracle's."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_serving_parity as S
+
+    cfg = reduced_config(get_config("granite-8b"), dtype=torch.float32)
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    pkg = S.package("repro_torch")
+    t0 = time.perf_counter()
+    auto = S.fig_autoscale(pkg, cfg, params)["autoscale"]
+    bad = S.bench_mismatches(auto, "BENCH_pr5")
+    require(not bad, f"[serving-bench] BENCH_pr5.json differs at {bad}: "
+                     f"{auto}")
+    print(f"[serving-bench] fig_autoscale on the card: BENCH_pr5.json "
+          f"exactly: nodes {auto['nodes_trajectory']}, max_degradation "
+          f"{auto['max_degradation']!r}, mean_saving {auto['mean_saving']!r},"
+          f" {auto['n_readvise']} re-advises, {auto['migrated_extents']} "
+          f"migrated extents; tokens autoscaled == untiered; "
+          f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    mt = S.fig_serving_mt(pkg, cfg, params)["serving_mt"]
+    bad = S.bench_mismatches(mt, "BENCH_pr9")
+    require(not bad, f"[serving-bench] BENCH_pr9.json differs at {bad}: {mt}")
+    print(f"[serving-bench] fig_serving_mt on the card: BENCH_pr9.json "
+          f"exactly (latency_us aside): nodes {mt['nodes_trajectory']}, shed "
+          f"{mt['shed_events']}, completed {mt['completed']}, "
+          f"max_admitted_degradation {mt['max_admitted_degradation']!r}, "
+          f"{mt['n_readvise']} admission passes, bit_identical "
+          f"{mt['bit_identical']}; latency_us (wall clock, not compared) "
+          f"{mt['latency_us']}; {time.perf_counter() - t1:.1f} s; "
+          f"{dev['smi']}")
+
+
 def phase_mamba() -> dict:
     """mamba2-130m, all 24 layers: 24 SSD scans a forward; the path checked
     against the plain SSD, and decode against forward at full depth."""
@@ -983,16 +1256,18 @@ def phase_mamba() -> dict:
     return run
 
 
-def phase_dense() -> dict:
+def phase_dense(smi: str) -> dict:
     """granite-8b at full width: 36 B2 launches a forward (B4 H32 KV8 S2048
     D128 causal); the path checked against the plain flash in float32 on 8
-    layers, and decode against forward on 2."""
+    layers, the serving layer driven at full width (``[engine]``), and
+    decode against forward on 2 layers."""
     cfg = GRANITE_8B
     run = drive_model("dense", cfg, {"flash_attention": cfg.n_layers})
     path_check("dense", cfg, run, {"flash": mflash.blocked_flash},
                {"flash": nudged_kernels()["flash"]}, "plain-flash",
                "the attention output nudged by 2^-9", 8)
     decode_past_the_cache("c6", cfg, run["params"])
+    run["engine"] = phase_engine(cfg, run["params"], run["prompts"], smi)
     del run["params"], run["batch"], run["oracle"]
     torch.cuda.empty_cache()
     decode_vs_forward("dense", cfg, 2)
@@ -1249,6 +1524,7 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_build()
     phase_hpc(dev)
+    phase_serving_bench(dev)
 
     cfg = GRANITE_8B
     L, d, heads, kv, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
@@ -1293,11 +1569,15 @@ def main() -> None:
     for name, chain in chains.items():
         by_path[name][f"{name.split('_')[-1]} chain"] = chain["launches"]
     for label, phase in (("mamba2-130m", phase_mamba),
-                         ("granite-8b", phase_dense),
+                         ("granite-8b", lambda: phase_dense(dev["smi"])),
                          ("zamba2-1.2b", phase_hybrid)):
-        for name, n in phase()["launches"].items():
+        run = phase()
+        for name, n in run["launches"].items():
             if n:
                 by_path[name][label] = n
+        if "engine" in run:  # the serving layer's path: decode, no kernel
+            for name, n in run["engine"]["launches"].items():
+                by_path[name][f"{label} engine"] = n
     for name, paths in by_path.items():
         print(f"[path] {name} launches by path: {paths}")
         require(sum(paths.values()) > 0, f"{name}: launched on no path")

@@ -72,6 +72,7 @@ from repro_torch.core.tiering import (
     TieringConfig,
     place_params,
     plan_for_params,
+    supports_host_offload,
     tiered_scan,
 )
 
@@ -130,6 +131,7 @@ __all__ = [
     "plan_for_params",
     "run_iterative",
     "size_class_bytes",
+    "supports_host_offload",
     "synthetic_profile",
     "tiered_scan",
     "untiered_oracle",

@@ -133,6 +133,19 @@ def place_params(params: Any, config: TieringConfig, *,
     return map_leaves(place, params), plan
 
 
+def supports_host_offload(device: str | torch.device = "cuda") -> bool:
+    """Whether a REMOTE tier on ``device`` is pinned host memory behind the
+    copy stream of :class:`~repro_torch.core.exec.HostFetchEngine`: True on
+    a card, False on the CPU (torch pins no memory without a card there, so
+    a REMOTE leaf stays an ordinary host tensor).
+
+    The reference probes JAX's default device for the ``pinned_host``
+    memory kind; XLA's CPU backend accepts that kind, so the reference
+    answers True on the CPU where the port answers False.
+    """
+    return torch.device(device).type == "cuda" and torch.cuda.is_available()
+
+
 def remote_keys(plan: PlacementPlan | None, prefix: str) -> frozenset[str]:
     """The keys, relative to ``prefix`` (``"params['layers']"``), of the
     plan's REMOTE leaves under it."""

@@ -11,7 +11,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "kernel_ab.py", ROOT / "profile_models.py",
-    ROOT / "tests" / "_torch_hpc_parity.py"]
+    ROOT / "tests" / "_torch_hpc_parity.py",
+    ROOT / "tests" / "_torch_serving_parity.py"]
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -30,6 +31,9 @@ def test_import_loads_no_jax_and_no_reference():
         "sys.path.insert(0, 'tests')\n"
         "import _torch_hpc_parity as H\n"
         "H.run_mode(H.package('repro_torch'), 'CG', 'auto', n_iters=1)\n"
+        "import repro_torch.serving, repro_torch.launch.serve\n"
+        "import _torch_serving_parity as S\n"
+        "S.restart_resource_names(S.package('repro_torch'))\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))))\n"
@@ -66,3 +70,5 @@ def test_scan_reaches_every_port_package():
     assert {p.parent for p in PORT_FILES} >= packages
     assert ROOT / "src" / "repro_torch" / "models" in packages
     assert ROOT / "src" / "repro_torch" / "hpc" in packages
+    assert ROOT / "src" / "repro_torch" / "serving" in packages
+    assert ROOT / "src" / "repro_torch" / "launch" in packages
