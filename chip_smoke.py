@@ -59,16 +59,18 @@ Phases (any failed check raises and exits non-zero):
      ``PATH_BOUND`` in float32 (granite-8b on 8 layers); and decode against
      forward in float32 over 512 tokens (granite-8b on 2 layers,
      zamba2-1.2b on 12). On granite-8b's weights, ``[engine]``: the port's
-     serving layer at full width (below);
+     serving layer at full width (below). Then ``[moe]`` (below):
+     deepseek-v3-671b and mixtral-8x7b;
   6. kernel times at the main paths' shapes (CUDA events), per variant
      (the tensor-core kernel on the path and the FFMA kernel on the same
      bf16 inputs), beside the plain version's, one library call's (none for
      the SSD scan), and the card's bound (for the SSD scan at the rate of
      the instruction it uses, 3xTF32); the SSD scan's three kernels alone
      and ``ops.ssd_prep``, the prep in front of it; then B2 and B3 at the
-     models' shapes (phase 3 checks them there too): B2 at granite-8b's
-     and zamba2-1.2b's attention through the models' route, B3 and
-     ``ops.ssd_prep`` at zamba2-1.2b's scan;
+     models' shapes (phase 3 checks them there too): B2 at granite-8b's,
+     zamba2-1.2b's and deepseek-v3's MLA attention (D 192, Dv 128; both
+     variants, and the backend SDPA picked) through the models' route, B3
+     and ``ops.ssd_prep`` at zamba2-1.2b's scan;
   7. one JSON line ``{"kernels": [...]}``;
   8. the last line, ``{"ok": true, "device": {...}}``.
 
@@ -85,6 +87,21 @@ engine; the engine's and ``decode_lanes``' step latencies (median, min) and
 their device time and kernels a step under ``torch.profiler``; then
 ``python -m repro_torch.launch.serve --full``'s tokens/s. Decode launches
 none of the port's kernels, so this path's launches are 0.
+
+``[moe]`` (after ``[hybrid]``): deepseek-v3-671b and mixtral-8x7b at full
+width, their depth cut to what one card holds (``MOE_MODELS``; the script
+prints the config's bytes at full depth and the cut): weights drawn on the
+card; ``forward`` over 4 x 2048 tokens all local, then at host_offload 0.5
+(which must demote the routed experts first), prefetch on and off, logits
+``torch.equal``; B2 once a layer a forward, every launch on the tensor
+cores (deepseek-v3's MLA at D 192, mixtral's GQA at D 128 with its 4096
+window); ``ServingEngine.generate`` of 4 prompts (64 tokens, 16 new)
+untiered, then with ``expert_paging`` at 4x oversubscription (resident 64
+of 256, 2 of 8): tokens and every cache leaf equal, with the pager's hit
+rate, misses, sync fetches, bytes over the copy stream, simulated
+degradation, step times and peak memory printed; then in float32, at the
+depth float32 weights fit, the forward against the models' plain flash
+(B2's FFMA kernel) and decode against forward without drops.
 
 Three checks ride along. ``[serving-bench]`` (after ``[hpc]``):
 ``benchmarks/fig_autoscale.py``'s and ``fig_serving_mt.py``'s loops through
@@ -107,6 +124,7 @@ It imports nothing of JAX or the reference package ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -130,6 +148,7 @@ from repro_torch.core.tiering import (  # noqa: E402
     TieringConfig,
     map_leaves,
     place_params,
+    plan_for_params,
 )
 from repro_torch.core.exec import (  # noqa: E402
     StreamingExecutor,
@@ -160,6 +179,7 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ContinuousScheduler,
     EngineConfig,
+    ExpertPagingConfig,
     Request,
     SchedulerConfig,
     ServingEngine,
@@ -209,7 +229,11 @@ SSD_FULL = dict(B=4, H=24, L=2048, P=64, N=128, chunk=256, G=1)
 # (causal, Dv = D), at the same batch and prompt length
 SSD_ZAMBA = dict(B=4, H=64, L=2048, P=64, N=64, chunk=256, G=1)
 FLASH_MODELS = {"granite-8b": dict(B=4, H=32, KV=8, S=2048, D=128),
-                "zamba2-1.2b": dict(B=4, H=32, KV=32, S=2048, D=64)}
+                "zamba2-1.2b": dict(B=4, H=32, KV=32, S=2048, D=64),
+                # deepseek-v3's MLA prefill: D = 128 nope + 64 rope, Dv 128,
+                # v a slice of the (B, S, H, 128 + 128) up-projection
+                "deepseek-v3-671b MLA": dict(B=4, H=128, KV=128, S=2048,
+                                             D=192, Dv=128)}
 BEST_OF = 3
 # the float32 plain-SSD forward's bound, as a share of max(1, max|logits|),
 # float32's bound for decode against forward; why the check is held in
@@ -228,6 +252,22 @@ LANE_PROMPT, LANE_NEW, LANE_REQUESTS = 16, 16, 6
 # steps of a profiled engine wave (8 prompt tokens, 8 new) and of the timed
 # and profiled lane steps
 PROFILE_STEPS = 16
+# [moe]: the two MoE configurations at full width, their depth cut to what
+# one card holds (a deepseek-v3 MoE layer alone holds 256 x 3 x 7168 x 2048
+# routed parameters, 22.5 GB in bf16; mixtral's 32 layers ~90 GB of
+# experts): deepseek-v3's 3 first_k_dense MLA + MLP layers, 1 MoE layer and
+# the mtp block, mixtral's first 4 layers. Paging oversubscribes the expert
+# bytes 4x (resident 64 of 256, 2 of 8). The float32 checks run at the
+# depth float32 weights fit (deepseek-v3: 1 dense + 1 MoE layer, 52 GB);
+# decode against forward without drops (capacity factor 8, one dispatch
+# group; deepseek-v3 on one lane: two lanes would share capacity 1)
+MOE_MODELS = {
+    "deepseek-v3-671b": dict(n_layers=4, resident=64, depth32=2, dense32=1,
+                             lanes32=1, tokens32=64),
+    "mixtral-8x7b": dict(n_layers=4, resident=2, depth32=4, dense32=0,
+                         lanes32=2, tokens32=128),
+}
+MOE_PROMPT, MOE_NEW = 64, 16
 
 
 def zero_counts() -> None:
@@ -770,15 +810,17 @@ def n_bytes(params) -> int:
                for _, t in _leaves_with_keys(params))
 
 
-def drive_placements(tag: str, cfg, params, batch) -> tuple:
+def drive_placements(tag: str, cfg, params, batch,
+                     fractions=(1.0, 0.5, 0.0)) -> tuple:
     """``forward`` with every weight on the card (the oracle), then with
-    the weights placed by ``host_offload`` at 0.5 and 0.0, prefetch on and
-    off; every logits tensor ``torch.equal`` to the oracle. Returns (the
-    oracle on the host, per-placement rows, forwards run)."""
+    the weights placed by ``host_offload`` at each of ``fractions`` below
+    1.0, prefetch on and off; every logits tensor ``torch.equal`` to the
+    oracle. Returns (the oracle on the host, per-placement rows, forwards
+    run)."""
     oracle = None  # on the host, so that no placement's peak includes it
     rows, n_fwd = {}, 0
-    for mode, frac in (("none", 1.0), ("host_offload", 0.5),
-                       ("host_offload", 0.0)):
+    for mode, frac in (("none" if f == 1.0 else "host_offload", f)
+                       for f in fractions):
         placed, plan = place_params(params, TieringConfig(
             mode=mode, local_fraction=frac))
         for prefetch in ((True,) if mode == "none" else (True, False)):
@@ -971,20 +1013,28 @@ def nudged_kernels(seed: int = 5) -> dict:
     return {"scan": scan, "flash": flash}
 
 
-def decode_vs_forward(tag: str, cfg, depth: int, n_tok: int = 512) -> None:
+def decode_vs_forward(tag: str, cfg, depth: int, n_tok: int = 512, *,
+                      params=None, lanes: int = 2,
+                      moe_groups: int | None = None) -> None:
     """The reference's decode-matches-forward contract at full width in
-    float32, ``depth`` layers: token-by-token decode over 2 x ``n_tok``
-    tokens against the forward, max|diff| < 1e-3 x max(1, max|logits|)."""
+    float32, ``depth`` layers (a moe model keeps at least one MoE layer):
+    token-by-token decode over ``lanes`` x ``n_tok`` tokens against the
+    forward, max|diff| < 1e-3 x max(1, max|logits|). ``params`` are float32
+    weights at that depth (drawn here when None); ``moe_groups`` the
+    decode's MoE dispatch groups."""
     depth = min(depth, cfg.n_layers)
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=depth)
+    cfg32 = dataclasses.replace(
+        cfg, dtype=torch.float32, n_layers=depth,
+        first_k_dense=min(cfg.first_k_dense, depth - 1))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    p32 = tf.init_params(gen, cfg32)
-    tok = make_batch(cfg32, gen, 2, n_tok)["tokens"]
+    p32 = params if params is not None else tf.init_params(gen, cfg32)
+    tok = make_batch(cfg32, gen, lanes, n_tok)["tokens"]
     full, _ = tf.forward(p32, {"tokens": tok}, cfg32)
-    cache = tf.init_decode_cache(cfg32, 2, n_tok)
+    cache = tf.init_decode_cache(cfg32, lanes, n_tok)
     errs = torch.zeros((), device="cuda")
     for t in range(n_tok):
-        lg, cache = tf.decode_step(p32, cache, tok[:, t:t + 1], cfg32)
+        lg, cache = tf.decode_step(p32, cache, tok[:, t:t + 1], cfg32,
+                                   moe_groups=moe_groups)
         errs = torch.maximum(errs, (lg[:, 0] - full[:, t]).abs().max())
     scale = full[..., :cfg.vocab_size].abs().max().item()
     err = errs.item()
@@ -992,8 +1042,8 @@ def decode_vs_forward(tag: str, cfg, depth: int, n_tok: int = 512) -> None:
             f"{tag} f32: decode drifts from forward by {err:.4g} (scale "
             f"{scale:.4g})")
     print(f"[{tag}] float32 decode vs forward, {depth} of {cfg.n_layers} "
-          f"layers, over 2 x {n_tok} tokens: max|diff| {err:.4g} < 1e-3 x "
-          f"max(1, {scale:.4g})")
+          f"layers, over {lanes} x {n_tok} tokens: max|diff| {err:.4g} < "
+          f"1e-3 x max(1, {scale:.4g})")
 
 
 def decode_past_the_cache(tag: str, cfg, params, S: int = 16) -> None:
@@ -1295,6 +1345,200 @@ def phase_hybrid() -> dict:
     return run
 
 
+# -- [moe]: deepseek-v3 and mixtral-8x7b -----------------------------------------
+def mem_available_gb() -> float:
+    """The host's ``MemAvailable`` (``/proc/meminfo``) in GB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    raise SystemExit("chip_smoke FAILED: no MemAvailable in /proc/meminfo")
+
+
+def release_memory() -> None:
+    """Return freed device blocks and the pinned host blocks that
+    PyTorch's host allocator caches (a paged full-width MoE layer pins
+    22.5 GB) to the system."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_empty_cache = getattr(torch._C, "_host_emptyCache", None)
+    if host_empty_cache is not None:
+        host_empty_cache()
+
+
+def is_expert_leaf(name: str) -> bool:
+    return "['moe']['w_" in name
+
+
+def moe_paged_wave(cfg, params, host_prompts, want, want_cache: dict,
+                   resident: int, ecfg: dict) -> str:
+    """One ``generate`` wave through an engine whose routed experts are
+    paged (``resident`` of ``n_experts`` a layer in the assembled view);
+    its tokens must equal ``want`` and every leaf of its cache
+    ``want_cache``, the untiered engine's (every layer's K/V or latent at
+    every position: the whole computation, where random weights may give
+    few distinct tokens). Returns the report line."""
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, params, EngineConfig(
+        **ecfg, expert_paging=ExpertPagingConfig(resident_max=resident)))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    toks, line = engine_wave(eng, host_prompts, MOE_NEW)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(np.array_equal(toks, want),
+            f"[moe] {cfg.name}: paged tokens != the untiered engine's")
+    for key, leaf in want_cache.items():
+        require(torch.equal(eng.cache[key], leaf),
+                f"[moe] {cfg.name}: the paged engine's cache['{key}'] != "
+                f"the untiered engine's")
+    store = eng.expert_store
+    st = store.stats()
+    store.close()
+    out = (f"resident {resident} of {cfg.n_experts} a layer "
+           f"({cfg.n_experts / resident:.0f}x oversubscribed), "
+           f"{st['n_moe_layers'] * cfg.n_experts} slabs of "
+           f"{st['slab_bytes'] / 1e6:.1f} MB in a 1-node pool (set-up "
+           f"{setup_s:.1f} s: the pinned host copy and the pool's "
+           f"registration); {line}; tokens and every cache leaf "
+           f"({', '.join(sorted(want_cache))}) equal to the untiered "
+           f"engine's; "
+           f"hit rate {st['hit_rate']!r} ({st['hits']} hits, {st['misses']} "
+           f"misses), {st['sync_fetches']} sync fetches (against "
+           f"{st['misses']} misses), {st['prefetch_commits']} prefetch "
+           f"commits, {st['bytes_fetched']} B fetched by the ledger and "
+           f"{store.copy_bytes} B over the copy stream; simulated stall "
+           f"{st['sim_stall_us']!r} us over compute {st['sim_compute_us']!r}"
+           f" us = degradation {st['degradation']!r}; peak {peak:.3f} GiB")
+    del eng, store
+    gc.collect()
+    return out
+
+
+def drive_moe(name: str, spec: dict, smi: str) -> dict:
+    """One MoE configuration at full width, depth cut to ``spec``: the
+    weights drawn on the card; ``forward`` over 4 x 2048 tokens all local
+    and at host_offload 0.5 (the routed experts demoted first), prefetch on
+    and off, logits ``torch.equal``; B2 once a layer a forward, all on the
+    tensor cores; serving 4 prompts of 64 tokens and 16 new through
+    ``ServingEngine.generate`` untiered, then with the experts paged (tokens
+    equal); then, in float32 at ``depth32``, the path check against the
+    models' plain flash and decode against forward without drops."""
+    full = get_config(name)
+    cfg = dataclasses.replace(full, n_layers=spec["n_layers"])
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    expert_1 = full.n_experts * 3 * full.d_model * full.moe_d_ff
+    attn = (f"MLA (q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, "
+            f"head dims {cfg.qk_nope_head_dim} + {cfg.qk_rope_head_dim}, v "
+            f"{cfg.v_head_dim})" if cfg.attention == "mla" else
+            f"GQA {cfg.n_kv_heads} KV heads, window {cfg.sliding_window}")
+    print(f"[moe] {name} at full width: d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {attn}, {cfg.n_experts} routed experts "
+          f"top-{cfg.top_k} of d_ff {cfg.moe_d_ff} + {cfg.n_shared_experts} "
+          f"shared, dense d_ff {cfg.d_ff}, vocab {cfg.vocab_size}. The "
+          f"config counts {full.param_count() / 1e9:.1f} B parameters, "
+          f"{2 * full.param_count() / 1e9:.0f} GB in bf16, over "
+          f"{full.n_layers} layers (one MoE layer's routed experts "
+          f"{expert_1 / 1e9:.2f} B, {2 * expert_1 / 1e9:.1f} GB) against the "
+          f"card's 80 GB, so the depth is cut to {cfg.n_layers} layers "
+          f"({cfg.first_k_dense} dense + {n_moe} MoE"
+          f"{' + the mtp block' if cfg.mtp_depth else ''}): "
+          f"{cfg.param_count() / 1e9:.2f} B counted, "
+          f"{2 * cfg.param_count() / 1e9:.1f} GB; host MemAvailable "
+          f"{mem_available_gb():.1f} GB")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = tf.init_params(gen, cfg)
+    batch = make_batch(cfg, gen, 4, 2048)
+    prompts = make_batch(cfg, gen, 4, MOE_PROMPT)["tokens"]
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _leaves_with_keys(params))
+    print(f"[moe] {name}: drew {n_params / 1e9:.4f} B parameters "
+          f"({n_bytes(params) / 1e9:.2f} GB, {cfg.dtype}) on the card in "
+          f"{time.perf_counter() - t0:.1f} s; batch "
+          f"{tuple(batch['tokens'].shape)}")
+    plan = plan_for_params(params, config=TieringConfig(
+        mode="host_offload", local_fraction=0.5))
+    remote = plan.remote_names()
+    require(remote and all(is_expert_leaf(n) for n in remote),
+            f"[moe] {name}: host_offload 0.5 demotes {remote}, not the "
+            f"routed experts first")
+    print(f"[moe] {name}: host_offload 0.5 demotes {remote} "
+          f"({plan.remote_bytes / 1e9:.2f} GB), the routed experts first")
+
+    zero_counts()
+    _, rows, n_fwd = drive_placements(f"moe {name}", cfg, params, batch,
+                                      fractions=(1.0, 0.5))
+    host_prompts = prompts.cpu().numpy()
+    ecfg = dict(max_batch=4, max_len=MOE_PROMPT + MOE_NEW)
+    eng = ServingEngine(cfg, params, EngineConfig(**ecfg))
+    torch.cuda.reset_peak_memory_stats()
+    want, line = engine_wave(eng, host_prompts, MOE_NEW)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want_cache = eng.cache
+    del eng
+    print(f"[moe] {name} untiered ServingEngine.generate: 4 prompts x "
+          f"{MOE_PROMPT} + {MOE_NEW} new: {line}; peak {peak:.3f} GiB; "
+          f"tokens {want[0, :8].tolist()}...")
+    print(f"[moe] {name} paged ServingEngine.generate: " + moe_paged_wave(
+        cfg, params, host_prompts, want, want_cache, spec["resident"],
+        ecfg))
+    del want_cache
+    launches = counts()
+    variants = dict(fa.VARIANT_LAUNCHES)
+    print(f"[moe] {name} launches over {n_fwd} forwards and 2 served "
+          f"waves: {launches}; flash by variant {variants}")
+    want_l = {k: (cfg.n_layers * n_fwd if k == "flash_attention" else 0)
+              for k in launches}
+    require(launches == want_l, f"[moe] {name}: launches {launches}, "
+                                f"expected {want_l} (B2 once a layer)")
+    require(variants["ffma"] == 0, f"[moe] {name}: flash launches "
+                                   f"{variants}, expected all wgmma")
+    del params, batch, prompts
+    release_memory()
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                n_layers=spec["depth32"],
+                                first_k_dense=spec["dense32"], mtp_depth=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p32 = tf.init_params(gen, cfg32)
+    batch32 = make_batch(cfg32, gen, 2, 2048)
+    worst, scale, mean, agree = logits_diff(
+        tf.forward(p32, batch32, cfg32)[0],
+        forward_with(p32, batch32, cfg32, flash=mflash.blocked_flash),
+        cfg.vocab_size)
+    require(worst <= PATH_BOUND * max(scale, 1.0),
+            f"[moe] {name} f32: plain-flash forward differs by {worst:.4g} "
+            f"> {PATH_BOUND} x max(1, {scale:.4g})")
+    print(f"[moe] {name} float32 kernel forward (B2's FFMA kernel) vs "
+          f"plain-flash forward, 2 x 2048 tokens at {cfg32.n_layers} of "
+          f"{full.n_layers} layers ({cfg32.first_k_dense} dense + "
+          f"{cfg32.n_layers - cfg32.first_k_dense} MoE, "
+          f"{n_bytes(p32) / 1e9:.1f} GB of float32 weights, the depth that "
+          f"fits the card): max|diff| {worst:.4g} "
+          f"({worst / max(scale, 1.0):.4g} of max|logits| {scale:.4g}; bound "
+          f"{PATH_BOUND}), mean|diff| {mean:.4g}, greedy tokens agree at "
+          f"{agree:.2%}")
+    del batch32
+    decode_vs_forward(f"moe {name}", dataclasses.replace(
+        full, capacity_factor=8.0), spec["depth32"], spec["tokens32"],
+        params=p32, lanes=spec["lanes32"], moe_groups=1)
+    del p32
+    release_memory()
+    print(f"[moe] {name}: host MemAvailable {mem_available_gb():.1f} GB "
+          f"after the phase")
+    return {"launches": launches, "rows": rows, "forwards": n_fwd}
+
+
+def phase_moe(smi: str) -> dict:
+    """``[moe]``: each configuration of ``MOE_MODELS`` through
+    :func:`drive_moe`; returns its numbers by name."""
+    t0 = time.perf_counter()
+    out = {name: drive_moe(name, spec, smi)
+           for name, spec in MOE_MODELS.items()}
+    print(f"[moe] wall {time.perf_counter() - t0:.1f} s; {smi}")
+    return out
+
+
 # -- 6. kernel times ----------------------------------------------------------
 def phase_times(mm_data, fa_data, ssd_data) -> dict:
     x, w = mm_data
@@ -1448,37 +1692,68 @@ def ssd_prep_ms(dims: dict) -> float:
 # -- 6b. the kernels at the models' own shapes ---------------------------------
 def model_flash_data(shape: dict) -> tuple:
     """Random bf16 q, k, v in the models' (B, S, H, D) layout, as
-    ``gqa_attention`` hands them to ``flash_attention``."""
+    ``gqa_attention`` hands them to ``flash_attention``; with a ``Dv``
+    (MLA) v is the second half of a (B, S, KV, D' + Dv) tensor, strided as
+    ``mla_attention`` slices it from its up-projection."""
     rng = np.random.default_rng(6)
     B, H, KV, S, D = (shape[k] for k in ("B", "H", "KV", "S", "D"))
-    return (rand(rng, (B, S, H, D), torch.bfloat16),
-            rand(rng, (B, S, KV, D), torch.bfloat16),
-            rand(rng, (B, S, KV, D), torch.bfloat16))
+    q = rand(rng, (B, S, H, D), torch.bfloat16)
+    k = rand(rng, (B, S, KV, D), torch.bfloat16)
+    if "Dv" not in shape:
+        return q, k, rand(rng, (B, S, KV, D), torch.bfloat16)
+    Dv = shape["Dv"]
+    return q, k, rand(rng, (B, S, KV, 2 * Dv), torch.bfloat16)[..., Dv:]
+
+
+def oracle_by_lane(q, k, v) -> torch.Tensor:
+    """``reference_attention`` (causal) one batch element at a time: the
+    dense oracle's (B, H, S, S) float32 scores at H 128 would take 8.6 GB."""
+    return torch.cat([reference_attention(q[b:b + 1], k[b:b + 1],
+                                          v[b:b + 1], causal=True)
+                      for b in range(q.shape[0])])
 
 
 def phase_model_shape_checks(fa_inputs: dict, ssd_inputs: dict) -> dict:
-    """B2 at granite-8b's and zamba2-1.2b's attention shapes, through the
-    models' route (``ops.attention`` on the strided (B, S, H, D) tensors),
-    against the dense oracle within ``FLASH_TOL``'s bf16 bound; B3's three
-    kernels and the scan at zamba2-1.2b's shape within ``SSD_TOL``. Returns
-    each kernel's largest max|err|."""
+    """B2 at granite-8b's, zamba2-1.2b's and deepseek-v3's MLA attention
+    shapes, through the models' route (``ops.attention`` on the strided
+    (B, S, H, D) tensors), against the dense oracle within ``FLASH_TOL``'s
+    bf16 bound (the tensor-core kernel), and at the MLA shape in float32
+    too (the FFMA kernel, the float32 path check's); B3's three kernels and
+    the scan at zamba2-1.2b's shape within ``SSD_TOL``. Returns each
+    kernel's largest max|err|."""
     errs = {"flash_attention": 0.0}
     for label, (q, k, v) in fa_inputs.items():
         S = q.shape[1]
-        got = ops.attention(q, k, v, causal=True, block_q=S, block_k=S)
-        want = reference_attention(q, k, v, causal=True)
         B, _, H, D = q.shape
-        err = max_err(got, want, FLASH_TOL[q.dtype],
-                      f"flash at {label}'s shape B{B} H{H} KV{k.shape[2]} "
-                      f"S{S} D{D} causal bf16 "
-                      f"{fa._variant(q.dtype, D, v.shape[3])}, the models' "
-                      f"strided layout")
-        errs["flash_attention"] = max(errs["flash_attention"], err)
-        del got, want
+        Dv = v.shape[3]
+        dtypes = ((torch.bfloat16, torch.float32) if D != Dv
+                  else (torch.bfloat16,))
+        for dt in dtypes:
+            qd, kd, vd = (t.to(dt) for t in (q, k, v))
+            got = ops.attention(qd, kd, vd, causal=True, block_q=S,
+                                block_k=S)
+            want = oracle_by_lane(qd, kd, vd)
+            err = max_err(got, want, FLASH_TOL[dt],
+                          f"flash at {label}'s shape B{B} H{H} "
+                          f"KV{k.shape[2]} S{S} D{D} Dv{Dv} causal {dt} "
+                          f"{fa._variant(dt, D, Dv)}, the models' strided "
+                          f"layout")
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            del got, want, qd, kd, vd
     errs["ssd_scan"] = max(check_ssd_full(full, dims)
                            for full, dims in ssd_inputs.values())
     torch.cuda.synchronize()
     return errs
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these
+    inputs (causal)."""
+    from torch.nn.attention import SDPBackend
+
+    names = {int(b): n for n, b in SDPBackend.__members__.items()}
+    return names.get(int(torch._fused_sdp_choice(q, k, v, is_causal=True)),
+                     "unknown")
 
 
 def phase_model_shape_times(fa_inputs: dict, ssd_inputs: dict) -> dict:
@@ -1491,7 +1766,14 @@ def phase_model_shape_times(fa_inputs: dict, ssd_inputs: dict) -> dict:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         fa_bound, fa_by = flash_bound(qt, kt, vt)
         k_rep, v_rep = gqa_repeated(qt, kt, vt)
+        row = {}
+        if v.shape[3] != q.shape[3]:  # MLA: the FFMA kernel on the same
+            row["ffma_ms"] = time_ms(lambda: fa._launch(  # bf16 inputs too
+                qt, kt, vt, causal=True, window=None,
+                scale=1.0 / math.sqrt(q.shape[3]), variant="ffma"), 3)
+        row["sdpa_backend"] = sdpa_backend(qt, k_rep, v_rep)
         out[f"flash_attention {label}"] = {
+            **row,
             "ms": time_ms(lambda: ops.attention(
                 q, k, v, causal=True, block_q=S, block_k=S), 10),
             "plain_ms": time_ms(lambda: mflash.blocked_flash(
@@ -1501,7 +1783,7 @@ def phase_model_shape_times(fa_inputs: dict, ssd_inputs: dict) -> dict:
                     qt, k_rep, v_rep, is_causal=True), 10),
             "bound_ms": fa_bound, "bound_by": fa_by,
             "shape": f"B{q.shape[0]} H{q.shape[2]} KV{k.shape[2]} S{S} "
-                     f"D{q.shape[3]} causal bf16"}
+                     f"D{q.shape[3]} Dv{v.shape[3]} causal bf16"}
         del k_rep, v_rep
     for label, (full, dims) in ssd_inputs.items():
         t = ssd_times(full)
@@ -1512,10 +1794,13 @@ def phase_model_shape_times(fa_inputs: dict, ssd_inputs: dict) -> dict:
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         prep = (f", ops.ssd_prep {t['prep_ms']:.4f} ms" if "prep_ms" in t
                 else "")
-        print(f"[time] {name} ({t['shape']}): kernel_ms {t['ms']:.4f}, "
-              f"plain_ms {t['plain_ms']:.4f}, library_ms {lib}, bound_ms "
-              f"{t['bound_ms']:.4f} ({t['bound_by']}), roofline share "
-              f"{t['bound_ms'] / t['ms']:.2%}{prep}")
+        ffma = (f" (ffma on the same inputs {t['ffma_ms']:.4f})"
+                if "ffma_ms" in t else "")
+        sdpa = (f" ({t['sdpa_backend']})" if "sdpa_backend" in t else "")
+        print(f"[time] {name} ({t['shape']}): kernel_ms {t['ms']:.4f}"
+              f"{ffma}, plain_ms {t['plain_ms']:.4f}, library_ms {lib}{sdpa},"
+              f" bound_ms {t['bound_ms']:.4f} ({t['bound_by']}), roofline "
+              f"share {t['bound_ms'] / t['ms']:.2%}{prep}")
     return out
 
 
@@ -1578,6 +1863,10 @@ def main() -> None:
         if "engine" in run:  # the serving layer's path: decode, no kernel
             for name, n in run["engine"]["launches"].items():
                 by_path[name][f"{label} engine"] = n
+    for label, run in phase_moe(dev["smi"]).items():
+        for name, n in run["launches"].items():
+            if n:
+                by_path[name][label] = n
     for name, paths in by_path.items():
         print(f"[path] {name} launches by path: {paths}")
         require(sum(paths.values()) > 0, f"{name}: launched on no path")

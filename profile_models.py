@@ -7,8 +7,11 @@ Run from the repository root on a machine with a CUDA card and nvcc:
     python3 profile_models.py [--models granite-8b,zamba2-1.2b,mamba2-130m]
 
 For each model the weights are drawn on the card from a seed, all local
-(bf16). After a warm-up, one ``forward`` over 4 x 2048 tokens and one
-``decode_step`` of 4 lanes (after 8 steps of prompt) are profiled. For each
+(bf16); the MoE configurations are cut to the depth one card holds
+(``DEPTH``, as ``chip_smoke.py``'s ``[moe]`` cuts them). After a warm-up,
+one ``forward`` over 4 x 2048 tokens and one ``decode_step`` of 4 lanes
+(after 8 steps of prompt; the MoE layers in one dispatch group, as the
+serving engine runs them) are profiled. For each
 it prints the wall time (host clock, ending in a synchronise), the device
 time summed over kernels, the device's idle share (1 - device / wall), the
 device time by category (the port's kernels B2 and B3, cuBLAS GEMMs,
@@ -19,6 +22,7 @@ reference package ``repro``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import re
 import subprocess
 import sys
@@ -44,6 +48,10 @@ CATEGORIES = [
     ("other (elementwise, norms, softmax, reductions)", re.compile(".")),
 ]
 TOP = 10
+# layers run of the configurations whose full depth one card cannot hold:
+# deepseek-v3's 3 dense layers and 1 MoE layer (22.5 GB of routed experts
+# in bf16), mixtral's first 4 layers
+DEPTH = {"deepseek-v3-671b": 4, "mixtral-8x7b": 4}
 
 
 def kernel_times(prof) -> dict[str, tuple[float, int]]:
@@ -97,6 +105,10 @@ def profiled(fn) -> tuple[float, dict]:
 
 def run(arch: str) -> None:
     cfg = get_config(arch)
+    name = arch
+    if arch in DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH[arch])
+        name = f"{arch} ({cfg.n_layers} layers)"
     model = get_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init_params(gen, cfg)
@@ -104,13 +116,14 @@ def run(arch: str) -> None:
     prompt = make_batch(cfg, gen, 4, 9)["tokens"]
     model.forward(params, batch, cfg)  # warm-up
     wall, kernels = profiled(lambda: model.forward(params, batch, cfg))
-    report(f"{arch} forward 4 x 2048", wall, kernels)
+    report(f"{name} forward 4 x 2048", wall, kernels)
     cache = model.init_decode_cache(cfg, 4, 80)
     for t in range(8):
-        _, cache = model.decode_step(params, cache, prompt[:, t:t + 1], cfg)
+        _, cache = model.decode_step(params, cache, prompt[:, t:t + 1], cfg,
+                                     moe_groups=1)
     wall, kernels = profiled(lambda: model.decode_step(
-        params, cache, prompt[:, 8:9], cfg))
-    report(f"{arch} decode step (4 lanes, position 8)", wall, kernels)
+        params, cache, prompt[:, 8:9], cfg, moe_groups=1))
+    report(f"{name} decode step (4 lanes, position 8)", wall, kernels)
     del params, batch, cache
     torch.cuda.empty_cache()
 

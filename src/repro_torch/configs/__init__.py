@@ -2,8 +2,8 @@
 reduced configs of the CPU tests.
 
 A copy of ``repro.configs``: all ten configurations, as data. The models
-serve the dense, vlm, ssm and hybrid families; the moe family waits for
-ROADMAP A7 and the enc-dec family for A9. ``reduced_config`` applies the
+serve the dense, vlm, moe, ssm and hybrid families; the enc-dec family
+waits for ROADMAP A9. ``reduced_config`` applies the
 reference's overrides with the same numbers, so both packages build
 identical reduced configs.
 """

@@ -203,7 +203,12 @@ class SlabAllocator:
         cls = self.class_of(nbytes)
         bin_key = (node_id, arena, cls)
         slabs = self._bins.setdefault(bin_key, [])
-        partial = [s for s in slabs if s.free_slot_count > 0]
+        # a slab of a stripe-sized class has one slot, and an emptied slab
+        # leaves its bin, so every slab there is full: skip the scan (it
+        # made registering N such extents O(N^2): a paged full-width MoE
+        # layer has 22.5 K of them)
+        partial = ([s for s in slabs if s.free_slot_count > 0]
+                   if self.stripe_bytes // cls > 1 else [])
         if partial:
             slab = max(partial, key=lambda s: (s.used_slots, -s.slab_id))
         else:

@@ -20,7 +20,8 @@
 // Two variants; the wrapper picks one by a plain rule on dtype and shape
 // (kernels/flash_attention.py::_variant):
 //
-// (1) "wgmma", bf16 with D and Dv multiples of 16, at most 128:
+// (1) "wgmma", bf16 with D and Dv multiples of 16, D at most 192 and Dv at
+//   most 128 (MLA's prefill: D 192 = 128 nope + 64 rope, Dv 128):
 //   * one CTA per (b, h, 128 query rows): warpgroup 0 is the producer (one
 //     thread issues TMA), warpgroups 1 and 2 are consumers owning 64 query
 //     rows each; the grid runs over heads fastest and over query blocks from
@@ -33,8 +34,11 @@
 //     first use, and a K slot is given back as soon as its Q K^T is done —
 //     DOLMA's dual buffer at the HBM -> shared-memory edge;
 //   * S = Q K^T: wgmma.m64n128k16 with Q and K both K-major in 128-byte-
-//     swizzled shared memory (D is zero-padded to 64 or 128 by TMA, which
-//     adds exact zeros);
+//     swizzled shared memory, one (128 rows x 64 columns) box per 64 columns
+//     of D (D is zero-padded to 64, 128 or 192 by TMA, which adds exact
+//     zeros): D/16 k-steps, 12 at D 192. At D 192 / Dv 128 the Q tile and
+//     the two-stage K, V ring take 1024 + 49152 + 2 x (49152 + 32768) + 72 =
+//     214,088 bytes of the 232,448 a block may use;
 //   * O += P V: wgmma.m64n{64,128}k16 with A = P in registers (the S
 //     accumulator layout is the A-fragment layout of a 16-bit operand, so
 //     P is packed to bf16 in place, no shared-memory round trip) and B = V
@@ -582,7 +586,8 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
 // dtype: 0 = float32, 1 = bfloat16. q (B,H,Sq,D), k (B,KV,Sk,D),
 // v (B,KV,Sk,Dv), o (B,H,Sq,Dv), each given by its base pointer and the
 // element strides of its batch, head and sequence dims (the last dim is
-// contiguous). D % 4 == 0, D <= 128 and Dv <= 128. The FFMA variant.
+// contiguous). D % 4 == 0, D <= 192 and Dv <= 128 (q staged as float32
+// [64][D]: 98,432 bytes of dynamic shared memory at D 192). The FFMA variant.
 // Launches on `stream`;
 // returns the CUDA error code (0 on success).
 extern "C" int flash_attention_fwd(
@@ -605,7 +610,7 @@ extern "C" int flash_attention_fwd(
 }
 
 // The tensor-core variant: bf16 q, k, v, o as above; D and Dv multiples of
-// 16, at most 128; every stride a multiple of 8 elements and q, k, v
+// 16, D at most 192 and Dv at most 128; every stride a multiple of 8 elements and q, k, v
 // 16-byte aligned (TMA). Launches on `stream`; returns 0, a CUDA error code,
 // or one above hopper::kTensorMapError.
 extern "C" int flash_attention_wgmma(
@@ -623,6 +628,9 @@ extern "C" int flash_attention_wgmma(
   if (err != 0) return err;
   const tc::OutStrides os{osb, osh, oss};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > 128)  // MLA: three 64-column boxes of Q and K per row
+    return tc::launch<192, 128>(qm, km, vm, o, os, B, H, KV, Sq, Sk, Dv,
+                                scale, causal, has_window, window, s);
   if (D <= 64 && Dv <= 64)
     return tc::launch<64, 64>(qm, km, vm, o, os, B, H, KV, Sq, Sk, Dv, scale,
                               causal, has_window, window, s);

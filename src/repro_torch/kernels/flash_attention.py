@@ -5,9 +5,9 @@ a hand-written kernel in ``csrc/flash_attention.cu`` (see the note there
 for its design and bound); on CPU tensors it computes the plain version,
 :func:`repro_torch.kernels.ref.flash_ref`. Which one runs is decided by the
 tensors' device alone, and which CUDA kernel by :func:`_variant`, a plain
-rule on dtype and head dims: bf16 with D and Dv multiples of 16, at most
-128, takes the tensor-core kernel (``"wgmma"``), everything else the
-CUDA-core one (``"ffma"``).
+rule on dtype and head dims: bf16 with D and Dv multiples of 16, D at
+most 192 and Dv at most 128, takes the tensor-core kernel (``"wgmma"``),
+everything else the CUDA-core one (``"ffma"``).
 
 It supports what the reference kernel does: GQA (K/V head ``h // G``),
 causal and sliding-window masks, a value dim ``Dv`` other than ``D`` (MLA),
@@ -34,8 +34,11 @@ LAUNCHES = 0
 #: The same launches by variant (see :func:`_variant`).
 VARIANT_LAUNCHES = {"wgmma": 0, "ffma": 0}
 
-#: Largest head dims the CUDA kernels hold in their registers and tiles.
-MAX_HEAD_DIM = 128
+#: Largest q/k head dim D the CUDA kernels hold in their tiles: three
+#: 64-column boxes (MLA's 128 + 64), and q staged whole for the FFMA kernel.
+MAX_D = 192
+#: Largest v head dim Dv: the output accumulator held in registers.
+MAX_DV = 128
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,12 +53,13 @@ def reset_launches() -> None:
 def _variant(dtype: torch.dtype, D: int, Dv: int) -> str:
     """Which CUDA kernel computes attention with head dims ``D`` (q, k) and
     ``Dv`` (v): ``"wgmma"`` (tensor cores, TMA) for bf16 with both a
-    multiple of 16 (one wgmma k-step) and at most :data:`MAX_HEAD_DIM`;
+    multiple of 16 (one wgmma k-step), D at most :data:`MAX_D` and Dv at
+    most :data:`MAX_DV`;
     ``"ffma"`` (CUDA cores) for the rest, float32 included (TF32 would miss
     the reference's float32 tolerance). The ffma kernel raises on what it
     does not take either."""
     if (dtype == torch.bfloat16 and D % 16 == 0 and Dv % 16 == 0
-            and D <= MAX_HEAD_DIM and Dv <= MAX_HEAD_DIM):
+            and D <= MAX_D and Dv <= MAX_DV):
         return "wgmma"
     return "ffma"
 
@@ -84,10 +88,10 @@ def _launch(q, k, v, *, causal, window, scale,
             f"dtype for q, k, v; got {q.dtype}, {k.dtype}, {v.dtype}")
     B, H, Sq, D = q.shape
     KV, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
-    if D % 4 or D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
+    if D % 4 or D > MAX_D or Dv > MAX_DV:
         raise ValueError(
-            f"flash_attention: CUDA kernel needs D % 4 == 0, D <= "
-            f"{MAX_HEAD_DIM} and Dv <= {MAX_HEAD_DIM}; got D={D}, Dv={Dv}")
+            f"flash_attention: CUDA kernel needs D % 4 == 0, D <= {MAX_D} "
+            f"and Dv <= {MAX_DV}; got D={D}, Dv={Dv}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
     variant = variant or _variant(q.dtype, D, Dv)

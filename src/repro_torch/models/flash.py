@@ -164,7 +164,8 @@ def b2_route(dtype: torch.dtype, D: int, Dv: int, q_offset: int) -> str:
     B2 has no query offset: its causal tile skip assumes query row i lines
     up with key i, so ``q_offset != 0`` raises (ROADMAP B2's ``q_offset``
     gap, and C3: only with an offset can a row meet no live key). Its
-    tiles hold head dims up to 128, in multiples of 4. B2 masks keys at or
+    tiles hold a q/k head dim D up to 192 (MLA's 128 + 64) in multiples of
+    4, and a v head dim Dv up to 128. B2 masks keys at or
     beyond Sk itself, so the plain version's ``kv_len`` padding has no
     counterpart on the card.
     """
@@ -172,10 +173,11 @@ def b2_route(dtype: torch.dtype, D: int, Dv: int, q_offset: int) -> str:
         raise ValueError(
             f"flash_attention: q_offset={q_offset} on a card; kernel B2 has "
             f"no query offset (ROADMAP B2, the q_offset gap; C3)")
-    if D % 4 or D > fa.MAX_HEAD_DIM or Dv > fa.MAX_HEAD_DIM:
+    if D % 4 or D > fa.MAX_D or Dv > fa.MAX_DV:
         raise ValueError(
             f"flash_attention: head dims D={D}, Dv={Dv} on a card; kernel B2 "
-            f"takes D % 4 == 0 and D, Dv <= {fa.MAX_HEAD_DIM} (ROADMAP B2)")
+            f"takes D % 4 == 0, D <= {fa.MAX_D} and Dv <= {fa.MAX_DV} "
+            f"(ROADMAP B2)")
     return fa._variant(dtype, D, Dv)
 
 

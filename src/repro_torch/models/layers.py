@@ -145,6 +145,25 @@ def gqa_attention(
     return out.reshape(B, S, H * Dh) @ p["wo"]
 
 
+def write_slot(cache: torch.Tensor, new: torch.Tensor,
+               slot: torch.Tensor) -> None:
+    """``new`` (B,1,...) into ``cache`` (B,S,...) at ``slot`` in place, as
+    the reference writes a decode step's K/V or latent: at a 0-d ``slot``
+    for every lane, clamped to the last slot (``dynamic_update_slice``
+    clamps a write past the end); at a per-lane ``(B,)`` slot, a lane past
+    the cache keeps what it has, as the reference's scatter drops an
+    out-of-range write (it rewrites the value already in its clamped slot:
+    a mask, not boolean indexing, so the host never waits)."""
+    S = cache.shape[1]
+    row = slot.clamp(max=S - 1)
+    if slot.ndim == 0:
+        cache.index_copy_(1, row.reshape(1), new)
+        return
+    lanes = torch.arange(cache.shape[0], device=cache.device)
+    keep = (slot >= S).reshape(-1, *([1] * (new.ndim - 2)))
+    cache[lanes, row] = torch.where(keep, cache[lanes, row], new[:, 0])
+
+
 def gqa_decode_step(
     p: Params,
     x: torch.Tensor,
@@ -182,19 +201,11 @@ def gqa_decode_step(
     v_new = _split_heads(x @ p["wv"], KV, Dh)
 
     idx = torch.arange(S_cache, device=x.device)
+    lane_pos = positions[:, 0].long() if per_lane else pos.long()
+    slot = lane_pos % S_cache if cfg.sliding_window else lane_pos
+    write_slot(cache_k, k_new, slot)
+    write_slot(cache_v, v_new, slot)
     if per_lane:
-        lane_pos = positions[:, 0].long()
-        slot = lane_pos % S_cache if cfg.sliding_window else lane_pos
-        lanes = torch.arange(B, device=x.device)
-        # A lane past the cache keeps its slots, as the reference's scatter
-        # drops an out-of-range write: it rewrites the value already there
-        # (a mask, not boolean indexing, so the host never waits).
-        keep = (slot >= S_cache)[:, None, None]
-        row = slot.clamp(max=S_cache - 1)
-        cache_k[lanes, row] = torch.where(keep, cache_k[lanes, row],
-                                          k_new[:, 0])
-        cache_v[lanes, row] = torch.where(keep, cache_v[lanes, row],
-                                          v_new[:, 0])
         if cfg.sliding_window:
             valid = (idx[None, :] <= slot[:, None]) | (
                 lane_pos[:, None] >= S_cache)
@@ -202,13 +213,6 @@ def gqa_decode_step(
             valid = idx[None, :] <= lane_pos[:, None]
         mask = valid[:, None, None, :]
     else:
-        lane_pos = pos.long()
-        slot = lane_pos % S_cache if cfg.sliding_window else lane_pos
-        # past the cache the write lands in the last slot, as the
-        # reference's dynamic_update_slice clamps it
-        row = slot.clamp(max=S_cache - 1).reshape(1)
-        cache_k.index_copy_(1, row, k_new)
-        cache_v.index_copy_(1, row, v_new)
         if cfg.sliding_window:  # ring: all valid once wrapped
             valid = (idx <= slot) | (lane_pos >= S_cache)
         else:

@@ -1,11 +1,11 @@
-"""Model assembly: the dense, vlm, ssm and hybrid families.
+"""Model assembly: the dense, vlm, moe, ssm and hybrid families.
 
 A port of ``repro.models.transformer``, with the same public API:
 
   init_params(gen, cfg, device=)           -> params (nested dicts)
   forward(params, batch, cfg, ...)         -> (logits, aux)
   init_decode_cache(cfg, batch, max_len)   -> cache
-  decode_step(params, cache, tokens, cfg)  -> (logits, cache)
+  decode_step(params, cache, tokens, cfg)  -> (logits, cache[, routing])
 
 Layers are *stacked* (leading dim = n_layers) and driven by
 :func:`repro_torch.core.tiering.tiered_scan`, DOLMA's dual buffer over
@@ -17,14 +17,23 @@ use, the hybrid's shared block once a forward or decode step. Every
 placement computes the same values: its logits are bit-identical to the
 all-local run's.
 
+The attention block is GQA (:mod:`repro_torch.models.layers`) or MLA
+(:mod:`repro_torch.models.mla`, ``cfg.attention == "mla"``). The moe family
+(deepseek-v3, mixtral) runs two layer loops, each its own dual buffer: the
+``first_k_dense`` attention + MLP blocks (``dense_layers``), then the
+attention + MoE blocks (``layers``, :mod:`repro_torch.models.moe`), whose
+load-balance losses sum into ``aux``. Its ``mtp`` block is made by
+``init_params`` for the MTP loss, which waits for the training slice with
+``loss_fn`` and the remat options (ROADMAP A9); no forward or decode step
+runs it.
+
 The hybrid family (zamba2) runs its Mamba2 stack in one layer loop and
 applies the shared attention block after every ``hybrid_attn_every``-th
 layer: the reference's groups, each followed by the shared block, then the
 tail, computed in the same order, while the dual buffer also fetches
 across the shared block.
 
-The moe family waits for ROADMAP A7, the enc-dec family for A9, and so do
-``loss_fn`` and the remat options (A9).
+The enc-dec family waits for ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -38,19 +47,20 @@ from repro_torch.core.objects import _leaves_with_keys
 from repro_torch.core.placement import PlacementPlan
 from repro_torch.core.tiering import map_leaves, remote_keys, tiered_scan
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 Params = dict[str, Any]
 
 _WAITS_FOR = {
-    "moe": "ROADMAP A7 (MoE and MLA)",
     "encdec": "ROADMAP A9 (models/encdec.py)",
     "audio": "ROADMAP A9 (models/encdec.py)",
 }
 
 
 def _require_served(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{what}: the {cfg.family} family waits for "
             f"{_WAITS_FOR.get(cfg.family, 'its slice')}")
@@ -60,16 +70,33 @@ def _require_served(cfg: ModelConfig, what: str) -> None:
 # layers and init
 # ---------------------------------------------------------------------------
 
-def _dense_layer_init(gen: torch.Generator, cfg: ModelConfig,
-                      n: int | None = None) -> Params:
-    """One attention + MLP block, or ``n`` of them stacked."""
+def _attn_block_init(gen: torch.Generator, cfg: ModelConfig,
+                     n: int | None = None) -> Params:
+    """The norms and the attention (GQA or MLA) of a block, or of ``n``
+    stacked blocks."""
     d, dev = cfg.d_model, gen.device
+    attn_init = MLA.mla_init if cfg.attention == "mla" else L.attention_init
     return {
         "ln1": L.rmsnorm_init(d, cfg.dtype, stack=n, device=dev),
         "ln2": L.rmsnorm_init(d, cfg.dtype, stack=n, device=dev),
-        "attn": L.attention_init(gen, cfg, stack=n),
-        "mlp": L.mlp_init(gen, cfg, stack=n),
+        "attn": attn_init(gen, cfg, stack=n),
     }
+
+
+def _dense_layer_init(gen: torch.Generator, cfg: ModelConfig,
+                      n: int | None = None) -> Params:
+    """One attention + MLP block, or ``n`` of them stacked."""
+    p = _attn_block_init(gen, cfg, n)
+    p["mlp"] = L.mlp_init(gen, cfg, stack=n)
+    return p
+
+
+def _moe_layer_init(gen: torch.Generator, cfg: ModelConfig,
+                    n: int) -> Params:
+    """``n`` stacked attention + MoE blocks."""
+    p = _attn_block_init(gen, cfg, n)
+    p["moe"] = MOE.moe_init(gen, cfg, stack=n)
+    return p
 
 
 def _ssm_layer_init(gen: torch.Generator, cfg: ModelConfig,
@@ -80,18 +107,49 @@ def _ssm_layer_init(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
+def _attention_part(p, x, cfg, positions):
+    h = L.rmsnorm(p["ln1"], x)
+    if cfg.attention == "mla":
+        return x + MLA.mla_attention(p["attn"], h, cfg, positions=positions)
+    return x + L.gqa_attention(p["attn"], h, cfg, positions=positions)
+
+
 def _dense_layer(p, x, cfg, positions):
-    x = x + L.gqa_attention(p["attn"], L.rmsnorm(p["ln1"], x), cfg,
-                            positions=positions)
+    x = _attention_part(p, x, cfg, positions)
     return x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x))
 
 
-def _dense_decode(p, x, cache_k, cache_v, pos, cfg):
-    """One block's decode step; writes its new K/V into the caches."""
-    o, _, _ = L.gqa_decode_step(p["attn"], L.rmsnorm(p["ln1"], x), cache_k,
-                                cache_v, pos, cfg)
+def _moe_layer(p, x, cfg, positions, groups=None):
+    x = _attention_part(p, x, cfg, positions)
+    out, aux = MOE.moe_ffn(p["moe"], L.rmsnorm(p["ln2"], x), cfg,
+                           groups=groups)
+    return x + out, aux
+
+
+def _block_decode(p, x, caches: dict, pos, cfg, *, groups=None,
+                  routing: list | None = None):
+    """One block's decode step; writes its new K/V (``caches["k"]``,
+    ``["v"]``) or MLA latent (``["c"]``, ``["kr"]``) into the caches. A
+    MoE block appends its router decision to ``routing`` when one is
+    given."""
+    h = L.rmsnorm(p["ln1"], x)
+    if cfg.attention == "mla":
+        o, _, _ = MLA.mla_decode_step(p["attn"], h, caches["c"], caches["kr"],
+                                      pos, cfg)
+    else:
+        o, _, _ = L.gqa_decode_step(p["attn"], h, caches["k"], caches["v"],
+                                    pos, cfg)
     x = x + o
-    return x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x))
+    h = L.rmsnorm(p["ln2"], x)
+    if "moe" not in p:
+        return x + L.mlp(p["mlp"], h)
+    if routing is None:
+        out, _ = MOE.moe_ffn(p["moe"], h, cfg, groups=groups)
+    else:
+        out, _, rt = MOE.moe_ffn(p["moe"], h, cfg, groups=groups,
+                                 return_routing=True)
+        routing.append(rt)
+    return x + out
 
 
 def _ssm_layer(p, x, cfg):
@@ -128,10 +186,22 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     }
     if cfg.family in ("dense", "vlm"):
         p["layers"] = _dense_layer_init(gen, cfg, cfg.n_layers)
+    elif cfg.family == "moe":
+        if cfg.first_k_dense:
+            p["dense_layers"] = _dense_layer_init(gen, cfg, cfg.first_k_dense)
+        p["layers"] = _moe_layer_init(gen, cfg,
+                                      cfg.n_layers - cfg.first_k_dense)
     else:
         p["layers"] = _ssm_layer_init(gen, cfg, cfg.n_layers)
     if cfg.family == "hybrid":
         p["shared_attn"] = _dense_layer_init(gen, cfg)
+    if cfg.mtp_depth:
+        d = cfg.d_model
+        p["mtp"] = {
+            "proj": L._init(gen, (2 * d, d), cfg.dtype),
+            "layer": _dense_layer_init(gen, cfg),
+            "ln": L.rmsnorm_init(d, cfg.dtype, device=gen.device),
+        }
     return map_leaves(lambda _k, t: t.to(dev), p)
 
 
@@ -165,8 +235,28 @@ def _fetched(params: Params, key: str, engine: HostFetchEngine | None,
 # ---------------------------------------------------------------------------
 
 def _run_trunk(params, x, positions, cfg: ModelConfig, *, prefetch: bool,
-               engine, remote, plan):
-    """The layer loop; the hybrid's shared block is fetched once here."""
+               engine, remote, plan, moe_groups: int | None = None):
+    """The layer loops; returns (hidden, aux_loss). The hybrid's shared
+    block is fetched once here."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def scan(fn, carry, key: str, n: int):
+        return tiered_scan(fn, carry, params[key], n_layers=n,
+                           prefetch=prefetch, engine=engine,
+                           remote=remote_keys(plan, f"params[{key!r}]"))
+
+    if cfg.family == "moe":
+        nd = cfg.first_k_dense
+        if nd:
+            x = scan(lambda c, p: _dense_layer(p, c, cfg, positions), x,
+                     "dense_layers", nd)
+
+        def moe_body(carry, p):
+            xx, a = carry
+            xx, a_l = _moe_layer(p, xx, cfg, positions, groups=moe_groups)
+            return xx, a + a_l
+
+        return scan(moe_body, (x, aux), "layers", cfg.n_layers - nd)
     if cfg.family in ("dense", "vlm"):
         fn = lambda c, p: _dense_layer(p, c, cfg, positions)  # noqa: E731
     else:
@@ -176,9 +266,7 @@ def _run_trunk(params, x, positions, cfg: ModelConfig, *, prefetch: bool,
         fn = _with_shared_block(
             fn, lambda c, _g: _dense_layer(shared, c, cfg, positions),
             cfg.hybrid_attn_every)
-    return tiered_scan(fn, x, params["layers"], n_layers=cfg.n_layers,
-                       prefetch=prefetch, engine=engine,
-                       remote=remote_keys(plan, "params['layers']"))
+    return scan(fn, x, "layers", cfg.n_layers), aux
 
 
 def forward(
@@ -188,15 +276,18 @@ def forward(
     *,
     prefetch: bool = True,
     plan: PlacementPlan | None = None,
+    moe_groups: int | None = None,
 ):
     """Full-sequence forward on the device of ``batch["tokens"]``.
 
     Returns (logits[B,S_tokens,V_padded] float32, aux_loss): for the vlm
     family the patch embeddings (``batch["patches"]``, (B, F, d)) are
-    prepended and only text positions give logits. ``plan`` names the
-    REMOTE leaves of params placed by
+    prepended and only text positions give logits; ``aux_loss`` is the moe
+    family's load-balance loss summed over the MoE layers (0 for the
+    others), ``moe_groups`` its dispatch groups (a batch row each by
+    default). ``plan`` names the REMOTE leaves of params placed by
     :func:`~repro_torch.core.tiering.place_params`; ``prefetch`` turns the
-    layer loop's dual buffer on.
+    layer loops' dual buffer on.
     """
     _require_served(cfg, "forward")
     tokens = batch["tokens"]
@@ -208,8 +299,9 @@ def forward(
             x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
-        x = _run_trunk(params, x, positions, cfg, prefetch=prefetch,
-                       engine=engine, remote=remote, plan=plan)
+        x, aux = _run_trunk(params, x, positions, cfg, prefetch=prefetch,
+                            engine=engine, remote=remote, plan=plan,
+                            moe_groups=moe_groups)
         x = L.rmsnorm(_fetched(params, "ln_f", engine, remote), x)
         if cfg.family == "vlm":
             x = x[:, batch["patches"].shape[1]:]
@@ -217,7 +309,7 @@ def forward(
     finally:
         if engine is not None:
             engine.close()
-    return logits, torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -227,9 +319,10 @@ def forward(
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                       device: str | torch.device = "cuda") -> dict:
     """KV caches sized for ``max_len`` context (a ``sliding_window`` ring
-    for SWA), the SSM layers' recurrent state (O(1) in ``max_len``), and
-    the decode position ``pos`` (a 0-d tensor; a ``(batch,)`` vector
-    decodes every lane at its own position)."""
+    for SWA; MLA's compressed latent ``c`` and ``kr``), the SSM layers'
+    recurrent state (O(1) in ``max_len``), and the decode position ``pos``
+    (a 0-d tensor; a ``(batch,)`` vector decodes every lane at its own
+    position)."""
     _require_served(cfg, "init_decode_cache")
     dev = resolve_device(device)
     nL = cfg.n_layers
@@ -239,7 +332,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     kv = (cfg.n_kv_heads, cfg.head_dim)
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "vlm", "moe") and cfg.attention == "mla":
+        cache["c"] = zeros(nL, batch, max_len, cfg.kv_lora_rank)
+        cache["kr"] = zeros(nL, batch, max_len, cfg.qk_rope_head_dim)
+        return cache
+    if cfg.family in ("dense", "vlm", "moe"):
         S_c = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
         cache["k"] = zeros(nL, batch, S_c, *kv)
         cache["v"] = zeros(nL, batch, S_c, *kv)
@@ -257,33 +354,54 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def decode_step(
     params: Params, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
     *, prefetch: bool = True, plan: PlacementPlan | None = None,
+    moe_groups: int | None = None, return_routing: bool = False,
 ):
     """One-token decode. tokens: (B, 1). Returns (logits[B,1,V], new cache).
 
-    The layer loop is :func:`tiered_scan` over the stacked params and the
+    The layer loops are :func:`tiered_scan` over the stacked params and the
     stacked per-layer caches, so a host-offload ``plan`` streams the
     weights here too. The KV caches (``k``, ``v``, ``shared_k``,
-    ``shared_v``) are written in place: the returned cache holds the same
-    tensors as ``cache``. The SSM layers' ``conv`` and ``state`` are new
-    tensors, as in the reference.
+    ``shared_v``) and MLA's latent caches (``c``, ``kr``) are written in
+    place: the returned cache holds the same tensors as ``cache``, and a
+    re-run of the step on ``cache`` rewrites the same slots with the same
+    values. The SSM layers' ``conv`` and ``state`` are new tensors, as in
+    the reference.
+
+    ``moe_groups`` are the MoE layers' dispatch groups. With
+    ``return_routing`` a third element is appended: for the moe family
+    ``{"top_i": (nL_moe, B, 1, k), "top_p": (nL_moe, B, 1, k)}``, the
+    router decision of each MoE layer stacked in order (the serving
+    engine's expert pager validates residency against it and feeds its
+    router-mass EMA from it); None for the other families.
     """
     _require_served(cfg, "decode_step")
     engine = _engine(plan, tokens.device)
     remote = remote_keys(plan, "params")
-    layer_remote = frozenset(
-        "['p']" + k for k in remote_keys(plan, "params['layers']"))
     pos = cache["pos"]
     new: dict = {}
+    routing = [] if return_routing and cfg.family == "moe" else None
+
+    def scan(body, x, key: str, caches: dict, n: int):
+        layer_remote = frozenset(
+            "['p']" + k for k in remote_keys(plan, f"params[{key!r}]"))
+        return tiered_scan(body, x, {"p": params[key], **caches}, n_layers=n,
+                           prefetch=prefetch, engine=engine,
+                           remote=layer_remote)
+
     try:
         x = L.embed(_fetched(params, "embed", engine, remote), tokens, cfg)
-        if cfg.family in ("dense", "vlm"):
-            stacked = {"p": params["layers"], "k": cache["k"],
-                       "v": cache["v"]}
-            body = lambda xx, sl: _dense_decode(  # noqa: E731
-                sl["p"], xx, sl["k"], sl["v"], pos, cfg)
+        if cfg.family in ("dense", "vlm", "moe"):
+            names = ("c", "kr") if cfg.attention == "mla" else ("k", "v")
+            body = lambda xx, sl: _block_decode(  # noqa: E731
+                sl["p"], xx, sl, pos, cfg, groups=moe_groups,
+                routing=routing)
+            nd = cfg.first_k_dense if "dense_layers" in params else 0
+            if nd:
+                x = scan(body, x, "dense_layers",
+                         {n: cache[n][:nd] for n in names}, nd)
+            x = scan(body, x, "layers", {n: cache[n][nd:] for n in names},
+                     cfg.n_layers - nd)
         else:
-            stacked = {"p": params["layers"], "conv": cache["conv"],
-                       "state": cache["state"]}
             new_conv, new_state = [], []
 
             def body(xx, sl):
@@ -298,13 +416,13 @@ def decode_step(
             if cfg.family == "hybrid":
                 shared = _fetched(params, "shared_attn", engine, remote)
                 body = _with_shared_block(
-                    body, lambda xx, g: _dense_decode(
-                        shared, xx, cache["shared_k"][g],
-                        cache["shared_v"][g], pos, cfg),
+                    body, lambda xx, g: _block_decode(
+                        shared, xx, {"k": cache["shared_k"][g],
+                                     "v": cache["shared_v"][g]}, pos, cfg),
                     cfg.hybrid_attn_every)
-        x = tiered_scan(body, x, stacked, n_layers=cfg.n_layers,
-                        prefetch=prefetch, engine=engine, remote=layer_remote)
-        if cfg.family not in ("dense", "vlm"):
+            x = scan(body, x, "layers", {"conv": cache["conv"],
+                                         "state": cache["state"]},
+                     cfg.n_layers)
             new = {"conv": torch.stack(new_conv),
                    "state": torch.stack(new_state)}
         x = L.rmsnorm(_fetched(params, "ln_f", engine, remote), x)
@@ -312,4 +430,10 @@ def decode_step(
     finally:
         if engine is not None:
             engine.close()
-    return logits, {**cache, **new, "pos": pos + 1}
+    cache = {**cache, **new, "pos": pos + 1}
+    if not return_routing:
+        return logits, cache
+    if routing is not None:
+        routing = {"top_i": torch.stack([rt[0] for rt in routing]),
+                   "top_p": torch.stack([rt[1] for rt in routing])}
+    return logits, cache, routing

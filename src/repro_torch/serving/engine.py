@@ -22,8 +22,14 @@ full re-offload.
 The decode step is :func:`~repro_torch.models.transformer.decode_step`
 called eagerly; it writes K/V into the engine's cache in place. The pool
 and the sizing advisor are numpy, as in the reference, so the autoscale
-and admission decisions equal the reference's. MoE expert paging
-(``EngineConfig.expert_paging``) waits for ROADMAP A7.
+and admission decisions equal the reference's.
+
+MoE expert paging (DESIGN.md §13, ``EngineConfig.expert_paging``): the
+routed experts' ``(layer, expert)`` slabs live in the pool's ``"experts"``
+arena (:mod:`repro_torch.serving.expert_paging`) and each decode step runs
+on the store's assembled view, in a fixpoint: a step whose routed experts
+were not all resident fetches them and runs again on the same cache, which
+the step rewrites in place with the same values.
 """
 from __future__ import annotations
 
@@ -43,13 +49,18 @@ from repro_torch.core.objects import (
     ObjectKind,
     _leaves_with_keys,
 )
-from repro_torch.core.placement import PlacementPolicy, diff_plans
+from repro_torch.core.placement import (
+    PlacementPolicy,
+    diff_plans,
+    expert_slab_objects,
+)
 from repro_torch.core.pool import MemoryPool
 from repro_torch.core.sizing import (
     CostModel,
     ModelConfig as SizingModelConfig,
     ObjectProfile,
     RollingProfile,
+    advise_expert_residency,
     advise_local_size,
     pool_nodes_needed,
     simulate_profile,
@@ -57,6 +68,11 @@ from repro_torch.core.sizing import (
 from repro_torch.core.telemetry import NULL_TELEMETRY, Telemetry
 from repro_torch.core.tiering import supports_host_offload
 from repro_torch.models import get_model
+from repro_torch.serving.expert_paging import (
+    ExpertPager,
+    ExpertPagingConfig,
+    ExpertParamStore,
+)
 
 
 @dataclasses.dataclass
@@ -141,15 +157,10 @@ class EngineConfig:
     pool_replication: int = 1
     pool_stripe_bytes: int = DEFAULT_STRIPE_BYTES
     autoscale: AutoscaleConfig | None = None
-    # MoE expert paging (DESIGN.md §13) waits for the MoE slice: any value
-    # but None is refused
-    expert_paging: Any = None
-
-    def __post_init__(self):
-        if self.expert_paging is not None:
-            raise NotImplementedError(
-                "EngineConfig: expert_paging waits for ROADMAP A7 (MoE, MLA "
-                "and expert paging)")
+    # MoE expert paging (DESIGN.md §13): page routed-expert weight slabs
+    # through the pool's "experts" arena so total expert bytes may exceed
+    # hbm_budget_bytes. Requires a MoE model; forces a pool (>= 1 node).
+    expert_paging: ExpertPagingConfig | None = None
 
 
 def _host_array(t: torch.Tensor) -> np.ndarray:
@@ -198,6 +209,17 @@ class ServingEngine:
         self._pool_target_nodes = engine_cfg.pool_nodes or (
             acfg.min_nodes if acfg is not None else 0
         )
+        self.expert_store: ExpertParamStore | None = None
+        self.expert_pager: ExpertPager | None = None
+        if engine_cfg.expert_paging is not None:
+            if cfg.family != "moe":
+                raise ValueError(
+                    "expert paging requires a routed-MoE model "
+                    f"(family 'moe'), got family {cfg.family!r}"
+                )
+            # the pool is where the slabs live: paging without one is a
+            # misconfiguration, so quietly provision the minimum
+            self._pool_target_nodes = max(self._pool_target_nodes, 1)
         self._rolling = (
             RollingProfile(window=acfg.window, decay=acfg.decay,
                            source="serving")
@@ -210,6 +232,17 @@ class ServingEngine:
         self.catalog = self._build_catalog()
         self.placement = self._decide_cache_placement()
         self._offload_overflow(initial=True)
+        if engine_cfg.expert_paging is not None:
+            self.expert_store = ExpertParamStore(
+                params, cfg, self.ensure_pool(),
+                paging=engine_cfg.expert_paging, telemetry=self.telemetry,
+            )
+            self.expert_store.ensure_registered()
+            self.expert_pager = ExpertPager(
+                self.expert_store.n_moe_layers,
+                self.expert_store.n_experts,
+                decay=engine_cfg.expert_paging.ema_decay,
+            )
 
     def _new_cache(self) -> dict:
         return self.model.init_decode_cache(
@@ -219,18 +252,35 @@ class ServingEngine:
 
     def _step(self, params: Any, cache: dict,
               tok: torch.Tensor) -> tuple[torch.Tensor, dict]:
-        return self.model.decode_step(params, cache, tok, self.cfg)
+        return self.model.decode_step(params, cache, tok, self.cfg,
+                                      moe_groups=1)
+
+    def _step_routed(self, params: Any, cache: dict, tok: torch.Tensor):
+        """The *same* step, asked to also surface the router's top-k
+        decision — the signal the expert pager predicts from."""
+        return self.model.decode_step(params, cache, tok, self.cfg,
+                                      moe_groups=1, return_routing=True)
 
     # -- DOLMA placement over serving objects -------------------------------
     def _build_catalog(self) -> ObjectCatalog:
         catalog = ObjectCatalog()
+        paging = self.ecfg.expert_paging is not None
         for key, leaf in _leaves_with_keys(self.params):
+            name = "params" + key
+            if paging and name.startswith("params['layers']['moe']['w_"):
+                # paged experts are cataloged per (layer, expert) slab
+                # below; keeping the stacked leaves too would double-count
+                # their bytes against the HBM budget
+                continue
             catalog.add(DataObject(
-                name="params" + key,
+                name=name,
                 shape=tuple(leaf.shape), dtype=leaf.dtype,
                 kind=ObjectKind.PARAM,
                 n_reads=1,  # touched every decode step
             ))
+        if paging:
+            for obj in expert_slab_objects(self.cfg):
+                catalog.add(obj)
         for key, leaf in _leaves_with_keys(self.cache):
             catalog.add(DataObject(
                 name="cache" + key,
@@ -325,12 +375,17 @@ class ServingEngine:
 
         Pool copies of demoted cache tiers are freed too: a stale overflow
         entry would otherwise survive the wave boundary and alias the next
-        wave's (re-allocated) cache object.
+        wave's (re-allocated) cache object. Paged expert extents follow the
+        same rule: the experts arena is torn down with the wave —
+        ``check_no_orphans()`` stays clean across generate→reset→generate —
+        and lazily re-registers (cold start) on the next paged step.
         """
         if self.pool is not None:
             for name in self.pool.names():
                 if name.startswith("cache"):
                     self.pool.free(name)
+        if self.expert_store is not None:
+            self.expert_store.teardown()
         self.cache = self._new_cache()
 
     # -- continuous-batching lane API (DESIGN.md §12) ------------------------
@@ -358,6 +413,12 @@ class ServingEngine:
             raise ValueError(
                 "lane mode and the engine's single-tenant autoscaler are "
                 "mutually exclusive; drive admission via ContinuousScheduler"
+            )
+        if self.expert_store is not None:
+            raise ValueError(
+                "lane mode and expert paging are mutually exclusive: the "
+                "pager's fixpoint step owns the decode path, lane mode "
+                "bypasses it"
             )
         if "pos" not in self.cache:
             raise ValueError("lane decode requires a decoder-style cache "
@@ -547,6 +608,13 @@ class ServingEngine:
         advice = advise_local_size(profile, acfg.degradation_target,
                                    config=mcfg)
         catalog = profile.catalog()
+        # the profile round-trip drops the pin flag; restore it so the
+        # re-advise plans never promote a paged slab (the pool copy is the
+        # authoritative one — diff.promote would free it out from under the
+        # expert store)
+        for obj in catalog:
+            if obj.name.startswith("expert:"):
+                obj.pinned_remote = True
 
         # advised budget -> pool capacity: remote KV bytes over *effective*
         # node size — raw capacity minus measured allocator fragmentation,
@@ -627,6 +695,8 @@ class ServingEngine:
             "diff": diff.summary(),
             "migration": migration,
         }
+        if self.expert_store is not None:
+            entry["expert"] = self._readvise_experts()
         self.autoscale_log.append(entry)
         self.telemetry.instant(
             "readvise", track="serving", t_us=self._now_us(),
@@ -638,9 +708,108 @@ class ServingEngine:
         self.telemetry.gauge("serving.target_nodes", target)
         return entry
 
+    def _readvise_experts(self) -> dict:
+        """Expert-aware leg of the autoscaler: size the resident set from
+        the pager's observed router-mass EMA, exactly as
+        :func:`~repro_torch.core.sizing.advise_local_size` sizes the KV
+        budget — a hit-rate curve over resident-set size, priced against the
+        degradation target, clamped to the HBM budget."""
+        store, pager = self.expert_store, self.expert_pager
+        acfg = self.ecfg.autoscale
+        advice = advise_expert_residency(
+            pager.ema,
+            bytes_per_expert=store.slab_bytes,
+            # measured mean modeled slab transfer; cold engines (no fetch
+            # yet) price a nominal 1us so the advisor stays defined
+            fetch_us_per_expert=store.mean_fetch_us() or 1.0,
+            compute_us_per_step=store.pcfg.compute_us_per_step,
+            experts_per_step=store.experts_per_step(),
+            degradation_target=acfg.degradation_target,
+            hbm_budget_bytes=self.ecfg.hbm_budget_bytes,
+        )
+        store.pcfg.resident_max = max(int(advice.advised_resident), 1)
+        self.telemetry.gauge(
+            "serving.expert_resident_max", store.pcfg.resident_max
+        )
+        return {
+            "advice": advice.summary(),
+            "resident_max": store.pcfg.resident_max,
+            "measured_hit_rate": store.hit_rate(),
+            "measured_degradation": store.degradation(),
+        }
+
     # -- decoding ----------------------------------------------------------
     def _now_us(self) -> float:
         return (time.perf_counter() - self._t0_wall) * 1e6
+
+    def _decode(self, cache: dict,
+                tok: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """One batched decode step — paged fixpoint when experts are tiered,
+        the plain step otherwise."""
+        if self.expert_store is None:
+            return self._step(self.params, cache, tok)
+        return self._paged_step(cache, tok)
+
+    def _paged_step(self, cache: dict,
+                    tok: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """Fixpoint decode step over the paged expert view.
+
+        Runs the *identical* step on the assembled view (non-resident
+        experts are zero rows). If every routed expert was resident, the
+        output is bit-identical to untiered — accept. Otherwise sync-fetch
+        the missing experts (misses) and re-run on the same cache (the step
+        rewrites the slots it wrote with the values of the exact run): the
+        resident set only grows, and the first layer whose inputs were
+        already exact routes correctly, so each re-run completes at least
+        one more layer — convergence in <= n_moe_layers + 1 runs.
+        Eviction/prefetch happen only after the step is accepted, and never
+        evict this step's routed experts. The router decision is copied to
+        the host once a run: the fixpoint test needs it.
+        """
+        store, pager = self.expert_store, self.expert_pager
+        store.begin_step()
+        logits = new_cache = routed = None
+        for _ in range(store.n_moe_layers + 2):
+            logits, new_cache, routing = self._step_routed(
+                store.params_view(), cache, tok
+            )
+            routing_host = {k: v.cpu().numpy() for k, v in routing.items()}
+            routed = pager.routed_sets(routing_host)
+            missing = store.missing(routed)
+            if not missing:
+                break
+            for layer, experts in missing:
+                store.fetch_sync(layer, experts)
+        else:  # pragma: no cover - the bound above is provably sufficient
+            raise RuntimeError("expert-paging fixpoint did not converge")
+        store.end_step(routed)
+        pager.observe(routing_host)
+        for layer in range(store.n_moe_layers):
+            store.retarget(
+                layer,
+                pager.predict(layer, store.pcfg.resident_max),
+                protect=routed[layer],
+            )
+        return logits, new_cache
+
+    def _warm_start_experts(self) -> None:
+        """Wave-boundary prefetch: the pager's EMA survives ``reset()``
+        while residency goes cold, so post the predicted resident set
+        *before* the wave's first step. The async transfers overlap each
+        other on the pool fabric (one batched window of stall), where the
+        cold-start miss path would serialize one blocking fetch per routed
+        expert inside the fixpoint loop — and the warmed experts count as
+        hits, which is the point of predicting."""
+        store, pager = self.expert_store, self.expert_pager
+        if pager.observed_steps == 0:
+            return  # nothing observed yet: genuinely cold, let misses seed
+        store.ensure_registered()
+        for layer in range(store.n_moe_layers):
+            store.retarget(
+                layer,
+                pager.predict(layer, store.pcfg.resident_max),
+                protect=set(),
+            )
 
     def generate(self, prompts: np.ndarray, max_new: int = 16) -> np.ndarray:
         """Greedy batched generation. prompts: (B, P) int32, B <= max_batch.
@@ -653,6 +822,8 @@ class ServingEngine:
         B, P = prompts.shape
         if B > self.ecfg.max_batch:
             raise ValueError(f"{B} prompts > max_batch={self.ecfg.max_batch}")
+        if self.expert_store is not None:
+            self._warm_start_experts()
         pad = self.ecfg.max_batch - B
         toks = torch.from_numpy(
             np.pad(prompts, ((0, pad), (0, 0))).astype(np.int32)
@@ -663,9 +834,10 @@ class ServingEngine:
 
         cache = self.cache
         logits = None
+        miss0 = self.expert_store.misses if self.expert_store else 0
         for t in range(P):
             t0 = time.perf_counter()
-            logits, cache = self._step(self.params, cache, toks[:, t:t + 1])
+            logits, cache = self._decode(cache, toks[:, t:t + 1])
             step_us.append((time.perf_counter() - t0) * 1e6)
         out = []
         V = self.cfg.vocab_size
@@ -673,11 +845,24 @@ class ServingEngine:
         for _ in range(max_new):
             out.append(cur)
             t0 = time.perf_counter()
-            logits, cache = self._step(self.params, cache, cur)
+            logits, cache = self._decode(cache, cur)
             step_us.append((time.perf_counter() - t0) * 1e6)
             cur = logits[:, :, :V].argmax(-1).to(torch.int32)
         self.cache = cache
         self.wave_step_us = step_us
+        if self.expert_store is not None:
+            store = self.expert_store
+            self.telemetry.gauge("serving.expert_hit_rate", store.hit_rate())
+            self.telemetry.gauge(
+                "serving.expert_resident",
+                float(np.mean(store.resident_counts)),
+            )
+            self.telemetry.gauge(
+                "serving.expert_miss_stall_us", store.sim_stall_us
+            )
+            self.telemetry.count(
+                "serving.expert_misses", store.misses - miss0
+            )
         if self.telemetry.enabled and step_us:
             p50 = float(np.percentile(step_us, 50))
             p99 = float(np.percentile(step_us, 99))
@@ -705,15 +890,16 @@ class ServingEngine:
         return torch.cat(out, dim=1)[:B].cpu().numpy()
 
     def stats(self) -> dict:
-        """Snapshot cache footprint (bytes), placement, pool, and autoscale
-        log. ``experts`` is None: expert paging waits for ROADMAP A7."""
+        """Snapshot cache footprint (bytes), placement, pool, expert
+        paging (None without it) and autoscale log."""
         return {
             "cache_bytes": sum(
                 _nbytes(x) for _, x in _leaves_with_keys(self.cache)
             ),
             "placement": self.placement_summary(),
             "pool": self.pool.stats() if self.pool is not None else None,
-            "experts": None,
+            "experts": (self.expert_store.stats()
+                        if self.expert_store is not None else None),
             "autoscale": {
                 "n_waves": self._wave,
                 "n_readvise": len(self.autoscale_log),

@@ -29,6 +29,18 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """A module's torch work on one CPU thread, the count restored after
+    it (autouse where a test module imports it): the port's tests hold
+    small tensors, and under several test workers torch's per-process
+    thread pools oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def as_np(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
         return t.float().numpy()

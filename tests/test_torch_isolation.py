@@ -12,7 +12,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "kernel_ab.py", ROOT / "profile_models.py",
     ROOT / "tests" / "_torch_hpc_parity.py",
-    ROOT / "tests" / "_torch_serving_parity.py"]
+    ROOT / "tests" / "_torch_serving_parity.py",
+    ROOT / "tests" / "_torch_paging_parity.py"]
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -34,6 +35,11 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.serving, repro_torch.launch.serve\n"
         "import _torch_serving_parity as S\n"
         "S.restart_resource_names(S.package('repro_torch'))\n"
+        "import repro_torch.models.moe, repro_torch.models.mla\n"
+        "import repro_torch.serving.expert_paging\n"
+        "import repro_torch.configs.deepseek_v3_671b\n"
+        "import _torch_paging_parity as PG\n"
+        "PG.n_hot(32)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))))\n"

@@ -266,8 +266,8 @@ def test_matmul_pads_columns_to_whole_vectors(N, dtype, want):
 def test_flash_variant_rule(B, H, KV, Sq, Sk, D, Dv, causal, window):
     """Every reference case and the full-width shape: bf16 takes the
     tensor-core kernel, float32 the CUDA-core one; head dims that are no
-    multiple of 16, or above 128, go to the CUDA-core kernel (which raises
-    above 128)."""
+    multiple of 16, or a Dv above 128, go to the CUDA-core kernel (which
+    raises above D 192 or Dv 128)."""
     assert pt_fa._variant(torch.bfloat16, D, Dv) == "wgmma"
     assert pt_fa._variant(torch.float32, D, Dv) == "ffma"
     assert pt_fa._variant(torch.bfloat16, D + 8, Dv) == "ffma"

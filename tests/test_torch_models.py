@@ -296,16 +296,19 @@ def test_tiered_scan_checks_the_stack():
 
 
 def test_other_families_name_their_roadmap_item():
-    """The dense, vlm, ssm and hybrid families are served; the moe family
-    names ROADMAP A7 and the enc-dec family A9."""
-    moe = reduced_config(get_config("mixtral-8x7b"))
-    model = get_model(moe)
-    with pytest.raises(NotImplementedError, match="A7"):
-        model.init_params(torch.Generator(), moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        model.forward({}, {"tokens": torch.zeros((1, 1))}, moe)
-    with pytest.raises(NotImplementedError, match="A7"):
-        model.init_decode_cache(moe, 1, 4, device="cpu")
+    """The dense, vlm, moe, ssm and hybrid families are served (the moe
+    family's entry points run: both its configs, GQA with a sliding window
+    and MLA); the enc-dec family names ROADMAP A9."""
+    for arch, keys in (("mixtral-8x7b", {"k", "v"}),
+                       ("deepseek-v3-671b", {"c", "kr"})):
+        moe = reduced_config(get_config(arch))
+        model = get_model(moe)
+        params = model.init_params(torch.Generator(), moe, device="cpu")
+        logits, aux = model.forward(
+            params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, moe)
+        assert logits.shape[:2] == (1, 4) and float(aux) > 0.0
+        cache = model.init_decode_cache(moe, 1, 4, device="cpu")
+        assert set(cache) == keys | {"pos"}
     encdec = reduced_config(get_config("seamless-m4t-medium"))
     with pytest.raises(NotImplementedError, match="A9"):
         get_model(encdec)

@@ -42,7 +42,7 @@ from repro_torch.convert import params_from_reference
 from repro_torch.core.tiering import supports_host_offload
 from repro_torch.launch import serve
 from repro_torch.models import get_model
-from repro_torch.serving import EngineConfig, ServingEngine
+from repro_torch.serving import EngineConfig, ExpertPagingConfig, ServingEngine
 
 import _torch_serving_parity as P
 
@@ -247,10 +247,24 @@ def test_engine_runs_on_its_params_device(engine_setup):
     assert supports_host_offload("cuda") == torch.cuda.is_available()
 
 
-def test_expert_paging_waits_for_a7():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        EngineConfig(expert_paging=object())
+def test_expert_paging_waits_for_a7(engine_setup):
+    """``EngineConfig(expert_paging=...)`` is accepted (expert paging is
+    served, ``tests/test_torch_expert_paging.py``); an engine over a model
+    that is not a routed MoE raises the reference's ValueError."""
+    cfg, _model, params = engine_setup
+    pcfg = ExpertPagingConfig(resident_max=2)
+    assert EngineConfig(expert_paging=pcfg).expert_paging is pcfg
     assert EngineConfig().expert_paging is None
+    with pytest.raises(ValueError, match="routed-MoE"):
+        ServingEngine(cfg, params, EngineConfig(expert_paging=pcfg))
+    moe = reduced_config(get_config("mixtral-8x7b"), dtype=torch.float32)
+    moe_params = get_model(moe).init_params(torch.Generator().manual_seed(0),
+                                            moe, device="cpu")
+    eng = ServingEngine(moe, moe_params, EngineConfig(
+        max_batch=2, max_len=16, expert_paging=pcfg))
+    assert eng.expert_store is not None and eng.pool is not None
+    assert eng.stats()["experts"]["n_experts"] == moe.n_experts
+    eng.expert_store.close()
 
 
 # -- parity with the reference's engine --------------------------------------
