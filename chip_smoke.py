@@ -60,7 +60,8 @@ Phases (any failed check raises and exits non-zero):
      forward in float32 over 512 tokens (granite-8b on 2 layers,
      zamba2-1.2b on 12). On granite-8b's weights, ``[engine]``: the port's
      serving layer at full width (below). Then ``[moe]`` (below):
-     deepseek-v3-671b and mixtral-8x7b;
+     deepseek-v3-671b and mixtral-8x7b; then ``[train]`` (below):
+     granite-8b trained at full width, B2's lse and VJP;
   6. kernel times at the main paths' shapes (CUDA events), per variant
      (the tensor-core kernel on the path and the FFMA kernel on the same
      bf16 inputs), beside the plain version's, one library call's (none for
@@ -71,7 +72,8 @@ Phases (any failed check raises and exits non-zero):
      zamba2-1.2b's and deepseek-v3's MLA attention (D 192, Dv 128; both
      variants, and the backend SDPA picked) through the models' route, B3
      and ``ops.ssd_prep`` at zamba2-1.2b's scan;
-  7. one JSON line ``{"kernels": [...]}``;
+  7. one JSON line ``{"kernels": [...]}`` (B2's entry with its
+     ``backward``: the route, errors and times of ``[train]``);
   8. the last line, ``{"ok": true, "device": {...}}``.
 
 ``[engine]`` (in phase 5, granite-8b at full width, bf16): two
@@ -103,6 +105,29 @@ degradation, step times and peak memory printed; then in float32, at the
 depth float32 weights fit, the forward against the models' plain flash
 (B2's FFMA kernel) and decode against forward without drops.
 
+``[train]`` (after ``[moe]``): the training path, granite-8b at full
+width with its depth cut to 4 of 36 layers (``TRAIN``; 1.07 B parameters,
+bf16, AdamW float32 moments, remat "full"). First B2 with its lse and
+its VJP at the train step's attention shape (``TRAIN_FLASH``), in bf16
+(wgmma) and float32 (FFMA): o bit-identical to the launch without the
+lse, the lse against ``_fwd_all``'s on the same inputs in float32, dq, dk
+and dv of the B2 Function against ``blocked_flash``'s autograd (dq's bf16
+bound also carries o's rounding through ``delta``,
+``kernels.ref.flash_dq_rounding_bound``), and a planted fault (dk without
+one 128-key tile) that the bound must fail; B2's forward, its backward
+(the plain ``_flash_bwd`` from the saved lse) and SDPA's forward and
+backward timed beside their bounds. Then one train step from the same
+weights and 2 x 2048-token batch (``SyntheticTokenDataset``) under each
+of ``TRAIN_PLACEMENTS`` (untiered, prefetch off, host_offload 0.5 with
+parameters and moments in the plan, remat "none"): the loss, every
+gradient and every updated parameter and moment ``torch.equal`` to the
+untiered step's, then the best of 3 step ms, host ms, peak memory, bytes
+local and remote, and B2 launches a step (8: each layer's forward and its
+recompute). Then 10 steps of ``train.loop.train`` on a repeated batch
+must lower the loss; a run of the reduced float32 config killed after its
+checkpoint must resume with the uninterrupted run's losses (``==``); and
+``python -m repro_torch.launch.train --device cuda`` must run 3 steps.
+
 Three checks ride along. ``[serving-bench]`` (after ``[hpc]``):
 ``benchmarks/fig_autoscale.py``'s and ``fig_serving_mt.py``'s loops through
 the port, the reduced granite-8b engine in float32 on the card, must give
@@ -127,11 +152,17 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+
+# run-to-run equal cuBLAS results (the train step's contract) need this
+# before the first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -139,15 +170,17 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from profile_models import profiled  # noqa: E402
+from profile_models import profiled, report  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.configs.granite_8b import CONFIG as GRANITE_8B  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M  # noqa: E402
 from repro_torch.configs.zamba2_1_2b import CONFIG as ZAMBA2_1_2B  # noqa: E402
 from repro_torch.core.tiering import (  # noqa: E402
     TieringConfig,
+    _block_split,
     map_leaves,
     place_params,
+    place_state,
     plan_for_params,
 )
 from repro_torch.core.exec import (  # noqa: E402
@@ -167,6 +200,7 @@ from repro_torch.kernels import streaming_matmul as sm  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     NEG_INF,
+    flash_dq_rounding_bound,
     flash_ref,
     matmul_ref,
     outside_tolerance,
@@ -176,6 +210,18 @@ from repro_torch.kernels.ref import (  # noqa: E402
 from repro_torch.models import make_batch  # noqa: E402
 from repro_torch.models import flash as mflash  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    SyntheticTokenDataset,
+    to_device_fn,
+)
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train.loop import LoopConfig, train  # noqa: E402
+from repro_torch.train.step import (  # noqa: E402
+    TrainStepConfig,
+    make_train_step,
+    make_value_and_grad,
+)
 from repro_torch.serving import (  # noqa: E402
     ContinuousScheduler,
     EngineConfig,
@@ -268,6 +314,42 @@ MOE_MODELS = {
                          lanes32=2, tokens32=128),
 }
 MOE_PROMPT, MOE_NEW = 64, 16
+# [train]: granite-8b trained at full width (d_model 4096, 32 heads with 8
+# KV heads of 128, d_ff 14336, vocab 49152, tied embedding, bf16), its depth
+# cut to 4 of its 36 layers: 1.07 B parameters, 2.1 GB of weights and as
+# many of gradients, 8.6 GB of float32 moments; batches of 2 x 2048 tokens
+# from SyntheticTokenDataset; remat "full", prefetch on, AdamW float32
+# moments. Every placement runs one step from the same state and batch.
+TRAIN = dict(n_layers=4, batch=2, seq=2048)
+TRAIN_PLACEMENTS = {  # label: (TieringConfig, remat)
+    "untiered": (TieringConfig(), "full"),
+    "host_offload 0.5": (TieringConfig(mode="host_offload",
+                                       local_fraction=0.5), "full"),
+    "remat none": (TieringConfig(), "none"),
+}
+# the same at 12 layers (2.82 B parameters, 28 GB with the moments): the
+# depth at which remat "full" nests (min_layers 12: 3 checkpointed blocks of 4
+# checkpointed layers) and the dual buffer runs inside each block. At
+# local_fraction 0.2 the plan demotes every moment and the MLP weights, so
+# the layer loop streams 352 MB a layer (at 0.5 it demotes MLP moments
+# alone, and prefetch has nothing to move)
+TRAIN_DEEP = dict(n_layers=12)
+TRAIN_DEEP_PLACEMENTS = {
+    "untiered": (TieringConfig(), "full"),
+    "remat full_flat": (TieringConfig(), "full_flat"),
+    "host_offload 0.2": (TieringConfig(mode="host_offload",
+                                       local_fraction=0.2), "full"),
+    "host_offload 0.2 prefetch off": (TieringConfig(
+        mode="host_offload", local_fraction=0.2, prefetch=False), "full"),
+    "remat none": (TieringConfig(), "none"),
+}
+# the learning check: 10 steps on a repeated batch, lr 1e-3 from step 1
+TRAIN_LEARN = dict(steps=10, lr=1e-3)
+# B2's lse and VJP at granite-8b's attention shape in the train step
+TRAIN_FLASH = dict(B=2, H=32, KV=8, S=2048, D=128)
+# the restart check at the reduced float32 size (a full-width checkpoint
+# holds 13 GB): 10 steps, a checkpoint every 5, the run killed after step 7
+TRAIN_RESTART = dict(steps=10, ckpt_every=5, kill_at=7, batch=4, seq=64)
 
 
 def zero_counts() -> None:
@@ -293,11 +375,12 @@ def rand(rng, shape, dtype) -> torch.Tensor:
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor, tol: float,
-            what: str) -> float:
+            what: str, extra: torch.Tensor | None = None) -> float:
     """Largest |got - want|; fails unless every element is within
-    ``tolerance_ratio``'s bound. Prints the worst element's share of it."""
+    ``tolerance_ratio``'s bound (plus ``extra``). Prints the worst
+    element's share of it."""
     require(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite output")
-    ratio = tolerance_ratio(got, want, tol)
+    ratio = tolerance_ratio(got, want, tol, extra)
     bad = int((~(ratio <= 1.0)).sum())
     worst = ratio.max().item()
     require(bad == 0, f"{what}: {bad} elements beyond the bound (worst "
@@ -1539,6 +1622,513 @@ def phase_moe(smi: str) -> dict:
     return out
 
 
+# -- [train]: granite-8b trained at full width ----------------------------------
+def b2_backward_bound(q, k, v) -> tuple[float, str]:
+    """The backward's bound over (B, H, S, D) q, causal: five products
+    against the forward's two (S and dP recomputed, dV, dQ, dK), 2.5 x its
+    operations; q, k, v, o, do and the lse read once, dq, dk, dv written."""
+    B, H, S, D = q.shape
+    Dv = v.shape[3]
+    fwd_flops = B * H * S * (S + 1) / 2 * 2.0 * (D + Dv)
+    nbytes = ((2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+               + 2 * B * H * S * Dv) * q.element_size() + B * H * S * 4)
+    return bound(2.5 * fwd_flops, nbytes, PEAK_FLOPS[q.dtype])
+
+
+def dq_dropping_tile(dq, qt, kt, vt, o, lse, dot, scale: float,
+                     keys: slice) -> torch.Tensor:
+    """``dq`` (B,S,H,D) less one key tile's contribution: batch 0, the
+    query heads of KV head 0, keys ``keys`` (causal), the tile's dS from
+    B2's (B,H,S,·) o and lse in float32."""
+    G, S = qt.shape[1] // kt.shape[1], qt.shape[2]
+    qf, dof, of = (t[0, :G].float() for t in (qt, dot, o))  # (G,S,·)
+    ks, vs = kt[0, 0, keys].float(), vt[0, 0, keys].float()
+    cols = torch.arange(keys.start, keys.stop, device=dq.device)
+    live = cols[None, :] <= torch.arange(S, device=dq.device)[:, None]
+    p = torch.where(live, torch.exp(qf @ ks.T * scale - lse[0, :G, :, None]),
+                    0.0)
+    ds = p * (dof @ vs.T - (dof * of).sum(-1, keepdim=True)) * scale
+    out = dq.clone()
+    out[0, :, :G] = (dq[0, :, :G].float()
+                     - (ds @ ks).transpose(0, 1)).to(dq.dtype)
+    return out
+
+
+def plain_dq(qt, kt, vt, o, lse, dot, scale: float, exact: bool):
+    """The plain backward's dq (B,S,H,D) from a given (B,H,S,·) o and lse,
+    its scores rounded to the inputs' type as the reference's are, or with
+    ``exact`` in float32 as B2's are."""
+    B, H, S, D = qt.shape
+    KV = kt.shape[1]
+    G = H // KV
+    res = (qt.reshape(B, KV, G, S, D), kt, vt, o.reshape(B, KV, G, S, -1),
+           lse.reshape(B, KV, G, S))
+    dq, _, _ = mflash._flash_bwd(
+        mflash.MaskSpec(causal=True), scale, min(mflash.DEFAULT_BLOCK_K, S),
+        mflash.DEFAULT_STRIPS, res, dot.reshape(B, KV, G, S, -1),
+        exact_scores=exact)
+    return dq.reshape(B, H, S, D).transpose(1, 2)
+
+
+def check_b2_vjp(dtype) -> dict:
+    """B2 with its lse and its VJP at granite-8b's attention shape in the
+    train step (causal, in the models' (B, S, H, D) layout): o bit-identical
+    to the launch without the lse; the lse against ``_fwd_all``'s on the
+    same inputs in float32 (``FLASH_TOL`` float32: the kernel's scores are
+    float32 products of the same values); dq, dk and dv of the B2 Function
+    (``flash_attention`` on the card) against ``blocked_flash``'s autograd
+    on the card, within ``FLASH_TOL`` for ``dtype``. In bf16 dq's bound
+    adds o's rounding through delta (:func:`flash_dq_rounding_bound`, from
+    the plain side's o), the share of dq's gap each rounding leaves is
+    printed, and two planted faults, dk and dq each with one 128-key
+    tile's contribution dropped, must fail."""
+    sh = TRAIN_FLASH
+    B, H, KV, S, D = (sh[k] for k in ("B", "H", "KV", "S", "D"))
+    rng = np.random.default_rng(12)
+    q, k, v, do = (rand(rng, shape, dtype) for shape in (
+        (B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+    scale = 1.0 / math.sqrt(D)
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    what = f"B2 B{B} H{H} KV{KV} S{S} D{D} causal {dtype} " \
+           f"{fa._variant(dtype, D, D)}"
+
+    def launch(with_lse: bool):
+        return fa._launch(qt, kt, vt, causal=True, window=None, scale=scale,
+                          with_lse=with_lse)
+
+    o, lse = launch(True)
+    require(torch.equal(o, launch(False)),
+            f"{what}: o with the lse differs from o without it")
+    spec = mflash.MaskSpec(causal=True)
+    block_k = min(mflash.DEFAULT_BLOCK_K, S)
+    _, lse32 = mflash._fwd_all(
+        qt.float().reshape(B, KV, H // KV, S, D), kt.float(), vt.float(),
+        spec, scale, block_k, mflash.DEFAULT_STRIPS)
+    out = {"lse": max_err(lse, lse32.reshape(B, H, S),
+                          FLASH_TOL[torch.float32],
+                          f"{what} lse against _fwd_all's on the inputs in "
+                          f"float32")}
+    del lse32
+
+    def grads(fn):
+        ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(fn(*ins), ins, do)
+
+    got = grads(lambda a, b, c: mflash.flash_attention(a, b, c, causal=True))
+    want = grads(lambda a, b, c: mflash.blocked_flash(a, b, c, causal=True))
+    dq_extra = None
+    if dtype == torch.bfloat16:
+        # the plain side's own o and lse, in its (B,H,S,·) layout
+        o_p, lse_p = (t.reshape(B, H, S, *t.shape[4:]) for t in
+                      mflash._fwd_all(qt.reshape(B, KV, H // KV, S, D), kt,
+                                      vt, spec, scale, block_k,
+                                      mflash.DEFAULT_STRIPS))
+        # dq also carries o's rounding through delta = sum(do * o)
+        dq_extra = flash_dq_rounding_bound(q, k, o_p.transpose(1, 2), do,
+                                           scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        extra = dq_extra if name == "dq" else None
+        out[name] = max_err(g, w, FLASH_TOL[dtype],
+                            f"{what} VJP {name}: the B2 Function (backward "
+                            f"_flash_bwd from B2's lse) against "
+                            f"blocked_flash's autograd"
+                            + (", bound + o's rounding through delta"
+                               if extra is not None else ""), extra)
+    if dtype == torch.bfloat16:
+        # dq's gap taken apart: the plain side's dq with one of the two
+        # roundings it differs in made B2's (worst share of the plain bound)
+        plain = {
+            "blocked_flash": want[0],
+            "float32 scores and B2's lse, the plain o": plain_dq(
+                qt, kt, vt, o_p, lse, dot, scale, True),
+            "B2's o, the plain scores and lse": plain_dq(
+                qt, kt, vt, o, lse_p, dot, scale, False),
+        }
+        share = {label: tolerance_ratio(got[0], w,
+                                        FLASH_TOL[dtype]).max().item()
+                 for label, w in plain.items()}
+        del plain
+        print(f"[check] {what} VJP dq's gap without the delta term, worst "
+              f"element's share of the bound against the plain side's dq "
+              + "; ".join(f"with {k}: {v:.3f}" for k, v in share.items()))
+        out["dq_gap"] = share
+        tile = slice(128, 256)
+        for name, faulty, w, extra in (
+                ("dk", got[1].clone(), want[1], None),
+                ("dq", dq_dropping_tile(got[0], qt, kt, vt, o, lse, dot,
+                                        scale, tile), want[0], dq_extra)):
+            if name == "dk":
+                faulty[0, tile, 0] = 0  # KV head 0's keys 128..255, batch 0
+            bad = int((~(tolerance_ratio(faulty, w, FLASH_TOL[dtype], extra)
+                         <= 1.0)).sum())
+            require(bad > 0, f"the bound passes a planted fault: {name} "
+                             f"without one 128-key tile")
+            print(f"[fault] B2 VJP {name} without keys 128:256 of KV head 0"
+                  + (" (bound + o's rounding through delta)" if extra
+                     is not None else "")
+                  + f": {bad} of {faulty.numel()} elements beyond the "
+                  f"bound, rejected")
+        del dq_extra, o_p, lse_p
+        fb, fby = flash_bound(qt, kt, vt)
+        bb, bby = b2_backward_bound(qt, kt, vt)
+        k_rep, v_rep = (t.detach().requires_grad_(True)
+                        for t in gqa_repeated(qt, kt, vt))
+        q_req = qt.detach().requires_grad_(True)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        # with and without the lse in turns: without, with, with, without
+        turns = [time_ms(lambda: launch(w), 10)
+                 for w in (False, True, True, False)]
+        out["times"] = {
+            "ms": (turns[1] + turns[2]) / 2,
+            "no_lse_ms": (turns[0] + turns[3]) / 2,
+            "bound_ms": fb, "bound_by": fby,
+            "backward_ms": time_ms(lambda: fa._plain_bwd(
+                qt, kt, vt, o, lse, dot, causal=True, window=None,
+                scale=scale), 3),
+            "backward_bound_ms": bb, "backward_bound_by": bby,
+            "sdpa_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                sdpa(q_req, k_rep, v_rep, is_causal=True),
+                [q_req, k_rep, v_rep], dot), 10),
+            "sdpa_backend": sdpa_backend(qt, k_rep, v_rep),
+        }
+        t = out["times"]
+        print(f"[time] B2 in the train step ({what}): forward with lse "
+              f"{t['ms']:.4f} ms, without {t['no_lse_ms']:.4f} ms (in turns "
+              f"{', '.join(f'{x:.4f}' for x in turns)}; bound {fb:.4f}, "
+              f"{fby}); backward, the plain _flash_bwd from the saved lse, "
+              f"{t['backward_ms']:.4f} ms (bound {bb:.4f}, {bby}); SDPA "
+              f"forward + backward {t['sdpa_fwd_bwd_ms']:.4f} ms "
+              f"({t['sdpa_backend']})")
+    torch.cuda.synchronize()
+    return out
+
+
+class RepeatedBatch:
+    """A dataset whose every step is the wrapped dataset's step-0 batch."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def batch_at(self, step: int) -> dict:
+        return self.dataset.batch_at(0)
+
+
+def saved_by_forward(fn):
+    """``fn()`` with the models' ``loss_fn`` wrapped so that a hook on the
+    loss reads the device memory allocated when the backward starts:
+    returns (``fn()``, those bytes). Less what was allocated before
+    ``fn``, that is what the forward saved for the backward."""
+    seen = []
+    loss_fn = tf.loss_fn
+
+    def hooked(*args, **kw):
+        loss, metrics = loss_fn(*args, **kw)
+        loss.register_hook(
+            lambda g: seen.append(torch.cuda.memory_allocated()))
+        return loss, metrics
+
+    tf.loss_fn = hooked
+    try:
+        out = fn()
+    finally:
+        tf.loss_fn = loss_fn
+    require(len(seen) == 1, f"[train] the loss hook ran {len(seen)} times")
+    return out, seen[0]
+
+
+def profile_step(label: str, step, state: tuple, batch, step_ms: float):
+    """One step under ``torch.profiler`` (device time by category, idle
+    share against ``step_ms``, the unprofiled step), after one unprofiled
+    step in which CUDA events bracket every call of B2's plain backward:
+    its time in the step. Returns the new state and the numbers."""
+    spans = []
+    plain = fa._plain_bwd
+
+    def timed(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = plain(*args, **kw)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    fa._plain_bwd = timed
+    try:
+        (params, opt, _), ms, _ = timed_ms(lambda: step(*state, batch))
+    finally:
+        fa._plain_bwd = plain
+    bwd_ms = sum(a.elapsed_time(b) for a, b in spans)
+    box = {}
+    wall, kernels = profiled(
+        lambda: box.update(out=step(params, opt, batch)))
+    report(f"train step {label}", wall, kernels)
+    dev_ms = sum(t for t, _ in kernels.values())
+    fwd_ms = sum(t for name, (t, _) in kernels.items() if "flash" in name)
+    print(f"[train] step {label} taken apart: device {dev_ms:.3f} ms (sum of "
+          f"kernels under the profiler) against the unprofiled {step_ms:.3f} "
+          f"ms best step, idle share {max(0.0, 1 - dev_ms / step_ms):.2%}; "
+          f"B2 forwards {fwd_ms:.3f} ms ({fwd_ms / step_ms:.2%}); B2's plain "
+          f"backward {bwd_ms:.3f} ms over {len(spans)} calls "
+          f"({bwd_ms / ms:.2%} of that step's {ms:.3f} ms, CUDA events "
+          f"around each call)")
+    return box["out"], {"device_ms": dev_ms, "idle_share":
+                        max(0.0, 1 - dev_ms / step_ms),
+                        "b2_forward_ms": fwd_ms, "b2_backward_ms": bwd_ms,
+                        "bracketed_step_ms": ms}
+
+
+def train_placement(label: str, cfg, host_params, batch, opt_cfg,
+                    tiering: TieringConfig, remat: str, base: dict | None,
+                    smi: str, profile: bool = False) -> dict:
+    """One train step from ``host_params`` (zero moments) and ``batch``
+    under ``tiering`` and ``remat``: the loss, every gradient, every updated
+    parameter and moment ``torch.equal`` to ``base`` (the first
+    placement's, returned when ``base`` is None); the bytes the forward
+    saved for the backward; then 1 + BEST_OF more steps, the best of the
+    last BEST_OF timed (and with ``profile``, :func:`profile_step`)."""
+    tag = f"{label} ({cfg.n_layers} layers)"
+    params = map_leaves(lambda _k, t: t.to("cuda"), host_params)
+    opt = adamw.init(opt_cfg, params)
+    params, opt, plan = place_state(params, opt, tiering)
+    streamed = sorted(n for n in plan.remote_names()
+                      if n.startswith("params['layers']")) if plan else []
+    layer_bytes = sum(t[0].nbytes for k, t in _leaves_with_keys(params)
+                      if "params" + k in streamed)
+    step_cfg = TrainStepConfig.from_tiering(tiering, remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    (loss, _, grads), at_bwd = saved_by_forward(
+        lambda: make_value_and_grad(cfg, step_cfg, plan=plan)(params, batch))
+    saved = at_bwd - before
+    first = base is None
+    if first:  # on the host, out of every later placement's peak
+        base = {}
+
+    def hold(part: str, leaves: dict) -> None:
+        """``leaves`` into ``base`` (the first placement) or held
+        ``torch.equal`` to it, leaf by leaf on the card."""
+        if first:
+            base[part] = {k: t.cpu() for k, t in leaves.items()}
+            return
+        require(leaves.keys() == base[part].keys(),
+                f"[train] {tag}: the {part}' leaves differ")
+        for k, t in leaves.items():
+            require(torch.equal(t.to("cuda"), base[part][k].to("cuda")),
+                    f"[train] {tag}: {part}{k} != the untiered step's")
+
+    # the gradients go before the step, out of its peak
+    hold("loss", {"": loss})
+    hold("grads", grads)
+    del grads
+    step = make_train_step(cfg, step_cfg, opt_cfg, plan=plan)
+    zero_counts()
+    params, opt, metrics = step(params, opt, batch)
+    torch.cuda.synchronize()
+    launches = counts()
+    hold("step_loss", {"": metrics["loss"]})
+    hold("params", dict(_leaves_with_keys(params)))
+    hold("opt", dict(_leaves_with_keys(opt)))
+    first_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(1 + BEST_OF):  # the first is the warm-up
+        (params, opt, metrics), ms, host_ms = timed_ms(
+            lambda: step(params, opt, batch))
+        runs.append((ms, host_ms))
+    require(bool(torch.isfinite(metrics["loss"])),
+            f"[train] {tag}: non-finite loss")
+    best, best_host = min(runs[1:])
+    local = plan.local_bytes if plan else n_bytes(params) + n_bytes(opt)
+    remote = plan.remote_bytes if plan else 0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train] step {tag}: best of {BEST_OF} {best:.3f} ms "
+          f"({best_host:.3f} ms on the host before the synchronise; runs "
+          f"{', '.join(f'{m:.3f}' for m, _ in runs)}), local "
+          f"{local / 2**30:.3f} GiB, remote {remote / 2**30:.3f} GiB"
+          + (f" (streamed by the layer loop: {', '.join(streamed)})"
+             if streamed else "")
+          + f", peak {peak:.3f} GiB ({first_peak:.3f} over the first "
+          f"forward, backward and step), saved by the forward "
+          f"{saved / 2**30:.3f} GiB, B2 launches a step "
+          f"{launches['flash_attention']}, loss {loss.item():.6f}"
+          + ("" if label == "untiered" else
+             ", loss, grads, params and moments torch.equal to untiered")
+          + f"; {smi}")
+    prof = None
+    if profile:
+        (params, opt, metrics), prof = profile_step(tag, step, (params, opt),
+                                                    batch, best)
+    del params, opt, metrics
+    torch.cuda.empty_cache()
+    return {"base": base, "ms": best, "host_ms": best_host,
+            "peak_gib": peak, "saved_bytes": saved, "local_bytes": local,
+            "remote_bytes": remote, "streamed": streamed,
+            "layer_bytes": layer_bytes,
+            "launches": launches, "profile": prof}
+
+
+def train_leg(cfg, placements: dict, batch, opt_cfg, smi: str,
+              profile: str | None = None) -> dict:
+    """:func:`train_placement` for each of ``placements`` from the same
+    random parameters (drawn on the card from seed 0, kept on the host),
+    all held to the first; ``profile`` names the placement to profile."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    host_params = map_leaves(lambda _k, t: t.cpu(),
+                             tf.init_params(gen, cfg))
+    n_params = sum(t.numel() for _, t in _leaves_with_keys(host_params))
+    print(f"[train] {cfg.name} at full width, {cfg.n_layers} of "
+          f"{GRANITE_8B.n_layers} layers: {n_params / 1e9:.3f} B parameters,"
+          f" batch {TRAIN['batch']} x {TRAIN['seq']}, {cfg.dtype}, AdamW "
+          f"float32 moments")
+    rows, base = {}, None
+    for label, (tiering, remat) in placements.items():
+        rows[label] = train_placement(label, cfg, host_params, batch,
+                                      opt_cfg, tiering, remat, base, smi,
+                                      profile=label == profile)
+        base = rows[label].pop("base")
+    del base, host_params
+    release_memory()
+    return rows
+
+
+def check_nesting(cfg, rows: dict) -> None:
+    """What the forward saves at the depth where remat "full" nests: with
+    the inner checkpoints freed when their block's forward ends, the flat
+    per-layer checkpoints save ``n_layers - n_outer`` more layer carries
+    than the blocks; with the dual buffer inside the blocks, host_offload
+    saves less than one layer's streamed weights more than untiered (no
+    fetched tensor is saved across the forward); the streamed run moved
+    layer weights at all."""
+    n_outer, n_inner = _block_split(cfg.n_layers)
+    carry = TRAIN["batch"] * TRAIN["seq"] * cfg.d_model * 2  # bf16
+    flat_more = (rows["remat full_flat"]["saved_bytes"]
+                 - rows["untiered"]["saved_bytes"])
+    want = (cfg.n_layers - n_outer) * carry
+    require(flat_more >= want / 2,
+            f"[train] flat checkpoints save {flat_more} B more than "
+            f"{n_outer} blocks of {n_inner}, expected {want} B: the inner "
+            f"checkpoints keep what they saved")
+    print(f"[train] nesting at {cfg.n_layers} layers ({n_outer} blocks of "
+          f"{n_inner}): full_flat saves {flat_more / 2**20:.1f} MiB more "
+          f"than full, {cfg.n_layers - n_outer} carries of "
+          f"{carry / 2**20:.1f} MiB are {want / 2**20:.1f} MiB; remat none "
+          f"saves {rows['remat none']['saved_bytes'] / 2**30:.3f} GiB, "
+          f"full {rows['untiered']['saved_bytes'] / 2**30:.3f} GiB")
+    for label in ("host_offload 0.2", "host_offload 0.2 prefetch off"):
+        row = rows[label]
+        require(bool(row["streamed"]),
+                f"[train] {label}: the plan streams no layer weight")
+        more = row["saved_bytes"] - rows["untiered"]["saved_bytes"]
+        require(more < row["layer_bytes"],
+                f"[train] {label}: the forward saves {more} B more than "
+                f"untiered, a layer streams {row['layer_bytes']} B")
+        print(f"[train] {label}: the forward saves {more / 2**20:.1f} MiB "
+              f"more than untiered; a layer streams "
+              f"{row['layer_bytes'] / 2**20:.1f} MiB, "
+              f"{cfg.n_layers * row['layer_bytes'] / 2**30:.3f} GiB a pass")
+
+
+def phase_train(smi: str) -> dict:
+    """``[train]``: B2's lse and VJP at granite-8b's attention shape (bf16
+    and float32) with planted faults; granite-8b at full width one step
+    under each of ``TRAIN_PLACEMENTS`` (4 layers; the untiered step
+    profiled) and ``TRAIN_DEEP_PLACEMENTS`` (12 layers, where remat nests:
+    :func:`check_nesting`), each leg all ``torch.equal``; 10 steps of
+    ``train.loop.train`` on a repeated batch must lower the loss; a run
+    killed after its checkpoint resumes with equal losses, untiered and at
+    host_offload 0.5 (the reduced float32 config); ``python -m
+    repro_torch.launch.train --device cuda`` runs at its default (reduced)
+    size. Returns the untiered step's launches and B2's backward numbers."""
+    t0 = time.perf_counter()
+    print(f"[train] on the card before the phase: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    vjp = {dt: check_b2_vjp(dt) for dt in (torch.bfloat16, torch.float32)}
+    cfg = dataclasses.replace(GRANITE_8B, n_layers=TRAIN["n_layers"])
+    data = SyntheticTokenDataset(cfg, TRAIN["batch"], TRAIN["seq"], seed=0)
+    batch = to_device_fn("cuda", cfg.dtype)(data.batch_at(0))
+    opt_cfg = AdamWConfig(lr=TRAIN_LEARN["lr"], warmup_steps=0)
+    rows = train_leg(cfg, TRAIN_PLACEMENTS, batch, opt_cfg, smi,
+                     profile="untiered")
+    require(rows["untiered"]["launches"]["flash_attention"]
+            == 2 * cfg.n_layers,
+            f"[train] B2 launches a step "
+            f"{rows['untiered']['launches']['flash_attention']} != "
+            f"{2 * cfg.n_layers} (forward and recompute of each layer)")
+    deep = dataclasses.replace(GRANITE_8B, n_layers=TRAIN_DEEP["n_layers"])
+    deep_rows = train_leg(deep, TRAIN_DEEP_PLACEMENTS, batch, opt_cfg, smi)
+    check_nesting(deep, deep_rows)
+
+    learn = train(cfg, TrainStepConfig(), AdamWConfig(
+        lr=TRAIN_LEARN["lr"], warmup_steps=0),
+        LoopConfig(steps=TRAIN_LEARN["steps"], batch=TRAIN["batch"],
+                   seq=TRAIN["seq"], log_every=5), device="cuda",
+        dataset=RepeatedBatch(data))
+    first, last = np.mean(learn.losses[:3]), np.mean(learn.losses[-3:])
+    require(last < first, f"[train] no learning: {first} -> {last}")
+    print(f"[train] {TRAIN_LEARN['steps']} steps of train.loop.train on a "
+          f"repeated batch: losses {[round(x, 4) for x in learn.losses]}; "
+          f"mean of the first 3 {first:.4f}, of the last 3 {last:.4f}; step "
+          f"ms median {1e3 * float(np.median(learn.step_times)):.1f}")
+    torch.cuda.empty_cache()
+
+    small = reduced_config(GRANITE_8B, dtype=torch.float32)
+    rs = TRAIN_RESTART
+    opt_small = AdamWConfig(lr=1e-3, warmup_steps=0)
+
+    class Killed(Exception):
+        pass
+
+    def kill(step):
+        if step == rs["kill_at"]:
+            raise Killed()
+
+    common = dict(steps=rs["steps"], batch=rs["batch"], seq=rs["seq"],
+                  log_every=100, ckpt_every=rs["ckpt_every"])
+    for label, tiering in (("untiered", TieringConfig()),
+                           ("host_offload 0.5", TieringConfig(
+                               mode="host_offload", local_fraction=0.5))):
+        step_cfg = TrainStepConfig.from_tiering(tiering)
+        ref = train(small, step_cfg, opt_small, LoopConfig(**common),
+                    device="cuda")
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                train(small, step_cfg, opt_small,
+                      LoopConfig(ckpt_dir=tmp, **common), device="cuda",
+                      fault_hook=kill)
+                require(False, "[train] the fault hook did not fire")
+            except Killed:
+                pass
+            resumed = train(small, step_cfg, opt_small,
+                            LoopConfig(ckpt_dir=tmp, **common),
+                            device="cuda")
+        require(resumed.restored_from == rs["ckpt_every"],
+                f"[train] {label}: resumed from {resumed.restored_from}")
+        require(resumed.losses == ref.losses[rs["ckpt_every"]:],
+                f"[train] {label}: resumed losses {resumed.losses} != "
+                f"{ref.losses[rs['ckpt_every']:]}")
+        print(f"[train] restart {label} ({small.name} reduced, float32): "
+              f"killed after step {rs['kill_at']}, resumed from the "
+              f"step-{rs['ckpt_every']} checkpoint, losses == the "
+              f"uninterrupted run's {[round(x, 6) for x in resumed.losses]}")
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t_l = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--device", "cuda", "--steps", "3"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=600)
+    require(run.returncode == 0, f"[train] launch.train failed:\n"
+            f"{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
+    print(f"[train] python -m repro_torch.launch.train --device cuda "
+          f"--steps 3: {run.stdout.strip().splitlines()[-1]} "
+          f"({time.perf_counter() - t_l:.1f} s with the process start)")
+    print(f"[train] done in {time.perf_counter() - t0:.1f} s; {smi}")
+    return {"launches": rows["untiered"]["launches"], "rows": rows,
+            "deep_rows": deep_rows, "vjp": vjp}
+
+
 # -- 6. kernel times ----------------------------------------------------------
 def phase_times(mm_data, fa_data, ssd_data) -> dict:
     x, w = mm_data
@@ -1867,12 +2457,19 @@ def main() -> None:
         for name, n in run["launches"].items():
             if n:
                 by_path[name][label] = n
+    times = phase_times(mm_data, fa_data, ssd_data)
+    model_times = phase_model_shape_times(fa_models, ssd_models)
+    # [train]'s 12-layer step peaks near 70 GiB: nothing else stays on the
+    # card
+    del mm_data, fa_data, ssd_data, fa_models, ssd_models
+    release_memory()
+    trained = phase_train(dev["smi"])
+    for name, n in trained["launches"].items():
+        if n:
+            by_path[name]["granite-8b train step"] = n
     for name, paths in by_path.items():
         print(f"[path] {name} launches by path: {paths}")
         require(sum(paths.values()) > 0, f"{name}: launched on no path")
-
-    times = phase_times(mm_data, fa_data, ssd_data)
-    model_times = phase_model_shape_times(fa_models, ssd_models)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"{dev['smi']}")
     replaces = {
@@ -1893,6 +2490,20 @@ def main() -> None:
                           if k.startswith(name)}}
         for name in ("streaming_matmul", "flash_attention", "ssd_scan")
     ]
+    # B2's backward: no kernel of its own (the reference has none), the
+    # plain blocked backward from the lse B2 writes
+    vjp = trained["vjp"]
+    kernels[1]["backward"] = {
+        "route": "plain _flash_bwd (src/repro_torch/models/flash.py) from "
+                 "B2's saved o and lse",
+        "shape": " ".join(f"{k}{v}" for k, v in TRAIN_FLASH.items())
+                 + " causal bf16",
+        "max_abs_err": {str(dt).removeprefix("torch."): max(
+            e for k, e in r.items() if k in ("dq", "dk", "dv"))
+            for dt, r in vjp.items()},
+        "lse_max_abs_err": {str(dt).removeprefix("torch."): r["lse"]
+                            for dt, r in vjp.items()},
+        **vjp[torch.bfloat16]["times"]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))

@@ -9,7 +9,8 @@ Each TREE is a directory of kernel sources: this checkout's
 ``src/repro_torch/kernels/csrc``, or the same directory of another commit
 unpacked with ``git archive`` into a git-ignored directory. B1 and B2 need
 this checkout's C interface (``streaming_matmul_wgmma``,
-``flash_attention_wgmma``); B3 takes either SSD interface a tree exports,
+``flash_attention_wgmma`` with its ``lse`` pointer: a tree whose B2 entry
+points take no lse pointer fails B2's check); B3 takes either SSD interface a tree exports,
 the three-kernel ``ssd_chunk_scan_staged`` (with its state scratch) or the
 single sequential ``ssd_chunk_scan`` of earlier trees. Each tree is built
 into its own library (the build names it after the sources' hash), held

@@ -1,0 +1,4 @@
+"""Asynchronous checkpoints of the port (``repro.checkpoint``)."""
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

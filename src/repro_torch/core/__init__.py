@@ -69,8 +69,14 @@ from repro_torch.core.telemetry import (
     validate_chrome_trace,
 )
 from repro_torch.core.tiering import (
+    RemoteGrads,
     TieringConfig,
+    blocked_remat_scan,
+    grad_safe_barrier,
     place_params,
+    place_state,
+    prefetch_scan,
+    remote_carry_placer,
     plan_for_params,
     supports_host_offload,
     tiered_scan,
@@ -127,8 +133,14 @@ __all__ = [
     "fit_fabric_model",
     "matmul_chain",
     "object_footprint_bytes",
+    "RemoteGrads",
+    "blocked_remat_scan",
+    "grad_safe_barrier",
     "place_params",
+    "place_state",
     "plan_for_params",
+    "prefetch_scan",
+    "remote_carry_placer",
     "run_iterative",
     "size_class_bytes",
     "supports_host_offload",

@@ -195,17 +195,20 @@ class HostFetchEngine:
         done.synchronize()
         return out, done
 
-    def _write(self, arrays: dict[str, torch.Tensor],
-               ready: Any) -> dict[str, torch.Tensor]:
+    def _write(self, arrays: dict[str, torch.Tensor], ready: Any,
+               into: dict[str, torch.Tensor] | None = None
+               ) -> dict[str, torch.Tensor]:
         """Device to pinned host on the copy stream, after ``ready`` (an
         event recorded on the producer's stream once the arrays were
-        computed). Returns the host tensors once the bytes have landed."""
+        computed), into new pinned tensors or the host tensors ``into``.
+        Returns the host tensors once the bytes have landed."""
         cs = self._copy_stream
         with torch.cuda.device(self.device), torch.cuda.stream(cs):
             cs.wait_event(ready)
             out = {}
             for k, a in arrays.items():
-                host = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                host = (into[k] if into is not None else
+                        torch.empty(a.shape, dtype=a.dtype, pin_memory=True))
                 host.copy_(a, non_blocking=True)
                 a.record_stream(cs)
                 out[k] = host
@@ -215,7 +218,8 @@ class HostFetchEngine:
         return out
 
     def _transfer(self, kind: str, name: str, payloads: dict[str, Any],
-                  pace: bool, ready: Any):
+                  pace: bool, ready: Any,
+                  into: dict[str, torch.Tensor] | None = None):
         tel = self.telemetry
         w0 = tel.wall_now_us() if tel.enabled else 0.0
         t0 = time.perf_counter()
@@ -226,12 +230,15 @@ class HostFetchEngine:
                 time.sleep(sleep_us * 1e-6)
         if self._copy_stream is None:
             # on the CPU the host and the "device" are one memory: a copy
-            out = {k: a.clone() for k, a in payloads.items()}
+            if into is not None:
+                out = {k: into[k].copy_(a) for k, a in payloads.items()}
+            else:
+                out = {k: a.clone() for k, a in payloads.items()}
             result = (out, None) if kind == "read" else out
         elif kind == "read":
             result = self._read(payloads)
         else:
-            result = self._write(payloads, ready)
+            result = self._write(payloads, ready, into)
         us = (time.perf_counter() - t0) * 1e6
         with self._lock:
             self.n_ops += 1
@@ -272,14 +279,17 @@ class HostFetchEngine:
         return tensors
 
     def write(self, name: str, arrays: dict[str, torch.Tensor],
-              *, pace: bool = True) -> "Future[dict[str, torch.Tensor]]":
-        """Post an async write-back (device → pinned host)."""
+              *, pace: bool = True, into: dict[str, torch.Tensor] | None = None
+              ) -> "Future[dict[str, torch.Tensor]]":
+        """Post an async write-back (device → pinned host): into new pinned
+        tensors, or in place into the host tensors ``into`` (DOLMA's commit
+        of an updated REMOTE object)."""
         ready = None
         if self._copy_stream is not None:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
         return self._pool.submit(self._transfer, "write", name, arrays, pace,
-                                 ready)
+                                 ready, into)
 
     def measure_sweep(
         self,

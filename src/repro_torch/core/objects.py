@@ -103,6 +103,12 @@ def _leaves_with_keys(tree: Any, key: str = "") -> Iterator[tuple[str, Any]]:
     elif isinstance(tree, (list, tuple)):
         for i, sub in enumerate(tree):
             yield from _leaves_with_keys(sub, f"{key}[{i}]")
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        # a registered dataclass node (the optimizer's QTensor): its fields
+        # in declaration order, keyed ``.name`` as keystr keys attributes
+        for f in dataclasses.fields(tree):
+            yield from _leaves_with_keys(getattr(tree, f.name),
+                                         f"{key}.{f.name}")
     elif tree is not None:
         yield key, tree
 

@@ -1,33 +1,60 @@
-"""DOLMA placement applied to a model's parameters, and the layer loop's
-dual buffer.
+"""DOLMA placement applied to a model's parameters and optimizer state, and
+the layer loop's dual buffer with sqrt-L checkpointing.
 
-The port of the forward part of ``repro.core.tiering``. One backend so far:
+The port of ``repro.core.tiering``. One backend so far:
 
 * ``host_offload`` — REMOTE leaves live in host memory (pinned when the
   model runs on a card): HBM is the local tier, host DRAM the remote tier.
-  :func:`place_params` puts every leaf where its tier says;
-  :func:`tiered_scan` streams each layer's REMOTE slices to the device
-  through a :class:`~repro_torch.core.exec.HostFetchEngine` (a copy stream
-  and CUDA events).
+  :func:`place_params` and :func:`place_state` put every leaf where its
+  tier says; :func:`tiered_scan` streams each layer's REMOTE slices to the
+  device through a :class:`~repro_torch.core.exec.HostFetchEngine` (a copy
+  stream and CUDA events).
 
 ``mode="none"`` keeps every leaf on the device. The reference's
-``fsdp_stream`` (peer HBM as the remote tier) waits for the sharding slice
-(ROADMAP A11), and optimizer state and the remat branch for the training
-slice (A9).
+``fsdp_stream`` (peer HBM as the remote tier) and a mesh for
+:func:`remote_carry_placer` wait for the sharding slice (ROADMAP A11).
 
-:func:`tiered_scan` is the paper's dual buffer over layers: with
-``prefetch`` it posts layer i+1's fetch before layer i computes, and the
-access barrier is deferred to the first use of those weights
-(:meth:`HostFetchEngine.acquire`). Prefetch changes only *when* bytes
-move: every placement and both prefetch settings run the same kernels on
-the same values, so their outputs are bit-identical.
+:func:`tiered_scan` is the single engine of the layer loop. It composes
+the dual buffer with activation checkpointing:
+
+* **remat off** — a loop that, with ``prefetch``, posts layer i+1's fetch
+  before layer i computes; the access barrier is deferred to the first use
+  of those weights (:meth:`HostFetchEngine.acquire`).
+* **remat on** — depth ``L`` splits into ``n_outer`` checkpointed blocks of
+  ``n_inner`` checkpointed layers (:func:`_block_split`), through
+  ``torch.utils.checkpoint`` (non-reentrant, so the checkpoints nest). Each
+  fetch sits inside a boundary: a recompute re-issues it and nothing
+  fetched is saved across the forward. With ``prefetch`` the dual buffer
+  runs inside each block. Depths below ``min_layers`` checkpoint each
+  layer on its own.
+
+Prefetch and placement change only *when* and *from where* bytes move:
+every placement and both prefetch settings run the same kernels on the
+same values, so losses, gradients and updates are bit-identical.
+
+**Gradients of REMOTE leaves.** A REMOTE slice reaches the device by a copy
+in the engine's worker thread, outside autograd. Left to autograd, the
+index into the host leaf would build a full-size zero host tensor for every
+layer in the backward and scatter into it on the CPU. Instead each fetched
+tensor passes through :class:`RemoteGrads` (when the caller trains): an
+identity on the forward whose backward adds the slice's gradient into row
+i of a gradient buffer of the whole leaf *on the device*. Gradients are
+transient (one step), as in the reference, whose step keeps them as
+device intermediates and places only the persistent objects (parameters
+and moments); adding into zeros is exact, so a REMOTE leaf's gradient is
+bit-equal to the one autograd gives the same leaf kept local. The train
+step (:func:`repro_torch.train.step.make_train_step`) then streams each
+REMOTE parameter and its moments through the engine, updates them on the
+device and writes them back.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Literal
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.exec import HostFetchEngine, host_tensor, resolve_device
 from repro_torch.core.fabric import TPU_V5E_HBM_GBPS
@@ -46,18 +73,23 @@ TieringMode = Literal["none", "host_offload", "fsdp_stream"]
 
 @dataclasses.dataclass(frozen=True)
 class TieringConfig:
-    """How params tier out of HBM during the layer loop.
+    """How params and optimizer state tier out of HBM during the step.
 
-    ``local_fraction`` is the share of param bytes kept resident on the
-    device, or ``"auto"`` to let the sizing solver pick it for
-    ``degradation_target`` (0.16 = the paper's knee). Whether the layer loop
-    prefetches is the caller's argument (``forward(..., prefetch=)``), as in
-    the reference's model API.
+    ``local_fraction`` is the share of (param + opt state) bytes kept
+    resident on the device, or ``"auto"`` to let the sizing solver pick it
+    for ``degradation_target`` (0.16 = the paper's knee). ``prefetch``
+    turns on the layer loop's dual buffer, and ``prefetch_under_remat``
+    keeps it on inside the checkpointed blocks (the fetches recomputed,
+    not saved); :meth:`TrainStepConfig.from_tiering
+    <repro_torch.train.step.TrainStepConfig.from_tiering>` carries both
+    into the train step.
     """
 
     mode: TieringMode = "none"
     local_fraction: float | str = 1.0
     degradation_target: float = 0.16
+    prefetch: bool = True
+    prefetch_under_remat: bool = True
 
     def __post_init__(self):
         if self.mode == "fsdp_stream":
@@ -69,11 +101,17 @@ class TieringConfig:
 
 
 def plan_for_params(params: Any, *, config: TieringConfig,
-                    opt_state: Any = None, profile: Any = None,
+                    opt_state: Any = None,
+                    access_counts: dict[str, int] | None = None,
+                    profile: Any = None, telemetry: Any = None,
                     ) -> PlacementPlan:
-    """A placement plan over the parameters, named ``"params" + keystr`` as
-    the reference names them. Each parameter is read twice and written once
-    a step (forward + backward, update), the reference's defaults.
+    """A placement plan over the persistent objects of a train step.
+
+    Parameters are named ``"params" + keystr`` and read twice and written
+    once a step (forward + backward, update); optimizer leaves
+    ``"opt" + keystr`` (an int8 moment's ``.codes`` and ``.scale`` each)
+    are read and written once. These are the reference's defaults;
+    ``access_counts`` overrides a parameter's reads.
 
     With ``config.local_fraction == "auto"`` the budget comes from the sizing
     solver: pass a recorded ``WorkloadProfile``, or omit ``profile`` to have
@@ -81,15 +119,18 @@ def plan_for_params(params: Any, *, config: TieringConfig,
     step's compute estimated from the leaves' bytes at the reference's HBM
     rate), as the reference does.
     """
-    if opt_state is not None:
-        raise NotImplementedError(
-            "plan_for_params: optimizer state waits for the training slice "
-            "(ROADMAP A9)")
     catalog = ObjectCatalog()
     for key, leaf in _leaves_with_keys(params):
-        catalog.add(DataObject(name="params" + key, shape=tuple(leaf.shape),
-                               dtype=leaf.dtype, kind=ObjectKind.PARAM,
-                               n_reads=2, n_writes=1))
+        name = "params" + key
+        catalog.add(DataObject(
+            name=name, shape=tuple(leaf.shape), dtype=leaf.dtype,
+            kind=ObjectKind.PARAM,
+            n_reads=(access_counts or {}).get(name, 2), n_writes=1))
+    if opt_state is not None:
+        for key, leaf in _leaves_with_keys(opt_state):
+            catalog.add(DataObject(
+                name="opt" + key, shape=tuple(leaf.shape), dtype=leaf.dtype,
+                kind=ObjectKind.OPT_STATE, n_reads=1, n_writes=1))
     if config.local_fraction == "auto" and profile is None:
         # one read of every leaf a step at the HBM rate approximates the
         # step's compute floor; the rate is the reference's TPU figure, kept
@@ -97,17 +138,40 @@ def plan_for_params(params: Any, *, config: TieringConfig,
         compute_us = catalog.total_bytes / (TPU_V5E_HBM_GBPS * 1e3)
         profile = synthetic_profile(catalog, compute_us_per_step=compute_us,
                                     source="plan_for_params")
-    return PlacementPolicy().plan(
+    plan = PlacementPolicy().plan(
         catalog, local_fraction=config.local_fraction, profile=profile,
         degradation_target=config.degradation_target)
+    if telemetry is not None and telemetry.enabled:
+        telemetry.instant("tiering.plan", track="tiering", t_us=0.0,
+                          **plan.summary())
+        telemetry.gauge("tiering.local_bytes", plan.local_bytes)
+        telemetry.gauge("tiering.remote_bytes", plan.remote_bytes)
+    return plan
 
 
 def map_leaves(fn: Callable[[str, torch.Tensor], torch.Tensor], tree: Any,
                key: str = "") -> Any:
-    """Nested dicts ``tree`` with each leaf replaced by ``fn(keystr, leaf)``."""
+    """Nested dicts ``tree`` with each leaf replaced by ``fn(keystr, leaf)``;
+    a dataclass node (an int8 moment) keeps its type, its fields mapped."""
     if isinstance(tree, dict):
         return {k: map_leaves(fn, v, f"{key}[{k!r}]") for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_leaves(fn, getattr(tree, f.name), f"{key}.{f.name}")
+            for f in dataclasses.fields(tree)})
     return fn(key, tree)
+
+
+def _placer(plan: PlacementPlan, prefix: str, dev: torch.device):
+    pin = dev.type == "cuda"
+
+    def place(key: str, t: torch.Tensor) -> torch.Tensor:
+        if plan.tier_of(prefix + key) is Tier.REMOTE:
+            # a copy: the train step writes REMOTE leaves back in place
+            return host_tensor(t.detach().to("cpu", copy=True), pin=pin)
+        return t.detach().to(dev)
+
+    return place
 
 
 def place_params(params: Any, config: TieringConfig, *,
@@ -123,14 +187,21 @@ def place_params(params: Any, config: TieringConfig, *,
     if config.mode == "none":
         return map_leaves(lambda _k, t: t.to(dev), params), None
     plan = plan_for_params(params, config=config)
-    pin = dev.type == "cuda"
+    return map_leaves(_placer(plan, "params", dev), params), plan
 
-    def place(key: str, t: torch.Tensor) -> torch.Tensor:
-        if plan.tier_of("params" + key) is Tier.REMOTE:
-            return host_tensor(t.to("cpu"), pin=pin)
-        return t.to(dev)
 
-    return map_leaves(place, params), plan
+def place_state(params: Any, opt_state: Any, config: TieringConfig, *,
+                device: str | torch.device = "cuda",
+                ) -> tuple[Any, Any, PlacementPlan | None]:
+    """:func:`place_params` over a train step's parameters *and* optimizer
+    state, one plan for both: returns (params, opt_state, plan)."""
+    dev = resolve_device(device)
+    if config.mode == "none":
+        to = lambda _k, t: t.to(dev)  # noqa: E731
+        return map_leaves(to, params), map_leaves(to, opt_state), None
+    plan = plan_for_params(params, config=config, opt_state=opt_state)
+    return (map_leaves(_placer(plan, "params", dev), params),
+            map_leaves(_placer(plan, "opt", dev), opt_state), plan)
 
 
 def supports_host_offload(device: str | torch.device = "cuda") -> bool:
@@ -155,6 +226,121 @@ def remote_keys(plan: PlacementPlan | None, prefix: str) -> frozenset[str]:
                      if n.startswith(prefix))
 
 
+# ---------------------------------------------------------------------------
+# autograd plumbing: the barrier and the gradients of REMOTE leaves
+# ---------------------------------------------------------------------------
+
+class _Barrier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def grad_safe_barrier(x: Any) -> Any:
+    """Identity on every tensor of ``x``, with an identity gradient.
+
+    The reference's is a custom-VJP ``optimization_barrier`` between the
+    saved carry and the layer body, which stops XLA hoisting a convert of
+    the whole saved-carry stack out of the backward loop. Eager PyTorch
+    runs ops in program order and has no scheduler to fence, so here it is
+    a plain identity node; it is kept so that the layer loop has the
+    reference's structure.
+    """
+    if isinstance(x, torch.Tensor):
+        return _Barrier.apply(x) if x.requires_grad else x
+    if isinstance(x, (tuple, list)):
+        return type(x)(grad_safe_barrier(t) for t in x)
+    if isinstance(x, dict):
+        return {k: grad_safe_barrier(v) for k, v in x.items()}
+    return x
+
+
+class _RemoteLeaf(torch.autograd.Function):
+    """Identity on a fetched tensor; its backward hands the gradient to a
+    :class:`RemoteGrads`. ``anchor`` (a 0-d tensor that requires grad) is
+    the input that puts the node on the backward's path."""
+
+    @staticmethod
+    def forward(ctx, t, anchor, sink, name, index, shape):
+        ctx.sink, ctx.name, ctx.index, ctx.shape = sink, name, index, shape
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.sink.add(ctx.name, ctx.index, ctx.shape, g)
+        return (None, torch.zeros((), dtype=torch.float32, device=g.device),
+                None, None, None, None)
+
+
+class RemoteGrads:
+    """The gradients of a step's REMOTE leaves, accumulated on the device.
+
+    :meth:`attach` wraps a fetched device tensor (a layer slice ``index``
+    of the leaf ``name``, or the whole leaf with ``index=None``); in the
+    backward its gradient is added into :attr:`grads` ``[name]``, a buffer
+    of the leaf's full ``shape`` on the device, zeros where nothing arrived.
+    Include :attr:`anchor` among the inputs of ``torch.autograd.grad`` so
+    that the backward runs those nodes.
+    """
+
+    def __init__(self, device: str | torch.device):
+        self.anchor = torch.zeros((), dtype=torch.float32,
+                                  device=resolve_device(device),
+                                  requires_grad=True)
+        self.grads: dict[str, torch.Tensor] = {}
+
+    def attach(self, name: str, index: int | None, t: torch.Tensor,
+               shape: tuple[int, ...]) -> torch.Tensor:
+        if not torch.is_grad_enabled():
+            return t
+        return _RemoteLeaf.apply(t, self.anchor, self, name, index,
+                                 tuple(shape))
+
+    def add(self, name: str, index: int | None, shape: tuple[int, ...],
+            g: torch.Tensor) -> None:
+        buf = self.grads.get(name)
+        if buf is None:
+            buf = self.grads[name] = torch.zeros(shape, dtype=g.dtype,
+                                                 device=g.device)
+        if index is None:
+            buf += g
+        else:
+            buf[index] += g
+
+    def reset(self) -> None:
+        self.grads = {}
+
+
+# ---------------------------------------------------------------------------
+# the layer loop
+# ---------------------------------------------------------------------------
+
+def _block_split(n_layers: int) -> tuple[int, int]:
+    """Factor ``n_layers = n_outer * n_inner`` minimizing ``n_outer + n_inner``.
+
+    ``n_outer`` is the number of checkpointed blocks (the carries saved
+    across the forward), ``n_inner`` the layers per block (the transient
+    recompute depth of one block's backward). Only exact factorizations:
+    a prime depth degenerates to ``(1, n_layers)``, one block.
+    ``n_outer <= n_inner`` by construction.
+    """
+    if n_layers < 1:
+        raise ValueError(f"_block_split: n_layers must be >= 1, got {n_layers}")
+    best = (1, n_layers)
+    for n_outer in range(1, int(n_layers ** 0.5) + 1):
+        if n_layers % n_outer == 0:
+            n_inner = n_layers // n_outer
+            if n_outer + n_inner < best[0] + best[1]:
+                best = (n_outer, n_inner)
+    assert best[0] * best[1] == n_layers, (
+        f"_block_split produced ragged blocking {best} for depth {n_layers}")
+    return best
+
+
 def _check_stack_depth(stacked: Any, n_layers: int) -> None:
     leads = {t.shape[0] for _, t in _leaves_with_keys(stacked) if t.ndim >= 1}
     if leads and leads != {n_layers}:
@@ -170,22 +356,69 @@ def _unflatten(flat: dict[str, torch.Tensor], tree: Any, key: str = "") -> Any:
     return flat[key]
 
 
+def _skeleton(x: Any, flat: list[torch.Tensor]) -> Any:
+    """``x`` with each tensor appended to ``flat`` and replaced by its
+    index there."""
+    if isinstance(x, torch.Tensor):
+        flat.append(x)
+        return len(flat) - 1
+    if isinstance(x, (tuple, list)):
+        return type(x)(_skeleton(s, flat) for s in x)
+    if isinstance(x, dict):
+        return {k: _skeleton(v, flat) for k, v in x.items()}
+    raise TypeError(f"tiered_scan: carry leaf of type {type(x)}")
+
+
+def _rebuild(skel: Any, ts) -> Any:
+    if isinstance(skel, int):
+        return ts[skel]
+    if isinstance(skel, (tuple, list)):
+        return type(skel)(_rebuild(s, ts) for s in skel)
+    return {k: _rebuild(v, ts) for k, v in skel.items()}
+
+
+def _checkpointed(fn: Callable, policy: Callable | None, *args) -> Any:
+    """``fn(*args)`` under a non-reentrant checkpoint, every tensor of
+    ``args`` passed as a top-level argument: a checkpoint saves (through the
+    saved-tensor hooks of an enclosing checkpoint, which drop them) only
+    its top-level tensor arguments. ``policy`` is a checkpoint
+    ``context_fn`` (None saves nothing inside)."""
+    # module-level helpers: a recursive closure would hold the tensors in a
+    # reference cycle, alive past the forward until the garbage collector
+    flat: list[torch.Tensor] = []
+    skel = _skeleton(list(args), flat)
+    kw = {} if policy is None else {"context_fn": policy}
+    return checkpoint(lambda *ts: fn(*_rebuild(skel, ts)), *flat,
+                      use_reentrant=False, **kw)
+
+
 def tiered_scan(
-    layer_fn: Callable[[Any, Any], Any],
+    layer_fn: Callable[..., Any],
     carry: Any,
     stacked_params: Any,
     *,
     n_layers: int,
+    remat: bool = False,
+    policy: Callable | None = None,
     prefetch: bool = True,
     remote: frozenset[str] = frozenset(),
     engine: HostFetchEngine | None = None,
+    min_layers: int = 12,
+    remote_carry_fn: Callable[[Any], Any] | None = None,
+    with_index: bool = False,
+    grads: RemoteGrads | None = None,
+    prefix: str = "",
 ):
-    """Run ``layer_fn(carry, layer_params)`` over ``n_layers`` stacked layers.
+    """Run ``layer_fn(carry, layer_params)`` over ``n_layers`` stacked layers
+    (``layer_fn(carry, layer_params, i)`` with ``with_index``, so that a
+    recompute of any layer sees its own index).
 
     ``stacked_params``: nested dicts whose leaves have leading dim
     ``n_layers``. The leaves named in ``remote`` (keys as ``keystr`` gives
     them) are REMOTE: layer i's slice of each is copied to the device
-    through ``engine``; the others are indexed where they lie.
+    through ``engine``; the others are indexed where they lie. With
+    ``grads``, each fetched slice is attached to it under the name
+    ``prefix + key`` (see :class:`RemoteGrads`).
 
     ``prefetch=True`` is the dual buffer: layer i+1's fetch is posted before
     layer i computes, so the copy runs on the copy stream while the layer's
@@ -193,6 +426,17 @@ def tiered_scan(
     makes the compute stream wait for the copy just before first use.
     ``prefetch=False`` fetches each layer just before it computes. Both move
     the same bytes and compute the same values.
+
+    ``remat=True`` composes that with two-level (sqrt-L) checkpointing:
+    ``n_outer`` blocks of ``n_inner`` layers (:func:`_block_split`), each
+    block checkpointed and each layer checkpointed inside it, ``policy``
+    the checkpoints' ``context_fn`` (None: nothing saved inside). The
+    fetches sit inside the boundaries: a recompute re-issues them and no
+    fetched tensor is saved across the forward; under ``prefetch`` the dual
+    buffer runs inside each block (a block's first fetch is not overlapped).
+    Depths below ``min_layers`` checkpoint each layer alone (``n_outer =
+    n_layers``). ``remote_carry_fn`` is applied to each saved block carry
+    (:func:`remote_carry_placer`).
     """
     _check_stack_depth(stacked_params, n_layers)
     leaves = dict(_leaves_with_keys(stacked_params))
@@ -212,14 +456,98 @@ def tiered_scan(
     def layer(i: int, fut) -> Any:
         flat = {k: t[i] for k, t in leaves.items() if k not in remote}
         if fut is not None:
-            flat.update(engine.acquire(fut))
+            got = engine.acquire(fut)
+            if grads is not None:
+                got = {k: grads.attach(prefix + k, i, t, leaves[k].shape)
+                       for k, t in got.items()}
+            flat.update(got)
         return _unflatten(flat, stacked_params)
 
-    nxt = post(0) if prefetch else None
-    for i in range(n_layers):
-        if prefetch:
-            cur, nxt = nxt, (post(i + 1) if i + 1 < n_layers else None)
-        else:
-            cur = post(i)
-        carry = layer_fn(carry, layer(i, cur))
+    def call(c, p, i: int):
+        return layer_fn(c, p, i) if with_index else layer_fn(c, p)
+
+    if not remat:
+        nxt = post(0) if prefetch else None
+        for i in range(n_layers):
+            if prefetch:
+                cur, nxt = nxt, (post(i + 1) if i + 1 < n_layers else None)
+            else:
+                cur = post(i)
+            carry = call(carry, layer(i, cur), i)
+        return carry
+
+    n_outer, n_inner = ((n_layers, 1) if n_layers < min_layers
+                        else _block_split(n_layers))
+
+    def layer_at(c, i: int):
+        """One checkpointed layer that fetches its own weights: the fetch
+        is re-issued when its backward recomputes it."""
+        return call(grad_safe_barrier(c), layer(i, post(i)), i)
+
+    def layer_with(c, p, i: int):
+        """One checkpointed layer, its weights fetched by the block."""
+        return call(grad_safe_barrier(c), p, i)
+
+    def block(c, start: int):
+        """Layers [start, start + n_inner), inside one block boundary."""
+        if not prefetch or n_inner == 1:
+            for j in range(n_inner):
+                c = _checkpointed(functools.partial(layer_at, i=start + j),
+                                  policy, c)
+            return c
+        # the dual buffer inside the boundary: every fetch is recomputed in
+        # the block's backward, none saved across the forward
+        nxt = post(start)
+        for j in range(n_inner):
+            i = start + j
+            cur, nxt = nxt, (post(i + 1) if j + 1 < n_inner else None)
+            c = _checkpointed(functools.partial(layer_with, i=i), policy, c,
+                              layer(i, cur))
+        return c
+
+    if remote_carry_fn is not None:
+        carry = remote_carry_fn(carry)  # the first carry is saved too
+    for g in range(n_outer):
+        if n_inner > 1:
+            carry = _checkpointed(
+                functools.partial(block, start=g * n_inner), policy, carry)
+        else:  # flat: one checkpoint level, the layer's own
+            carry = block(carry, g * n_inner)
+        if remote_carry_fn is not None:
+            carry = remote_carry_fn(carry)
     return carry
+
+
+def remote_carry_placer(mesh: Any, config: TieringConfig | None = None, *,
+                        spec_fn: Callable | None = None,
+                        ) -> Callable[[Any], Any] | None:
+    """A ``remote_carry_fn`` that places saved block carries off HBM.
+
+    ``None`` without a mesh, as the reference's single-host case. The
+    reference constrains each saved carry to its logical spec (on pinned
+    host memory where the SPMD partitioner accepts it); meshes wait for the
+    sharding slice (ROADMAP A11)."""
+    if mesh is None:
+        return None
+    raise NotImplementedError(
+        "remote_carry_placer: a device mesh waits for the sharding slice "
+        "(ROADMAP A11)")
+
+
+# ---------------------------------------------------------------------------
+# deprecated shims, as in the reference: both scans are tiered_scan
+# ---------------------------------------------------------------------------
+
+def prefetch_scan(layer_fn, carry, stacked_params, *, n_layers: int,
+                  prefetch: bool = True):
+    """Deprecated: use :func:`tiered_scan` (``remat=False``)."""
+    return tiered_scan(layer_fn, carry, stacked_params, n_layers=n_layers,
+                       remat=False, prefetch=prefetch)
+
+
+def blocked_remat_scan(layer_fn, carry, stacked_params, *, n_layers: int,
+                       policy=None, min_layers: int = 12):
+    """Deprecated: use :func:`tiered_scan` (``remat=True``)."""
+    return tiered_scan(layer_fn, carry, stacked_params, n_layers=n_layers,
+                       remat=True, policy=policy, prefetch=False,
+                       min_layers=min_layers)

@@ -17,6 +17,13 @@
 // the finite NEG_INF = -0.7 * float32 max, so exp(s - m) never forms inf-inf;
 // a row that meets no live tile outputs 0 (l_safe).
 //
+// Given a non-null `lse`, both entry points also write each row's
+// log-sum-exp of its scaled scores, lse = m + log(l_safe) in natural-log
+// units, (B, H, Sq)
+// float32 contiguous: what the backward (models/flash.py::_flash_bwd)
+// starts from. One thread per row writes it, after the last tile, from the
+// row's final m and l; the output o is computed exactly as without it.
+//
 // Two variants; the wrapper picks one by a plain rule on dtype and shape
 // (kernels/flash_attention.py::_variant):
 //
@@ -113,7 +120,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  int H, int KV, int Sq, int Sk, int D, int Dv,
                  Strides qs_, Strides ks_, Strides vs_, Strides os_,
-                 float scale, int causal, int has_window, int window) {
+                 float* __restrict__ lse, float scale, int causal,
+                 int has_window, int window) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                    // [BQ][D]
   float* ks = qs + BQ * D;             // [BKV][D + 1] (padded: no bank conflicts)
@@ -234,6 +242,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q_lo + row0 + i;
     if (qi >= Sq) continue;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    if (lse != nullptr && lane == 0)
+      lse[((long long)b * H + h) * Sq + qi] = m[i] + logf(l_safe);
 #pragma unroll
     for (int j = 0; j < DV_PER_LANE; ++j) {
       const int c = lane + 32 * j;
@@ -245,8 +255,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int KV, int Sq, int Sk, int D, int Dv, Strides qs, Strides ks,
-           Strides vs, Strides os, float scale, int causal, int has_window,
-           int window, cudaStream_t stream) {
+           Strides vs, Strides os, float* lse, float scale, int causal,
+           int has_window, int window, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (size_t)(BQ * D + BKV * (D + 1) + BKV * Dv + BQ * BKV);
   cudaError_t err = cudaFuncSetAttribute(
@@ -255,8 +265,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, KV, Sq, Sk, D, Dv, qs, ks, vs, os, scale, causal,
-      has_window, window);
+      static_cast<T*>(o), H, KV, Sq, Sk, D, Dv, qs, ks, vs, os, lse, scale,
+      causal, has_window, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -272,6 +282,7 @@ constexpr int STAGES = 2;
 constexpr int THREADS = 384;
 constexpr int BOX_BYTES = 128 * 128;  // one (128 rows x 64 cols) bf16 box
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int DP, int DVP>  // D and Dv rounded up to 64 or 128
 struct Layout {
@@ -293,9 +304,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   __nv_bfloat16* __restrict__ o, OutStrides os, int H, int KV,
-                   int Sq, int Sk, int Dv, float scale_log2, int causal,
-                   int has_window, int window) {
+                   __nv_bfloat16* __restrict__ o, OutStrides os,
+                   float* __restrict__ lse, int H, int KV, int Sq, int Sk,
+                   int Dv, float scale_log2, int causal, int has_window,
+                   int window) {
   using L = Layout<DP, DVP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align1024(smem_raw);
@@ -537,6 +549,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     const float ls0 = l0 == 0.f ? 1.f : l0;
     const float ls1 = l1 == 0.f ? 1.f : l1;
+    if (lse != nullptr && (lane & 3) == 0) {  // m is in log2 units here
+      float* lrow = lse + ((long long)b * H + h) * Sq;
+      if (r0 < Sq) lrow[r0] = (m0 + log2f(ls0)) * LN2;
+      if (r1 < Sq) lrow[r1] = (m1 + log2f(ls1)) * LN2;
+    }
     __nv_bfloat16* op = o + b * os.b + h * os.h;
 #pragma unroll
     for (int j = 0; j < DVP / 8; ++j) {
@@ -566,9 +583,9 @@ int head_map(CUtensorMap* map, const void* base, int B, int heads, int S,
 
 template <int DP, int DVP>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
-           void* o, OutStrides os, int B, int H, int KV, int Sq, int Sk,
-           int Dv, float scale, int causal, int has_window, int window,
-           cudaStream_t stream) {
+           void* o, OutStrides os, float* lse, int B, int H, int KV, int Sq,
+           int Sk, int Dv, float scale, int causal, int has_window,
+           int window, cudaStream_t stream) {
   const int smem = Layout<DP, DVP>::SMEM_BYTES;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<DP, DVP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -576,72 +593,97 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, (Sq + BQ - 1) / BQ, B);
   flash_wgmma_kernel<DP, DVP><<<grid, THREADS, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), os, H, KV, Sq, Sk, Dv,
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), os, lse, H, KV, Sq, Sk, Dv,
       scale * LOG2E, causal, has_window, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
-// dtype: 0 = float32, 1 = bfloat16. q (B,H,Sq,D), k (B,KV,Sk,D),
-// v (B,KV,Sk,Dv), o (B,H,Sq,Dv), each given by its base pointer and the
-// element strides of its batch, head and sequence dims (the last dim is
-// contiguous). D % 4 == 0, D <= 192 and Dv <= 128 (q staged as float32
-// [64][D]: 98,432 bytes of dynamic shared memory at D 192). The FFMA variant.
-// Launches on `stream`;
-// returns the CUDA error code (0 on success).
-extern "C" int flash_attention_fwd(
-    int dtype, const void* q, const void* k, const void* v, void* o,
-    int B, int H, int KV, int Sq, int Sk, int D, int Dv,
-    long long qsb, long long qsh, long long qss,
-    long long ksb, long long ksh, long long kss,
-    long long vsb, long long vsh, long long vss,
-    long long osb, long long osh, long long oss,
-    float scale, int causal, int has_window, int window, void* stream) {
-  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss};
+namespace {
+
+int ffma_entry(int dtype, const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int KV, int Sq, int Sk, int D, int Dv,
+               const long long* st, float scale, int causal, int has_window,
+               int window, void* stream) {
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, o, B, H, KV, Sq, Sk, D, Dv, qs, ks, vs, os,
-                         scale, causal, has_window, window, s);
+                         lse, scale, causal, has_window, window, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, D, Dv, qs, ks, vs,
-                                 os, scale, causal, has_window, window, s);
+    return launch<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, D, Dv, qs, ks,
+                                 vs, os, lse, scale, causal, has_window,
+                                 window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core variant: bf16 q, k, v, o as above; D and Dv multiples of
-// 16, D at most 192 and Dv at most 128; every stride a multiple of 8 elements and q, k, v
-// 16-byte aligned (TMA). Launches on `stream`; returns 0, a CUDA error code,
-// or one above hopper::kTensorMapError.
-extern "C" int flash_attention_wgmma(
-    const void* q, const void* k, const void* v, void* o,
-    int B, int H, int KV, int Sq, int Sk, int D, int Dv,
-    long long qsb, long long qsh, long long qss,
-    long long ksb, long long ksh, long long kss,
-    long long vsb, long long vsh, long long vss,
-    long long osb, long long osh, long long oss,
-    float scale, int causal, int has_window, int window, void* stream) {
+int wgmma_entry(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int KV, int Sq, int Sk, int D,
+                int Dv, const long long* st, float scale, int causal,
+                int has_window, int window, void* stream) {
   CUtensorMap qm, km, vm;
-  int err = tc::head_map(&qm, q, B, H, Sq, D, qsb, qsh, qss);
-  if (err == 0) err = tc::head_map(&km, k, B, KV, Sk, D, ksb, ksh, kss);
-  if (err == 0) err = tc::head_map(&vm, v, B, KV, Sk, Dv, vsb, vsh, vss);
+  int err = tc::head_map(&qm, q, B, H, Sq, D, st[0], st[1], st[2]);
+  if (err == 0) err = tc::head_map(&km, k, B, KV, Sk, D, st[3], st[4], st[5]);
+  if (err == 0) err = tc::head_map(&vm, v, B, KV, Sk, Dv, st[6], st[7], st[8]);
   if (err != 0) return err;
-  const tc::OutStrides os{osb, osh, oss};
+  const tc::OutStrides os{st[9], st[10], st[11]};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D > 128)  // MLA: three 64-column boxes of Q and K per row
-    return tc::launch<192, 128>(qm, km, vm, o, os, B, H, KV, Sq, Sk, Dv,
+    return tc::launch<192, 128>(qm, km, vm, o, os, lse, B, H, KV, Sq, Sk, Dv,
                                 scale, causal, has_window, window, s);
   if (D <= 64 && Dv <= 64)
-    return tc::launch<64, 64>(qm, km, vm, o, os, B, H, KV, Sq, Sk, Dv, scale,
-                              causal, has_window, window, s);
+    return tc::launch<64, 64>(qm, km, vm, o, os, lse, B, H, KV, Sq, Sk, Dv,
+                              scale, causal, has_window, window, s);
   if (D <= 64)
-    return tc::launch<64, 128>(qm, km, vm, o, os, B, H, KV, Sq, Sk, Dv, scale,
-                               causal, has_window, window, s);
+    return tc::launch<64, 128>(qm, km, vm, o, os, lse, B, H, KV, Sq, Sk, Dv,
+                               scale, causal, has_window, window, s);
   if (Dv <= 64)
-    return tc::launch<128, 64>(qm, km, vm, o, os, B, H, KV, Sq, Sk, Dv, scale,
-                               causal, has_window, window, s);
-  return tc::launch<128, 128>(qm, km, vm, o, os, B, H, KV, Sq, Sk, Dv, scale,
-                              causal, has_window, window, s);
+    return tc::launch<128, 64>(qm, km, vm, o, os, lse, B, H, KV, Sq, Sk, Dv,
+                               scale, causal, has_window, window, s);
+  return tc::launch<128, 128>(qm, km, vm, o, os, lse, B, H, KV, Sq, Sk, Dv,
+                              scale, causal, has_window, window, s);
+}
+
+}  // namespace
+
+#define FLASH_STRIDES                                        \
+  long long qsb, long long qsh, long long qss, long long ksb, \
+      long long ksh, long long kss, long long vsb, long long vsh, \
+      long long vss, long long osb, long long osh, long long oss
+#define FLASH_STRIDE_ARRAY \
+  {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss}
+
+// dtype: 0 = float32, 1 = bfloat16. q (B,H,Sq,D), k (B,KV,Sk,D),
+// v (B,KV,Sk,Dv), o (B,H,Sq,Dv), each given by its base pointer and the
+// element strides of its batch, head and sequence dims (the last dim is
+// contiguous); lse (B,H,Sq) float32 contiguous, or NULL to write none.
+// D % 4 == 0, D <= 192 and Dv <= 128 (q staged as float32 [64][D]: 98,432
+// bytes of dynamic shared memory at D 192). The FFMA variant. Launches on
+// `stream`; returns the CUDA error code (0 on success).
+extern "C" int flash_attention_fwd(
+    int dtype, const void* q, const void* k, const void* v, void* o,
+    float* lse, int B, int H, int KV, int Sq, int Sk, int D, int Dv,
+    FLASH_STRIDES, float scale, int causal, int has_window, int window,
+    void* stream) {
+  const long long st[12] = FLASH_STRIDE_ARRAY;
+  return ffma_entry(dtype, q, k, v, o, lse, B, H, KV, Sq, Sk, D, Dv, st,
+                    scale, causal, has_window, window, stream);
+}
+
+// The tensor-core variant: bf16 q, k, v, o and the lse as above; D and Dv
+// multiples of 16, D at most 192 and Dv at most 128; every stride a
+// multiple of 8 elements and q, k, v 16-byte aligned (TMA). Launches on
+// `stream`; returns 0, a CUDA error code, or one above
+// hopper::kTensorMapError.
+extern "C" int flash_attention_wgmma(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int B, int H, int KV, int Sq, int Sk, int D, int Dv, FLASH_STRIDES,
+    float scale, int causal, int has_window, int window, void* stream) {
+  const long long st[12] = FLASH_STRIDE_ARRAY;
+  return wgmma_entry(q, k, v, o, lse, B, H, KV, Sq, Sk, D, Dv, st, scale,
+                     causal, has_window, window, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -16,7 +16,13 @@ their strides (the last dim contiguous), so the (B,S,H,D) tensors of
 :func:`repro_torch.kernels.ops.attention` need no transposed copy; the
 tensor-core kernel reads them through TMA maps, which need every stride a
 whole number of 16-byte units and 16-byte aligned tensors (checked here).
-The backward pass waits for the training slice.
+
+The backward is the reference's ``_flash_vjp``: :class:`_B2Function`
+launches the kernel, which then also writes each row's log-sum-exp, and
+its backward is the blocked plain backward
+(:func:`repro_torch.models.flash._flash_bwd`) from the saved (q, k, v, o,
+lse), as the reference's is its blocked jnp flash's VJP. There is no
+backward kernel (ROADMAP B2's speed items).
 """
 from __future__ import annotations
 
@@ -66,21 +72,24 @@ def _variant(dtype: torch.dtype, D: int, Dv: int) -> str:
 
 def _signature(lib: ctypes.CDLL, variant: str):
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    tail = [i] * 7 + [ll] * 12 + [ctypes.c_float, i, i, i, p]
+    # q, k, v, o and the lse (None passes NULL: no lse written)
+    args = [p] * 5 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, i, i, p]
     if variant == "wgmma":
         fn = lib.flash_attention_wgmma
-        fn.argtypes = [p, p, p, p] + tail
+        fn.argtypes = args
     else:
         fn = lib.flash_attention_fwd
-        fn.argtypes = [i, p, p, p, p] + tail
+        fn.argtypes = [i] + args
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, *, causal, window, scale,
-            variant: str | None = None) -> torch.Tensor:
+def _launch(q, k, v, *, causal, window, scale, variant: str | None = None,
+            with_lse: bool = False):
     """Launch the kernel :func:`_variant` picks, or ``variant`` where a
-    measurement names one (to time both kernels on the same inputs)."""
+    measurement names one (to time both kernels on the same inputs).
+    Returns o, or (o, lse) with ``with_lse``: lse (B, H, Sq) float32, each
+    row's log-sum-exp of its scaled scores, as ``_fwd_all`` returns it."""
     global LAUNCHES
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
         raise TypeError(
@@ -106,11 +115,14 @@ def _launch(q, k, v, *, causal, window, scale,
     # layout wrapper's transpose back is contiguous
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = _build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = [t.stride(d) for t in (q, k, v, o) for d in range(3)]
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, KV,
-            Sq, Sk, D, Dv, *strides, scale, int(causal),
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if with_lse else None]
+    args = (*ptrs, B, H, KV, Sq, Sk, D, Dv, *strides, scale, int(causal),
             int(window is not None), int(window or 0), stream)
     if variant == "ffma":
         args = (_DTYPE_CODE[q.dtype], *args)
@@ -118,7 +130,59 @@ def _launch(q, k, v, *, causal, window, scale,
     _build.check(lib, code, f"flash_attention ({variant})")
     LAUNCHES += 1
     VARIANT_LAUNCHES[variant] += 1
-    return o
+    return (o, lse) if with_lse else o
+
+
+def _plain_bwd(q, k, v, o, lse, do, *, causal, window, scale):
+    """The backward of B2 on (B,H,Sq,D) tensors from its saved output and
+    lse: the models' blocked ``_flash_bwd`` on the (B,KV,G,Sq,D) layout,
+    with K/V padded to whole blocks as :func:`blocked_flash
+    <repro_torch.models.flash.blocked_flash>` pads them, the scores
+    recomputed in float32 as B2 computes them. Returns (dq, dk, dv) in the
+    inputs' types."""
+    # lazy, as the reference imports its jnp flash inside _flash_bwd
+    from repro_torch.models.flash import (DEFAULT_BLOCK_K, DEFAULT_STRIPS,
+                                          MaskSpec, _flash_bwd)
+
+    B, H, Sq, D = q.shape
+    KV, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // KV
+    block_k = min(DEFAULT_BLOCK_K, Sk)
+    pad = (-Sk) % block_k
+    kp = torch.nn.functional.pad(k, (0, 0, 0, pad)) if pad else k
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pad)) if pad else v
+    spec = MaskSpec(causal=causal, window=window,
+                    kv_len=Sk if pad else None)
+    res = (q.reshape(B, KV, G, Sq, D), kp, vp, o.reshape(B, KV, G, Sq, Dv),
+           lse.reshape(B, KV, G, Sq))
+    # B2's lse is of its float32 scores: recompute them so (C2)
+    dq, dk, dv = _flash_bwd(spec, scale, block_k, DEFAULT_STRIPS, res,
+                            do.reshape(B, KV, G, Sq, Dv), exact_scores=True)
+    return dq.reshape(B, H, Sq, D), dk[:, :, :Sk], dv[:, :, :Sk]
+
+
+class _B2Function(torch.autograd.Function):
+    """The counterpart of the reference's ``_flash_vjp``: the forward
+    launches B2 (writing the lse too), the backward is :func:`_plain_bwd`
+    from the saved (q, k, v, o, lse), in plain torch on the card as the
+    reference's is plain jnp. The backward launches no kernel of its own,
+    so :data:`LAUNCHES` counts one launch per forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, lse = _launch(q, k, v, causal=causal, window=window, scale=scale,
+                         with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = _plain_bwd(q, k, v, o, lse, do, causal=causal,
+                                window=window, scale=scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_gpu(
@@ -171,4 +235,6 @@ def flash_attention_gpu(
         return flash_ref(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _B2Function.apply(q, k, v, causal, window, scale)
     return _launch(q, k, v, causal=causal, window=window, scale=scale)

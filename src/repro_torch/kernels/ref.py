@@ -67,8 +67,8 @@ BF16_REL = 2.0 ** -6
 BF16_ROW = 2.0 ** -4
 
 
-def tolerance_ratio(got: torch.Tensor, want: torch.Tensor,
-                    tol: float) -> torch.Tensor:
+def tolerance_ratio(got: torch.Tensor, want: torch.Tensor, tol: float,
+                    extra: torch.Tensor | None = None) -> torch.Tensor:
     """``|got - want|`` over the bound a kernel's ``got`` is held to against
     its plain version's ``want``, per element: above 1 (or NaN) misses.
 
@@ -84,6 +84,10 @@ def tolerance_ratio(got: torch.Tensor, want: torch.Tensor,
     while the kernel keeps them in float32 (a few hundredths of the row's
     scale in the tails). A skipped 128-key or 128-deep tile moves elements
     by a tenth of the row's scale or more.
+
+    ``extra`` (broadcast against ``want``) is added to the bound where an
+    error term of the computation is known per element (see
+    :func:`flash_dq_rounding_bound`).
     """
     g, w = got.float(), want.float()
     diff = (g - w).abs()
@@ -91,15 +95,35 @@ def tolerance_ratio(got: torch.Tensor, want: torch.Tensor,
     if want.dtype == torch.bfloat16:
         rms = w.square().mean(dim=-1, keepdim=True).sqrt()
         bound = torch.minimum(bound, BF16_REL * w.abs() + BF16_ROW * rms)
+    if extra is not None:
+        bound = bound + extra
     # a row of exact zeros (one that meets no live tile) has a zero bound
     return torch.where(diff == 0, torch.zeros_like(diff), diff / bound)
 
 
-def outside_tolerance(got: torch.Tensor, want: torch.Tensor,
-                      tol: float) -> torch.Tensor:
+def outside_tolerance(got: torch.Tensor, want: torch.Tensor, tol: float,
+                      extra: torch.Tensor | None = None) -> torch.Tensor:
     """Mask of the elements where ``got`` misses :func:`tolerance_ratio`'s
     bound; NaN always misses."""
-    return ~(tolerance_ratio(got, want, tol) <= 1.0)
+    return ~(tolerance_ratio(got, want, tol, extra) <= 1.0)
+
+
+def flash_dq_rounding_bound(q, k, o, do, *, causal=True, window=None,
+                            scale=None) -> torch.Tensor:
+    """Per element of dq (B,Sq,H,D), the error that o's rounding to its
+    type carries into a flash backward: each row's ``delta = sum(do * o)``
+    is off by up to ``2^-8 sum|do * o|`` (o rounded on either side of a
+    comparison), and dq's row takes ``scale * delta`` times the row's
+    attention-weighted mean key ``kbar = softmax(q k^T) k``. Where a row's
+    dq nearly cancels, that term is far above ``BF16_ROW * rms``.
+    ``kbar`` is computed in float32 with :func:`reference_attention`; the
+    layout is the models' (B,S,H,D)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+    kbar = reference_attention(q.float(), k.float(), k.float(),
+                               causal=causal, window=window, scale=scale)
+    delta_err = 2.0 ** -8 * (do.float() * o.float()).abs().sum(
+        -1, keepdim=True)
+    return scale * delta_err * kbar.abs()
 
 
 def ssd_ref(xc, bc, cc, dtc, cum):

@@ -181,11 +181,26 @@ def _on_cuda(what: str, t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel launch would drop a gradient: the kernels are
+    launched through ctypes, so their outputs carry no ``grad_fn``, and the
+    reference defines no VJP for the SSD scan. Called on the card path only;
+    the CPU plain path keeps its autograd (the reference's models train
+    through the jnp chunked scan)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: an input requires grad on a card; the SSD kernels "
+            f"have no backward yet (ROADMAP A9, second part: 'B3 under "
+            f"autograd')")
+
+
 def ssd_chunk_state_gpu(xc, bc, dtc, cum) -> torch.Tensor:
     """Stage 1 (:func:`ssd_chunk_state_plain`): kernel 1 on a card."""
     _validate(xc, bc, bc, dtc, cum)
     if not _on_cuda("ssd_chunk_state", xc):
         return ssd_chunk_state_plain(xc, bc, dtc, cum)
+    refuse_autograd("ssd_chunk_state", xc, bc, dtc, cum)
     dims = _checked(xc, bc, dtc, cum)
     states = xc.new_empty((*xc.shape[:3], dims[3], dims[4]))
     _call("ssd_chunk_state", (xc, bc, dtc, cum, states), dims, xc.device)
@@ -209,6 +224,7 @@ def ssd_state_passing_gpu(states, cum) -> tuple[torch.Tensor, torch.Tensor]:
                          f"on {cum.device}")
     if not _on_cuda("ssd_state_passing", states):
         return ssd_state_passing_plain(states, cum)
+    refuse_autograd("ssd_state_passing", states, cum)
     B, H, nc, P, N = states.shape
     entering = states.contiguous().clone()
     final = states.new_empty((B, H, P, N))
@@ -224,6 +240,7 @@ def ssd_chunk_output_gpu(xc, bc, cc, dtc, cum, entering) -> torch.Tensor:
     _validate_states(entering, xc, bc)
     if not _on_cuda("ssd_chunk_output", xc):
         return ssd_chunk_output_plain(xc, bc, cc, dtc, cum, entering)
+    refuse_autograd("ssd_chunk_output", xc, bc, cc, dtc, cum, entering)
     dims = _checked(xc, bc, cc, dtc, cum, entering)
     y = torch.empty_like(xc)
     _call("ssd_chunk_output", (xc, bc, cc, dtc, cum, entering, y), dims,
@@ -258,4 +275,5 @@ def ssd_chunk_scan_gpu(
     _validate(xc, bc, cc, dtc, cum)
     if not _on_cuda("ssd_chunk_scan", xc):
         return ssd_staged_plain(xc, bc, cc, dtc, cum)
+    refuse_autograd("ssd_chunk_scan", xc, bc, cc, dtc, cum)
     return _launch(xc, bc, cc, dtc, cum)

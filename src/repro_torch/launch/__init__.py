@@ -1,2 +1,3 @@
-"""Launchers: the serving entry point (``python -m repro_torch.launch.serve``).
-The mesh, training and dry-run launchers wait for ROADMAP A11."""
+"""Launchers: serving (``python -m repro_torch.launch.serve``) and training
+(``python -m repro_torch.launch.train``). The mesh and dry-run launchers
+wait for ROADMAP A11."""

@@ -1,13 +1,15 @@
-"""Blocked (flash) attention for the models, forward only.
+"""Blocked (flash) attention for the models, with its backward.
 
-A port of the forward part of ``repro.models.flash``. The layout is the
-models' (B, S, H, D). Which computation runs is decided by the tensors'
-device alone:
+A port of ``repro.models.flash``. The layout is the models' (B, S, H, D).
+Which computation runs is decided by the tensors' device alone:
 
 * On a CUDA tensor :func:`flash_attention` launches kernel B2
   (``csrc/flash_attention.cu``) through :func:`repro_torch.kernels.ops.
   attention`, or raises where :func:`b2_route` says B2 does not cover the
-  call. It never runs the plain version on the card.
+  call. It never runs the plain version on the card. Under autograd the
+  kernel also writes each row's lse, and the backward is
+  :func:`_flash_bwd` from the saved (q, k, v, o, lse)
+  (:class:`repro_torch.kernels.flash_attention._B2Function`).
 * On a CPU tensor it computes :func:`blocked_flash`, the reference's jnp
   flash in plain torch: queries in up to ``n_strips`` strips, each scanning
   only the KV blocks between its sliding-window edge and its diagonal, with
@@ -16,9 +18,14 @@ device alone:
   are rounded to the input type before they are scaled, and each block's
   ``p @ v`` to v's type, where the reference's einsums round them.
 
+:func:`blocked_flash` is differentiable through :class:`_FlashCore`, the
+counterpart of the reference's ``_flash_core`` and its ``defvjp``: the
+forward saves only (q, k, v, o, lse) and :func:`_flash_bwd` recomputes the
+score tiles strip by strip, adding dk and dv block by block in a fixed
+order (no atomics, so the backward is deterministic on a card too).
+
 :func:`reference_attention` is the dense oracle (the reference's, ported in
-:mod:`repro_torch.kernels.ref`). The backward (``_flash_bwd``) waits for the
-training slice (ROADMAP A9).
+:mod:`repro_torch.kernels.ref`).
 """
 from __future__ import annotations
 
@@ -59,10 +66,15 @@ def _block_mask(qpos: torch.Tensor, ki: torch.Tensor,
     return m
 
 
-def _tile_scores(q, ks, spec: MaskSpec, scale, qpos, ki) -> torch.Tensor:
-    """q: (B,KV,G,bq,D)  ks: (B,KV,bk,D) -> masked float32 (B,KV,G,bq,bk)."""
+def _tile_scores(q, ks, spec: MaskSpec, scale, qpos, ki, *,
+                 exact: bool = False) -> torch.Tensor:
+    """q: (B,KV,G,bq,D)  ks: (B,KV,bk,D) -> masked float32 (B,KV,G,bq,bk).
+    The raw scores are rounded to q's type, as the reference's einsum
+    rounds them, unless ``exact`` (B2 keeps them in float32, C2)."""
     s = torch.einsum("bkgqd,bksd->bkgqs", q.float(), ks.float())
-    s = s.to(q.dtype).float() * scale
+    if not exact:
+        s = s.to(q.dtype)
+    s = s.float() * scale
     return torch.where(_block_mask(qpos, ki, spec)[None, None, None], s,
                        NEG_INF)
 
@@ -129,6 +141,69 @@ def _fwd_all(q, k, v, spec: MaskSpec, scale, block_k: int, n_strips: int):
     return torch.cat(os, dim=3), torch.cat(lses, dim=3)
 
 
+def _flash_bwd(spec: MaskSpec, scale, block_k: int, n_strips: int, res, do,
+               *, exact_scores: bool = False):
+    """The blocked backward from saved (q, k, v, o, lse), on the
+    (B,KV,G,S,D) layout: ``delta = sum(do * o)``, then per strip the score
+    tiles recomputed block by block, ``p = exp(s - lse)``; dq, dk and dv
+    accumulate in float32 and are cast to the inputs' types.
+
+    The scores are recomputed as the forward that wrote ``lse`` computed
+    them, so that p is that forward's softmax: rounded to the input type
+    as :func:`_fwd_all` rounds them, or with ``exact_scores`` in float32,
+    as kernel B2 keeps them (C2). In bf16 an lse of the one kind with
+    scores of the other leaves rows of p that do not sum to 1."""
+    q, k, v, o, lse = res
+    B, KV, G, Sq, D = q.shape
+    Sk = k.shape[2]
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    kf, vf = k.float(), v.float()
+    for start, rows, kb0, nkb in _strip_plan(Sq, Sk, spec, block_k, n_strips):
+        qs = q[:, :, :, start:start + rows]
+        qsf = qs.float()
+        dos = do[:, :, :, start:start + rows].float()
+        lses = lse[:, :, :, start:start + rows]
+        deltas = delta[:, :, :, start:start + rows]
+        qpos = start + torch.arange(rows, device=q.device)
+        dq_s = torch.zeros((B, KV, G, rows, D), dtype=torch.float32,
+                           device=q.device)
+        for kb in range(kb0, kb0 + nkb):
+            sl = slice(kb * block_k, (kb + 1) * block_k)
+            ki = kb * block_k + torch.arange(block_k, device=q.device)
+            s = _tile_scores(qs, k[:, :, sl], spec, scale, qpos, ki,
+                             exact=exact_scores)
+            p = torch.exp(s - lses[..., None])
+            dp = torch.einsum("bkgqv,bksv->bkgqs", dos, vf[:, :, sl])
+            ds = p * (dp - deltas[..., None]) * scale
+            dq_s = dq_s + torch.einsum("bkgqs,bksd->bkgqd", ds, kf[:, :, sl])
+            dk[:, :, sl] += torch.einsum("bkgqs,bkgqd->bksd", ds, qsf)
+            dv[:, :, sl] += torch.einsum("bkgqs,bkgqv->bksv", p, dos)
+        dq[:, :, :, start:start + rows] = dq_s
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashCore(torch.autograd.Function):
+    """The reference's ``_flash_core`` with its custom VJP: the forward is
+    :func:`_fwd_all`, the backward :func:`_flash_bwd` from the saved (q, k,
+    v, o, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, spec: MaskSpec, scale, block_k: int,
+                n_strips: int):
+        o, lse = _fwd_all(q, k, v, spec, scale, block_k, n_strips)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (spec, scale, block_k, n_strips)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = _flash_bwd(*ctx.args, ctx.saved_tensors, do)
+        return dq, dk, dv, None, None, None, None
+
+
 def blocked_flash(q, k, v, *, causal: bool = True, window: int | None = None,
                   q_offset: int = 0, scale: float | None = None,
                   block_k: int = DEFAULT_BLOCK_K,
@@ -152,7 +227,7 @@ def blocked_flash(q, k, v, *, causal: bool = True, window: int | None = None,
         kv_len = Sk
     spec = MaskSpec(causal=causal, window=window, q_offset=q_offset,
                     kv_len=kv_len)
-    o, _ = _fwd_all(qT, kT, vT, spec, scale, block_k, n_strips)
+    o = _FlashCore.apply(qT, kT, vT, spec, scale, block_k, n_strips)
     return o.reshape(B, H, Sq, Dv).transpose(1, 2)
 
 

@@ -263,3 +263,10 @@ def logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if V != cfg.vocab_size:
         out[..., cfg.vocab_size:] = NEG_INF
     return out
+
+
+def cross_entropy(logit: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL; logit (B,S,V) float32, labels (B,S) int."""
+    lse = torch.logsumexp(logit, dim=-1)
+    picked = logit.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - picked)

@@ -4,6 +4,7 @@ A port of ``repro.models.transformer``, with the same public API:
 
   init_params(gen, cfg, device=)           -> params (nested dicts)
   forward(params, batch, cfg, ...)         -> (logits, aux)
+  loss_fn(params, batch, cfg, ...)         -> (loss, metrics)
   init_decode_cache(cfg, batch, max_len)   -> cache
   decode_step(params, cache, tokens, cfg)  -> (logits, cache[, routing])
 
@@ -13,39 +14,59 @@ layers: with a host-offload plan (``plan=``, from
 :func:`~repro_torch.core.tiering.place_params`) layer i+1's REMOTE weights
 are copied from pinned host memory while layer i computes. REMOTE leaves
 outside the stack are fetched where they are used: the embedding at each
-use, the hybrid's shared block once a forward or decode step. Every
-placement computes the same values: its logits are bit-identical to the
-all-local run's.
+use, the hybrid's shared block once a forward or decode step (when the
+caller trains, each such subtree once a forward, so that its gradient
+gathers in one node). Every placement computes the same values: its logits
+are bit-identical to the all-local run's, and so are the loss and the
+gradients of :func:`loss_fn`.
+
+``remat`` names a checkpoint policy (:data:`REMAT_POLICIES`, with an
+optional ``_flat`` suffix) for the layer loops, the reference's
+``jax.checkpoint`` policies in ``torch.utils.checkpoint`` terms:
+``"full"`` saves nothing inside a boundary, ``"dots"`` the outputs of the
+matrix products (``aten.mm``/``bmm``/``addmm``), ``"dots_no_batch"`` those
+of the unbatched ones (``mm``/``addmm``).
 
 The attention block is GQA (:mod:`repro_torch.models.layers`) or MLA
 (:mod:`repro_torch.models.mla`, ``cfg.attention == "mla"``). The moe family
 (deepseek-v3, mixtral) runs two layer loops, each its own dual buffer: the
 ``first_k_dense`` attention + MLP blocks (``dense_layers``), then the
 attention + MoE blocks (``layers``, :mod:`repro_torch.models.moe`), whose
-load-balance losses sum into ``aux``. Its ``mtp`` block is made by
-``init_params`` for the MTP loss, which waits for the training slice with
-``loss_fn`` and the remat options (ROADMAP A9); no forward or decode step
-runs it.
+load-balance losses sum into ``aux``. Its ``mtp`` block (deepseek-v3's
+multi-token prediction) runs only in :func:`loss_fn`.
 
 The hybrid family (zamba2) runs its Mamba2 stack in one layer loop and
 applies the shared attention block after every ``hybrid_attn_every``-th
 layer: the reference's groups, each followed by the shared block, then the
 tail, computed in the same order, while the dual buffer also fetches
-across the shared block.
+across the shared block. The layer body is given its layer index, so a
+recompute of any layer or block applies the shared block after the same
+layers.
 
 The enc-dec family waits for ROADMAP A9.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exec import HostFetchEngine, resolve_device
 from repro_torch.core.objects import _leaves_with_keys
 from repro_torch.core.placement import PlacementPlan
-from repro_torch.core.tiering import map_leaves, remote_keys, tiered_scan
+from repro_torch.core.tiering import (
+    RemoteGrads,
+    map_leaves,
+    remote_keys,
+    tiered_scan,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
@@ -57,6 +78,55 @@ _WAITS_FOR = {
     "encdec": "ROADMAP A9 (models/encdec.py)",
     "audio": "ROADMAP A9 (models/encdec.py)",
 }
+
+
+def _saving(*ops) -> Callable:
+    """A checkpoint ``context_fn`` that saves the outputs of ``ops`` and
+    recomputes everything else."""
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+_aten = torch.ops.aten
+#: The reference's ``jax.checkpoint`` policies as checkpoint ``context_fn``s
+#: (None: no checkpoint).
+REMAT_POLICIES = {
+    "none": None,
+    "full": noop_context_fn,
+    "dots": _saving(_aten.mm.default, _aten.bmm.default, _aten.addmm.default),
+    "dots_no_batch": _saving(_aten.mm.default, _aten.addmm.default),
+}
+
+
+def scan_stacked_layers(fn, carry, stacked, n_layers: int, *, remat: str,
+                        prefetch: bool, prefetch_under_remat: bool = True,
+                        **scan_kw):
+    """Map a remat policy string onto :func:`tiered_scan`.
+
+    ``remat`` is a :data:`REMAT_POLICIES` key, optionally suffixed
+    ``_flat``: ``'<policy>_flat'`` checkpoints each layer alone (one
+    forward and one recompute, against sqrt-L's two, at O(L) saved
+    carries). Under remat the dual buffer runs only with
+    ``prefetch and prefetch_under_remat``. ``scan_kw`` goes to
+    :func:`tiered_scan` (the placement's ``remote`` leaves and ``engine``).
+    The saved block carries stay on the device: the reference places them
+    off HBM only under a mesh (:func:`~repro_torch.core.tiering.
+    remote_carry_placer`, ROADMAP A11). The hybrid's shared block runs
+    inside its layer's checkpoint, where the reference checkpoints it on
+    its own.
+    """
+    if remat == "none":
+        return tiered_scan(fn, carry, stacked, n_layers=n_layers,
+                           prefetch=prefetch, **scan_kw)
+    flat = remat.endswith("_flat")
+    return tiered_scan(
+        fn, carry, stacked, n_layers=n_layers, remat=True,
+        policy=REMAT_POLICIES[remat.removesuffix("_flat")],
+        prefetch=prefetch and prefetch_under_remat,
+        min_layers=10 ** 9 if flat else 12, **scan_kw)
 
 
 def _require_served(cfg: ModelConfig, what: str) -> None:
@@ -158,17 +228,16 @@ def _ssm_layer(p, x, cfg):
 
 def _with_shared_block(layer_fn: Callable, shared_fn: Callable,
                        every: int) -> Callable:
-    """``layer_fn`` for a layer loop that runs in order, followed after
-    every ``every``-th layer by ``shared_fn(carry, g)``, g the invocation
-    (0, 1, ...)."""
-    done = 0
+    """The body ``(carry, p, i)`` of a layer loop run with its layer index:
+    layer ``i``, then ``shared_fn(carry, g)`` after every ``every``-th
+    layer, ``g = (i + 1) // every - 1`` the invocation (0, 1, ...). It
+    depends on ``i`` alone, so a recompute of any layer applies the shared
+    block where the first run did."""
 
-    def body(carry, p):
-        nonlocal done
+    def body(carry, p, i: int):
         carry = layer_fn(carry, p)
-        done += 1
-        if done % every == 0:
-            carry = shared_fn(carry, done // every - 1)
+        if (i + 1) % every == 0:
+            carry = shared_fn(carry, (i + 1) // every - 1)
         return carry
 
     return body
@@ -215,10 +284,11 @@ def _engine(plan: PlacementPlan | None,
 
 
 def _fetched(params: Params, key: str, engine: HostFetchEngine | None,
-             remote: frozenset[str]) -> Params:
+             remote: frozenset[str], grads: RemoteGrads | None = None
+             ) -> Params:
     """``params[key]``, a subtree used whole outside the layer loop, with
     the leaves the plan made REMOTE fetched through ``engine`` in one read
-    at this use."""
+    at this use (and attached to ``grads`` when the caller trains)."""
     sub = params[key]
     prefix = f"[{key!r}]"
     names = {k[len(prefix):] for k in remote if k.startswith(prefix)}
@@ -227,23 +297,66 @@ def _fetched(params: Params, key: str, engine: HostFetchEngine | None,
     leaves = dict(_leaves_with_keys(sub))
     got = engine.acquire(engine.fetch(
         key, {k: leaves[k] for k in names}, pace=False))
+    if grads is not None:
+        got = {k: grads.attach("params" + prefix + k, None, t, leaves[k].shape)
+               for k, t in got.items()}
     return map_leaves(lambda k, t: got.get(k, t), sub)
+
+
+class _Fetcher:
+    """A forward's access to the REMOTE leaves of ``plan``: the copy engine
+    (the caller's, or one of its own), and each subtree used outside the
+    layer loops fetched at each use, or, when the caller collects the
+    gradients of REMOTE leaves (``grads``), once a forward."""
+
+    def __init__(self, params: Params, plan: PlacementPlan | None,
+                 dev: torch.device, engine: HostFetchEngine | None,
+                 grads: RemoteGrads | None):
+        self.params, self.plan, self.grads = params, plan, grads
+        self.own = engine is None
+        self.engine = _engine(plan, dev) if engine is None else engine
+        self.remote = remote_keys(plan, "params")
+        self._cache: dict[str, Params] = {}
+
+    def __call__(self, key: str) -> Params:
+        if self.grads is None:
+            return _fetched(self.params, key, self.engine, self.remote)
+        if key not in self._cache:
+            self._cache[key] = _fetched(self.params, key, self.engine,
+                                        self.remote, self.grads)
+        return self._cache[key]
+
+    def scan_kw(self, key: str) -> dict:
+        """:func:`tiered_scan`'s placement arguments for ``params[key]``."""
+        prefix = f"params[{key!r}]"
+        return {"engine": self.engine, "remote": remote_keys(self.plan, prefix),
+                "grads": self.grads, "prefix": prefix}
+
+    def close(self, out: torch.Tensor | None) -> None:
+        """Close an engine of its own, unless ``out`` still needs it: a
+        backward through checkpointed layers re-issues their fetches (the
+        engine's thread then ends when the graph lets it go)."""
+        if self.own and self.engine is not None and not (
+                out is not None and out.requires_grad):
+            self.engine.close()
 
 
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
-def _run_trunk(params, x, positions, cfg: ModelConfig, *, prefetch: bool,
-               engine, remote, plan, moe_groups: int | None = None):
+def _run_trunk(params, x, positions, cfg: ModelConfig, *, remat: str,
+               prefetch: bool, prefetch_under_remat: bool, fetch: _Fetcher,
+               moe_groups: int | None = None):
     """The layer loops; returns (hidden, aux_loss). The hybrid's shared
     block is fetched once here."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def scan(fn, carry, key: str, n: int):
-        return tiered_scan(fn, carry, params[key], n_layers=n,
-                           prefetch=prefetch, engine=engine,
-                           remote=remote_keys(plan, f"params[{key!r}]"))
+    def scan(fn, carry, key: str, n: int, **kw):
+        return scan_stacked_layers(
+            fn, carry, params[key], n, remat=remat, prefetch=prefetch,
+            prefetch_under_remat=prefetch_under_remat, **fetch.scan_kw(key),
+            **kw)
 
     if cfg.family == "moe":
         nd = cfg.first_k_dense
@@ -262,11 +375,32 @@ def _run_trunk(params, x, positions, cfg: ModelConfig, *, prefetch: bool,
     else:
         fn = lambda c, p: _ssm_layer(p, c, cfg)  # noqa: E731
     if cfg.family == "hybrid":
-        shared = _fetched(params, "shared_attn", engine, remote)
-        fn = _with_shared_block(
+        shared = fetch("shared_attn")
+        body = _with_shared_block(
             fn, lambda c, _g: _dense_layer(shared, c, cfg, positions),
             cfg.hybrid_attn_every)
+        return scan(body, x, "layers", cfg.n_layers, with_index=True), aux
     return scan(fn, x, "layers", cfg.n_layers), aux
+
+
+def _forward(params, batch, cfg: ModelConfig, fetch: _Fetcher, *, remat: str,
+             prefetch: bool, prefetch_under_remat: bool,
+             moe_groups: int | None):
+    """(logits, aux, hidden): the forward on ``fetch``'s placement."""
+    tokens = batch["tokens"]
+    x = L.embed(fetch("embed"), tokens, cfg)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    x, aux = _run_trunk(params, x, positions, cfg, remat=remat,
+                        prefetch=prefetch,
+                        prefetch_under_remat=prefetch_under_remat,
+                        fetch=fetch, moe_groups=moe_groups)
+    x = L.rmsnorm(fetch("ln_f"), x)
+    if cfg.family == "vlm":
+        x = x[:, batch["patches"].shape[1]:]
+    return L.logits(fetch("embed"), x, cfg), aux, x
 
 
 def forward(
@@ -274,42 +408,106 @@ def forward(
     batch: dict,
     cfg: ModelConfig,
     *,
+    remat: str = "none",
     prefetch: bool = True,
+    prefetch_under_remat: bool = True,
     plan: PlacementPlan | None = None,
     moe_groups: int | None = None,
+    return_hidden: bool = False,
+    engine: HostFetchEngine | None = None,
+    remote_grads: RemoteGrads | None = None,
 ):
     """Full-sequence forward on the device of ``batch["tokens"]``.
 
-    Returns (logits[B,S_tokens,V_padded] float32, aux_loss): for the vlm
-    family the patch embeddings (``batch["patches"]``, (B, F, d)) are
-    prepended and only text positions give logits; ``aux_loss`` is the moe
-    family's load-balance loss summed over the MoE layers (0 for the
-    others), ``moe_groups`` its dispatch groups (a batch row each by
-    default). ``plan`` names the REMOTE leaves of params placed by
+    Returns (logits[B,S_tokens,V_padded] float32, aux_loss[, hidden]): for
+    the vlm family the patch embeddings (``batch["patches"]``, (B, F, d))
+    are prepended and only text positions give logits (and ``hidden``, the
+    final-normed activations); ``aux_loss`` is the moe family's
+    load-balance loss summed over the MoE layers (0 for the others),
+    ``moe_groups`` its dispatch groups (a batch row each by default).
+    ``remat`` checkpoints the layer loops (see :func:`scan_stacked_layers`).
+    ``plan`` names the REMOTE leaves of params placed by
     :func:`~repro_torch.core.tiering.place_params`; ``prefetch`` turns the
-    layer loops' dual buffer on.
+    layer loops' dual buffer on. A train step passes its own ``engine``
+    and the ``remote_grads`` that gather the REMOTE leaves' gradients
+    (:class:`~repro_torch.core.tiering.RemoteGrads`).
     """
     _require_served(cfg, "forward")
-    tokens = batch["tokens"]
-    engine = _engine(plan, tokens.device)
-    remote = remote_keys(plan, "params")
+    fetch = _Fetcher(params, plan, batch["tokens"].device, engine,
+                     remote_grads)
+    logits = None
     try:
-        x = L.embed(_fetched(params, "embed", engine, remote), tokens, cfg)
-        if cfg.family == "vlm":
-            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device).expand(B, S)
-        x, aux = _run_trunk(params, x, positions, cfg, prefetch=prefetch,
-                            engine=engine, remote=remote, plan=plan,
-                            moe_groups=moe_groups)
-        x = L.rmsnorm(_fetched(params, "ln_f", engine, remote), x)
-        if cfg.family == "vlm":
-            x = x[:, batch["patches"].shape[1]:]
-        logits = L.logits(_fetched(params, "embed", engine, remote), x, cfg)
+        logits, aux, hidden = _forward(
+            params, batch, cfg, fetch, remat=remat, prefetch=prefetch,
+            prefetch_under_remat=prefetch_under_remat, moe_groups=moe_groups)
     finally:
-        if engine is not None:
-            engine.close()
+        fetch.close(logits)
+    if return_hidden:
+        return logits, aux, hidden
     return logits, aux
+
+
+def loss_fn(
+    params: Params,
+    batch: dict,
+    cfg: ModelConfig,
+    *,
+    remat: str = "full",
+    prefetch: bool = True,
+    prefetch_under_remat: bool = True,
+    aux_weight: float = 0.01,
+    mtp_weight: float = 0.1,
+    moe_groups: int | None = None,
+    plan: PlacementPlan | None = None,
+    engine: HostFetchEngine | None = None,
+    remote_grads: RemoteGrads | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy, plus ``aux_weight`` x the MoE aux loss and
+    ``mtp_weight`` x the MTP loss -> (loss, {"nll", "aux"[, "mtp_nll"]}).
+
+    The MTP loss is deepseek-v3's multi-token prediction: one extra block
+    predicts token t+2 from (trunk hidden_t, embed(token_{t+1})), over the
+    full sequence with the last two positions masked out of the loss.
+    ``plan``, ``engine`` and ``remote_grads`` as in :func:`forward`.
+    """
+    _require_served(cfg, "loss_fn")
+    want_hidden = bool(cfg.mtp_depth and "mtp" in params)
+    fetch = _Fetcher(params, plan, batch["tokens"].device, engine,
+                     remote_grads)
+    loss = None
+    try:
+        logits, aux, hidden = _forward(
+            params, batch, cfg, fetch, remat=remat, prefetch=prefetch,
+            prefetch_under_remat=prefetch_under_remat, moe_groups=moe_groups)
+        labels = batch["labels"]
+        nll = L.cross_entropy(logits[:, :-1].float(), labels[:, 1:])
+        loss = nll + aux_weight * aux
+        metrics = {"nll": nll, "aux": aux}
+        if want_hidden:
+            mtp_nll = _mtp_nll(fetch, hidden, batch, cfg)
+            loss = loss + mtp_weight * mtp_nll
+            metrics["mtp_nll"] = mtp_nll
+    finally:
+        fetch.close(loss)
+    return loss, metrics
+
+
+def _mtp_nll(fetch: _Fetcher, hidden, batch, cfg: ModelConfig):
+    """The MTP block's mean NLL of token t+2 at the first S - 2 positions."""
+    mtp = fetch("mtp")
+    B, S, _ = hidden.shape
+    emb_next = L.embed(fetch("embed"), torch.roll(batch["tokens"], -1, 1), cfg)
+    h = torch.cat([hidden, emb_next], dim=-1) @ mtp["proj"]
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    h = _dense_layer(mtp["layer"], h, cfg, positions)
+    h = L.rmsnorm(mtp["ln"], h)
+    mtp_logits = L.logits(fetch("embed"), h, cfg).float()
+    tgt = torch.roll(batch["labels"], -2, 1)
+    valid = torch.arange(S, device=h.device) < S - 2
+    lse = torch.logsumexp(mtp_logits, dim=-1)
+    picked = mtp_logits.gather(-1, tgt.long()[..., None])[..., 0]
+    return torch.sum((lse - picked) * valid) / torch.clamp(
+        valid.sum() * B, min=1)
 
 
 # ---------------------------------------------------------------------------
@@ -381,12 +579,12 @@ def decode_step(
     new: dict = {}
     routing = [] if return_routing and cfg.family == "moe" else None
 
-    def scan(body, x, key: str, caches: dict, n: int):
+    def scan(body, x, key: str, caches: dict, n: int, **kw):
         layer_remote = frozenset(
             "['p']" + k for k in remote_keys(plan, f"params[{key!r}]"))
         return tiered_scan(body, x, {"p": params[key], **caches}, n_layers=n,
                            prefetch=prefetch, engine=engine,
-                           remote=layer_remote)
+                           remote=layer_remote, **kw)
 
     try:
         x = L.embed(_fetched(params, "embed", engine, remote), tokens, cfg)
@@ -420,9 +618,13 @@ def decode_step(
                         shared, xx, {"k": cache["shared_k"][g],
                                      "v": cache["shared_v"][g]}, pos, cfg),
                     cfg.hybrid_attn_every)
-            x = scan(body, x, "layers", {"conv": cache["conv"],
-                                         "state": cache["state"]},
-                     cfg.n_layers)
+                x = scan(body, x, "layers", {"conv": cache["conv"],
+                                             "state": cache["state"]},
+                         cfg.n_layers, with_index=True)
+            else:
+                x = scan(body, x, "layers", {"conv": cache["conv"],
+                                             "state": cache["state"]},
+                         cfg.n_layers)
             new = {"conv": torch.stack(new_conv),
                    "state": torch.stack(new_state)}
         x = L.rmsnorm(_fetched(params, "ln_f", engine, remote), x)

@@ -1,0 +1,337 @@
+"""Train step factory: loss -> grads -> (optional compression) -> AdamW.
+
+A port of ``repro.train.step``. It puts the DOLMA pieces together at the
+step level:
+
+  * a placement plan over the parameters *and* the optimizer moments
+    (``plan=``, from :func:`repro_torch.core.tiering.place_state`): REMOTE
+    leaves live in pinned host memory;
+  * the dual-buffer weight stream inside the model's layer loop (prefetch),
+    composed with checkpointing (``remat``);
+  * microbatch gradient accumulation (bounds activation memory);
+  * optional int8 error-feedback gradient compression.
+
+``jax.value_and_grad`` becomes ``torch.autograd.grad`` over the parameters
+kept on the device, and the gradients of REMOTE parameters gather on the
+device through :class:`~repro_torch.core.tiering.RemoteGrads`. The update
+then runs leaf by leaf on the device: a REMOTE parameter and its REMOTE
+moments are fetched through the step's
+:class:`~repro_torch.core.exec.HostFetchEngine`, updated by the same
+:func:`~repro_torch.optim.adamw.leaf_update` as a local leaf, and written
+back in place on the engine's copy stream (DOLMA's commit). Every placement
+and both prefetch settings give ``torch.equal`` losses, gradients and
+updates.
+
+The step runs with ``torch.use_deterministic_algorithms(True,
+warn_only=True)``: the embedding's backward (an index with accumulate)
+adds with atomics on a card otherwise, and run-to-run equality is the
+contract. cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG`` (``":4096:8"``) set
+before its first call for the same: the launcher and ``chip_smoke.py`` set
+it.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.exec import HostFetchEngine, resolve_device
+from repro_torch.core.placement import PlacementPlan
+from repro_torch.core.tiering import RemoteGrads, TieringConfig
+from repro_torch.models import get_model
+from repro_torch.optim import adamw
+from repro_torch.optim.adamw import leaves, unflatten
+from repro_torch.optim.compression import (
+    CompressionConfig,
+    error_feedback_leaf,
+    init_error_feedback,
+)
+from repro_torch.optim.quantized import QTensor
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    remat: str = "full"
+    microbatches: int = 1
+    prefetch: bool = True          # dual-buffer layer-weight prefetch
+    # keep the dual buffer on under remat (the fetches inside the block
+    # boundary: recomputed, not saved), as TieringConfig's knob
+    prefetch_under_remat: bool = True
+    moe_groups: int | None = None
+    compression: CompressionConfig = CompressionConfig()
+    # where params and moments live (None: all on the device); its prefetch
+    # knobs must be the step's own, as :meth:`from_tiering` makes them
+    tiering: TieringConfig | None = None
+
+    def __post_init__(self):
+        t = self.tiering
+        if t is not None and (t.prefetch, t.prefetch_under_remat) != (
+                self.prefetch, self.prefetch_under_remat):
+            raise ValueError(
+                f"TrainStepConfig: tiering's prefetch={t.prefetch}, "
+                f"prefetch_under_remat={t.prefetch_under_remat} disagree with "
+                f"the step's {self.prefetch}, {self.prefetch_under_remat}; "
+                f"build the config with TrainStepConfig.from_tiering")
+
+    @classmethod
+    def from_tiering(cls, tiering: TieringConfig,
+                     **overrides) -> "TrainStepConfig":
+        """Step config whose scan knobs and placement follow ``tiering``
+        (a prefetch knob in ``overrides`` is set in both)."""
+        knobs = {k: overrides.pop(k, getattr(tiering, k))
+                 for k in ("prefetch", "prefetch_under_remat")}
+        return cls(**knobs, tiering=dataclasses.replace(tiering, **knobs),
+                   **overrides)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic kernels for the block (warnings where an op has none),
+    uninitialized memory left unfilled; the previous settings restored."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.utils.deterministic.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.utils.deterministic.fill_uninitialized_memory = prev[2]
+
+
+class _Store:
+    """A placed tree's leaves on the device for the update: a REMOTE leaf
+    is fetched through the engine and its new value written back into the
+    same host tensor; a LOCAL leaf is used and replaced as it is."""
+
+    def __init__(self, plan: PlacementPlan | None,
+                 engine: HostFetchEngine | None):
+        self.remote = frozenset(plan.remote_names()) if plan else frozenset()
+        self.engine = engine
+        self.writes: list = []
+
+    def get(self, name: str, leaf):
+        if isinstance(leaf, QTensor):
+            return QTensor(self.get(name + ".codes", leaf.codes),
+                           self.get(name + ".scale", leaf.scale))
+        if name not in self.remote:
+            return leaf
+        return self.engine.acquire(
+            self.engine.fetch(name, {"x": leaf}, pace=False))["x"]
+
+    def put(self, name: str, leaf, new):
+        if isinstance(leaf, QTensor):
+            return QTensor(self.put(name + ".codes", leaf.codes, new.codes),
+                           self.put(name + ".scale", leaf.scale, new.scale))
+        if name not in self.remote:
+            return new
+        self.writes.append(self.engine.write(name, {"x": new}, pace=False,
+                                             into={"x": leaf}))
+        return leaf
+
+    def wait(self) -> None:
+        """Every write-back has landed (and raised, had it failed)."""
+        for fut in self.writes:
+            fut.result()
+
+
+#: Most elements of one leaf the update takes at once: a larger leaf (a
+#: stacked layer weight) is updated in slices of whole rows along its first
+#: dim, so AdamW's float32 temporaries stay this size (256 MB each) and not
+#: the leaf's. The math is elementwise: the slices give the same bits.
+UPDATE_SLICE = 1 << 26
+
+
+def _row_slices(t: torch.Tensor) -> list[slice]:
+    """Ranges of whole rows of ``t`` along dim 0 of at most
+    :data:`UPDATE_SLICE` elements each (one row at least); one range for a
+    leaf that small or 0-d."""
+    if t.ndim == 0 or t.numel() <= UPDATE_SLICE:
+        return [slice(None)]
+    rows = max(1, UPDATE_SLICE // (t.numel() // t.shape[0]))
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
+def _split(batch: dict, n: int) -> list[dict]:
+    return [{k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+             for k, x in batch.items()} for i in range(n)]
+
+
+def make_value_and_grad(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
+                        *, plan: PlacementPlan | None = None):
+    """Returns ``value_and_grad(params, batch, engine=None) -> (loss,
+    metrics, grads)``, the train step's first half: ``grads`` maps each
+    parameter's keystr to its gradient on the batch's device (float32 and
+    averaged over the microbatches when there are several, as the
+    reference's scan makes them). REMOTE parameters (under ``plan``) are
+    fetched through ``engine``, one of its own if none is given."""
+    model = get_model(model_cfg)
+    n_mb = step_cfg.microbatches
+    remote = frozenset(n[len("params"):] for n in plan.remote_names()
+                       if n.startswith("params")) if plan else frozenset()
+
+    def one(p_req, local, all_leaves, mb, engine, rg):
+        if rg is not None:
+            rg.reset()
+        loss, metrics = model.loss_fn(
+            p_req, mb, model_cfg, remat=step_cfg.remat,
+            prefetch=step_cfg.prefetch,
+            prefetch_under_remat=step_cfg.prefetch_under_remat,
+            moe_groups=step_cfg.moe_groups, plan=plan, engine=engine,
+            remote_grads=rg)
+        inputs = list(local.values()) + ([rg.anchor] if rg else [])
+        got = torch.autograd.grad(loss, inputs, allow_unused=True)
+        grads = {}
+        for (k, t), g in zip(local.items(), got):
+            grads[k] = torch.zeros_like(t) if g is None else g
+        for k in remote:
+            t = all_leaves[k]
+            g = rg.grads.get("params" + k)
+            grads[k] = (torch.zeros(t.shape, dtype=t.dtype, device=loss.device)
+                        if g is None else g)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                grads)
+
+    def value_and_grad(params, batch, engine: HostFetchEngine | None = None):
+        dev = batch["tokens"].device
+        own = engine is None and bool(remote)
+        if own:
+            engine = HostFetchEngine(throttle=0.0, device=dev)
+        try:
+            with deterministic():
+                return _value_and_grad(params, batch, engine, dev)
+        finally:
+            if own:
+                engine.close()
+
+    def _value_and_grad(params, batch, engine, dev):
+        all_leaves = dict(leaves(params))
+        local = {k: t.detach().requires_grad_(True)
+                 for k, t in all_leaves.items() if k not in remote}
+        p_req = unflatten(params, {**all_leaves, **local})
+        rg = RemoteGrads(dev) if remote else None
+        if n_mb == 1:
+            return one(p_req, local, all_leaves, batch, engine, rg)
+        # the reference's scan: float32 zeros, then the losses, metrics
+        # and grads summed over the microbatches in order, scaled by 1/n
+        acc_loss = acc_metrics = None
+        acc = {k: torch.zeros(t.shape, dtype=torch.float32, device=dev)
+               for k, t in all_leaves.items()}
+        for mb in _split(batch, n_mb):
+            loss, metrics, grads = one(p_req, local, all_leaves, mb,
+                                       engine, rg)
+            if acc_loss is None:
+                acc_loss = torch.zeros((), dtype=torch.float32, device=dev)
+                acc_metrics = {k: torch.zeros_like(v)
+                               for k, v in metrics.items()}
+            acc_loss = acc_loss + loss
+            acc_metrics = {k: acc_metrics[k] + v
+                           for k, v in metrics.items()}
+            acc = {k: acc[k] + grads[k] for k in acc}
+        inv = 1.0 / n_mb
+        return (acc_loss * inv,
+                {k: v * inv for k, v in acc_metrics.items()},
+                {k: g * inv for k, g in acc.items()})
+
+    return value_and_grad
+
+
+def make_train_step(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
+                    opt_cfg: adamw.AdamWConfig, *,
+                    plan: PlacementPlan | None = None):
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` on the device of ``batch["tokens"]``.
+
+    ``plan`` is the placement of ``params`` and ``opt_state``
+    (:func:`~repro_torch.core.tiering.place_state`); without one every leaf
+    is where it lies. REMOTE leaves are updated in place (the reference
+    donates its buffers); LOCAL leaves come back as new tensors. Metrics:
+    the loss function's, ``grad_norm``, ``lr`` and ``loss``.
+    """
+    value_and_grad = make_value_and_grad(model_cfg, step_cfg, plan=plan)
+
+    def update_leaf(names, olds, g, s, store: _Store) -> list:
+        """One leaf's (p, m, v) -> the new ones through ``store``, in
+        :func:`_row_slices` when the moments are not int8 (whose
+        quantization blocks span rows): a REMOTE leaf is fetched and
+        written back slice by slice, a LOCAL one assembled into new
+        tensors."""
+        parts = _row_slices(olds[0])
+        if len(parts) == 1 or any(isinstance(t, QTensor) for t in olds):
+            cur = [store.get(n, t) for n, t in zip(names, olds)]
+            new = adamw.leaf_update(opt_cfg, cur[0], g, cur[1], cur[2], s)
+            return [store.put(n, t, x) for n, t, x in zip(names, olds, new)]
+        outs = [t if n in store.remote else torch.empty_like(t)
+                for n, t in zip(names, olds)]
+        for sl in parts:
+            cur = [store.get(n, t[sl]) for n, t in zip(names, olds)]
+            new = adamw.leaf_update(opt_cfg, cur[0], g[sl], cur[1], cur[2],
+                                    s)
+            for n, o, x in zip(names, outs, new):
+                if n in store.remote:
+                    store.put(n, o[sl], x)
+                else:
+                    o[sl] = x
+        return outs
+
+    def update(params, opt_state, grads, store: _Store):
+        """AdamW (after the error feedback, when on) leaf by leaf on the
+        device: :func:`adamw.update`'s math through ``store``. Each leaf's
+        gradient is dropped once the leaf is updated."""
+        new_opt = {}
+        if step_cfg.compression.enabled:
+            ef = {}
+            for k, r in leaves(opt_state["ef"]):
+                name = "opt['ef']" + k
+                grads[k], e = error_feedback_leaf(
+                    grads[k], store.get(name, r), step_cfg.compression.block)
+                ef[k] = store.put(name, r, e)
+            new_opt["ef"] = unflatten(params, ef)
+        step = store.get("opt['step']", opt_state["step"]) + 1
+        gnorm = adamw.global_norm(unflatten(params, grads))
+        s = adamw.step_scalars(opt_cfg, step, gnorm)
+        m_of, v_of = dict(leaves(opt_state["m"])), dict(leaves(opt_state["v"]))
+        new_p, new_m, new_v = {}, {}, {}
+        for k, p in leaves(params):
+            names = ("params" + k, "opt['m']" + k, "opt['v']" + k)
+            new_p[k], new_m[k], new_v[k] = update_leaf(
+                names, (p, m_of[k], v_of[k]), grads.pop(k), s, store)
+        new_opt.update(m=unflatten(params, new_m), v=unflatten(params, new_v),
+                       step=store.put("opt['step']", opt_state["step"], step))
+        return (unflatten(params, new_p), new_opt,
+                {"grad_norm": gnorm, "lr": s["lr"]})
+
+    def train_step(params, opt_state, batch):
+        dev = batch["tokens"].device
+        engine = (HostFetchEngine(throttle=0.0, device=dev)
+                  if plan is not None and plan.remote_names() else None)
+        store = _Store(plan, engine)
+        try:
+            with deterministic():
+                loss, metrics, grads = value_and_grad(params, batch, engine)
+                params, opt_state, opt_metrics = update(
+                    params, opt_state, grads, store)
+            store.wait()
+        finally:
+            if engine is not None:
+                engine.close()
+        return params, opt_state, {**metrics, **opt_metrics, "loss": loss}
+
+    return train_step
+
+
+def init_train_state(gen: torch.Generator, model_cfg: ModelConfig,
+                     step_cfg: TrainStepConfig, opt_cfg: adamw.AdamWConfig, *,
+                     device: str | torch.device = "cuda"):
+    """(params, opt_state) on ``device``: random parameters drawn from
+    ``gen``, zero moments (and the error-feedback buffer when compression
+    is on)."""
+    model = get_model(model_cfg)
+    params = model.init_params(gen, model_cfg, device=resolve_device(device))
+    opt_state = adamw.init(opt_cfg, params)
+    if step_cfg.compression.enabled:
+        opt_state["ef"] = init_error_feedback(params)
+    return params, opt_state
+

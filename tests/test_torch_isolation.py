@@ -40,6 +40,10 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.configs.deepseek_v3_671b\n"
         "import _torch_paging_parity as PG\n"
         "PG.n_hot(32)\n"
+        "import repro_torch.train.loop, repro_torch.train.step\n"
+        "import repro_torch.launch.train, repro_torch.checkpoint.manager\n"
+        "import repro_torch.data.pipeline, repro_torch.optim\n"
+        "import repro_torch.optim.compression, repro_torch.optim.quantized\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))))\n"
@@ -78,3 +82,5 @@ def test_scan_reaches_every_port_package():
     assert ROOT / "src" / "repro_torch" / "hpc" in packages
     assert ROOT / "src" / "repro_torch" / "serving" in packages
     assert ROOT / "src" / "repro_torch" / "launch" in packages
+    for new in ("train", "optim", "data", "checkpoint"):
+        assert ROOT / "src" / "repro_torch" / new in packages

@@ -278,8 +278,9 @@ def test_tiering_rejects_what_waits_for_later_slices():
     # plans are held against the reference's in test_torch_runtime.py)
     auto = plan_for_params(params, config=TieringConfig(local_fraction="auto"))
     assert set(auto.tiers) == {"params['w']"}
-    with pytest.raises(NotImplementedError, match="A9"):
-        plan_for_params(params, config=TieringConfig(), opt_state=params)
+    # optimizer state no longer waits (A9): its leaves join the plan
+    both = plan_for_params(params, config=TieringConfig(), opt_state=params)
+    assert set(both.tiers) == {"params['w']", "opt['w']"}
 
 
 def test_tiered_scan_checks_the_stack():
