@@ -60,8 +60,10 @@ Phases (any failed check raises and exits non-zero):
      forward in float32 over 512 tokens (granite-8b on 2 layers,
      zamba2-1.2b on 12). On granite-8b's weights, ``[engine]``: the port's
      serving layer at full width (below). Then ``[moe]`` (below):
-     deepseek-v3-671b and mixtral-8x7b; then ``[train]`` (below):
-     granite-8b trained at full width, B2's lse and VJP;
+     deepseek-v3-671b and mixtral-8x7b; ``[encdec]`` (below):
+     seamless-m4t-medium whole; then ``[train]`` (below): granite-8b,
+     mamba2-130m, zamba2-1.2b and seamless-m4t-medium trained at full
+     width, B2's lse and VJP, B3's backward;
   6. kernel times at the main paths' shapes (CUDA events), per variant
      (the tensor-core kernel on the path and the FFMA kernel on the same
      bf16 inputs), beside the plain version's, one library call's (none for
@@ -70,10 +72,12 @@ Phases (any failed check raises and exits non-zero):
      and ``ops.ssd_prep``, the prep in front of it; then B2 and B3 at the
      models' shapes (phase 3 checks them there too): B2 at granite-8b's,
      zamba2-1.2b's and deepseek-v3's MLA attention (D 192, Dv 128; both
-     variants, and the backend SDPA picked) through the models' route, B3
-     and ``ops.ssd_prep`` at zamba2-1.2b's scan;
-  7. one JSON line ``{"kernels": [...]}`` (B2's entry with its
-     ``backward``: the route, errors and times of ``[train]``);
+     variants, and the backend SDPA picked) and at seamless-m4t-medium's
+     three attentions (encoder full, decoder causal, cross with Sq 512 and
+     Sk 1024; phase 3 checks them in bf16 and float32) through the models'
+     route, B3 and ``ops.ssd_prep`` at zamba2-1.2b's scan;
+  7. one JSON line ``{"kernels": [...]}`` (B2's and B3's entries with
+     their ``backward``: the route, errors and times of ``[train]``);
   8. the last line, ``{"ok": true, "device": {...}}``.
 
 ``[engine]`` (in phase 5, granite-8b at full width, bf16): two
@@ -105,7 +109,17 @@ degradation, step times and peak memory printed; then in float32, at the
 depth float32 weights fit, the forward against the models' plain flash
 (B2's FFMA kernel) and decode against forward without drops.
 
-``[train]`` (after ``[moe]``): the training path, granite-8b at full
+``[encdec]`` (after ``[moe]``): seamless-m4t-medium whole (12 encoder
+and 12 decoder layers, d_model 1024, 16 heads of 64, vocab 256206) in
+bf16 through ``get_model``'s ``encdec``: ``forward`` over 4 x (1024
+frames, 512 tokens) all local and at host_offload 0.5 and 0.0, prefetch
+on and off, logits ``torch.equal``, 36 B2 launches a forward all through
+wgmma; the path check against the plain flash in float32 at full depth;
+``prefill`` and 64 greedy tokens untiered and at host_offload 0.5, tokens
+and every cache leaf equal; decode against forward in float32 over 2 x
+128 tokens.
+
+``[train]`` (after ``[encdec]``): the training path, granite-8b at full
 width with its depth cut to 4 of 36 layers (``TRAIN``; 1.07 B parameters,
 bf16, AdamW float32 moments, remat "full"). First B2 with its lse and
 its VJP at the train step's attention shape (``TRAIN_FLASH``), in bf16
@@ -124,9 +138,18 @@ gradient and every updated parameter and moment ``torch.equal`` to the
 untiered step's, then the best of 3 step ms, host ms, peak memory, bytes
 local and remote, and B2 launches a step (8: each layer's forward and its
 recompute). Then 10 steps of ``train.loop.train`` on a repeated batch
-must lower the loss; a run of the reduced float32 config killed after its
-checkpoint must resume with the uninterrupted run's losses (``==``); and
-``python -m repro_torch.launch.train --device cuda`` must run 3 steps.
+must lower the loss. Then B2's VJP at zamba2-1.2b's D 64 and at
+seamless-m4t-medium's cross attention; B3's backward (``_B3Function``:
+the plain staged VJP) at mamba2-130m's and zamba2-1.2b's train scans,
+its gradients ``torch.equal`` to plain autograd's, a planted fault (one
+chunk's incoming state dropped) rejected, timed beside its bound;
+mamba2-130m, zamba2-1.2b and seamless-m4t-medium at full width and full
+depth, one step untiered and at host_offload 0.5, all ``torch.equal``,
+their B2 and B3 launches a step as ``step_launches`` counts them; 10
+mamba2-130m steps that must lower the loss; a run of the reduced float32
+config killed after its checkpoint must resume with the uninterrupted run's losses (``==``); and
+``python -m repro_torch.launch.train --device cuda`` must run 3 steps of
+its default, reduced mamba2-130m.
 
 Three checks ride along. ``[serving-bench]`` (after ``[hpc]``):
 ``benchmarks/fig_autoscale.py``'s and ``fig_serving_mt.py``'s loops through
@@ -174,6 +197,9 @@ from profile_models import profiled, report  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.configs.granite_8b import CONFIG as GRANITE_8B  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M  # noqa: E402
+from repro_torch.configs.seamless_m4t_medium import (  # noqa: E402
+    CONFIG as SEAMLESS,
+)
 from repro_torch.configs.zamba2_1_2b import CONFIG as ZAMBA2_1_2B  # noqa: E402
 from repro_torch.core.tiering import (  # noqa: E402
     TieringConfig,
@@ -207,7 +233,8 @@ from repro_torch.kernels.ref import (  # noqa: E402
     reference_attention,
     tolerance_ratio,
 )
-from repro_torch.models import make_batch  # noqa: E402
+from repro_torch.models import get_model, make_batch  # noqa: E402
+from repro_torch.models import encdec as ed  # noqa: E402
 from repro_torch.models import flash as mflash  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
@@ -279,7 +306,19 @@ FLASH_MODELS = {"granite-8b": dict(B=4, H=32, KV=8, S=2048, D=128),
                 # deepseek-v3's MLA prefill: D = 128 nope + 64 rope, Dv 128,
                 # v a slice of the (B, S, H, 128 + 128) up-projection
                 "deepseek-v3-671b MLA": dict(B=4, H=128, KV=128, S=2048,
-                                             D=192, Dv=128)}
+                                             D=192, Dv=128),
+                # seamless-m4t-medium's three attentions ([encdec]'s forward
+                # shapes): full over the 1024 frames, causal over the 512
+                # tokens, and full from the tokens to the frames (Sk), each
+                # checked in float32 (FFMA) too
+                "seamless-m4t-medium encoder": dict(B=4, H=16, KV=16, S=1024,
+                                                    D=64, causal=False,
+                                                    f32=True),
+                "seamless-m4t-medium decoder": dict(B=4, H=16, KV=16, S=512,
+                                                    D=64, f32=True),
+                "seamless-m4t-medium cross": dict(B=4, H=16, KV=16, S=512,
+                                                  Sk=1024, D=64, causal=False,
+                                                  f32=True)}
 BEST_OF = 3
 # the float32 plain-SSD forward's bound, as a share of max(1, max|logits|),
 # float32's bound for decode against forward; why the check is held in
@@ -350,6 +389,35 @@ TRAIN_FLASH = dict(B=2, H=32, KV=8, S=2048, D=128)
 # the restart check at the reduced float32 size (a full-width checkpoint
 # holds 13 GB): 10 steps, a checkpoint every 5, the run killed after step 7
 TRAIN_RESTART = dict(steps=10, ckpt_every=5, kill_at=7, batch=4, seq=64)
+# B2's VJP at the other attention shapes the train steps run: zamba2-1.2b's
+# shared block (D 64) and seamless-m4t-medium's cross attention (Sq != Sk,
+# full), at the train batch of 2
+TRAIN_FLASH_MORE = {
+    "zamba2-1.2b shared block": dict(B=2, H=32, KV=32, S=2048, D=64),
+    "seamless-m4t-medium cross": dict(B=2, H=16, KV=16, S=512, Sk=1024,
+                                      D=64, causal=False)}
+# the SSM, hybrid and enc-dec families trained at full width and full
+# depth, one step per placement (parameters and moments in the plan at
+# 0.5), remat "full": mamba2-130m and zamba2-1.2b over 2 x 2048 tokens,
+# seamless-m4t-medium over 2 x (1024 frames, 512 tokens)
+TRAIN_MODELS = {"mamba2-130m": dict(seq=2048), "zamba2-1.2b": dict(seq=2048),
+                "seamless-m4t-medium": dict(seq=512)}
+TRAIN_MODEL_PLACEMENTS = {
+    "untiered": (TieringConfig(), "full"),
+    "host_offload 0.5": (TieringConfig(mode="host_offload",
+                                       local_fraction=0.5), "full"),
+}
+# B3's backward (the plain staged VJP through _B3Function) at one layer's
+# scan in those train steps (batch 2, 2048 tokens, chunk 256)
+B3_VJP = {"mamba2-130m": dict(B=2, H=24, L=2048, P=64, N=128, chunk=256,
+                              G=1),
+          "zamba2-1.2b": dict(B=2, H=64, L=2048, P=64, N=64, chunk=256, G=1)}
+# [encdec]: seamless-m4t-medium whole (12 encoder and 12 decoder layers,
+# d_model 1024, 16 heads of 64, vocab 256206 padded to 258048), bf16: 4
+# sources of the config's 1024 frames and 4 targets of 512 tokens (a
+# translation's target is shorter than its source); prefill and 64 greedy
+# tokens; decode against forward in float32 over 2 x 128 tokens
+ENCDEC = dict(batch=4, tokens=512, new=64, lanes32=2, tokens32=128)
 
 
 def zero_counts() -> None:
@@ -862,7 +930,7 @@ def forward_with(params, batch, cfg, *, scan=None, flash=None):
     ops.ssd_chunk_scan_gpu = scan or kernels[0]
     mflash._b2 = flash or kernels[1]
     try:
-        return tf.forward(params, batch, cfg)[0]
+        return get_model(cfg).forward(params, batch, cfg)[0]
     finally:
         ops.ssd_chunk_scan_gpu, mflash._b2 = kernels
 
@@ -895,11 +963,12 @@ def n_bytes(params) -> int:
 
 def drive_placements(tag: str, cfg, params, batch,
                      fractions=(1.0, 0.5, 0.0)) -> tuple:
-    """``forward`` with every weight on the card (the oracle), then with
-    the weights placed by ``host_offload`` at each of ``fractions`` below
-    1.0, prefetch on and off; every logits tensor ``torch.equal`` to the
-    oracle. Returns (the oracle on the host, per-placement rows, forwards
-    run)."""
+    """The model's ``forward`` (``get_model(cfg)``) with every weight on
+    the card (the oracle), then with the weights placed by
+    ``host_offload`` at each of ``fractions`` below 1.0, prefetch on and
+    off; every logits tensor ``torch.equal`` to the oracle. Returns (the
+    oracle on the host, per-placement rows, forwards run)."""
+    model = get_model(cfg)
     oracle = None  # on the host, so that no placement's peak includes it
     rows, n_fwd = {}, 0
     for mode, frac in (("none" if f == 1.0 else "host_offload", f)
@@ -912,7 +981,7 @@ def drive_placements(tag: str, cfg, params, batch,
             torch.cuda.reset_peak_memory_stats()
             runs = []
             for _ in range(1 + BEST_OF):  # the first is the warm-up
-                (logits, _), ms, host_ms = timed_ms(lambda: tf.forward(
+                (logits, _), ms, host_ms = timed_ms(lambda: model.forward(
                     placed, batch, cfg, prefetch=prefetch, plan=plan))
                 n_fwd += 1
                 runs.append((ms, host_ms))
@@ -1061,9 +1130,10 @@ def path_check(tag: str, cfg, run: dict, plain: dict, nudged: dict,
     del want, floor
     depth32 = min(depth32, cfg.n_layers)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=depth32)
-    p32 = widened(cut_depth(params, depth32))
+    p32 = widened(params if depth32 == cfg.n_layers
+                  else cut_depth(params, depth32))
     worst, scale, mean, agree = logits_diff(
-        tf.forward(p32, batch, cfg32)[0],
+        get_model(cfg).forward(p32, batch, cfg32)[0],
         forward_with(p32, batch, cfg32, **plain), V)
     require(worst <= PATH_BOUND * max(scale, 1.0),
             f"{tag} f32: {what} forward differs by {worst:.4g} > "
@@ -1102,22 +1172,28 @@ def decode_vs_forward(tag: str, cfg, depth: int, n_tok: int = 512, *,
     """The reference's decode-matches-forward contract at full width in
     float32, ``depth`` layers (a moe model keeps at least one MoE layer):
     token-by-token decode over ``lanes`` x ``n_tok`` tokens against the
-    forward, max|diff| < 1e-3 x max(1, max|logits|). ``params`` are float32
-    weights at that depth (drawn here when None); ``moe_groups`` the
-    decode's MoE dispatch groups."""
+    forward (the enc-dec family's after ``prefill`` of the batch's frames),
+    max|diff| < 1e-3 x max(1, max|logits|). ``params`` are float32 weights
+    at that depth (drawn here when None); ``moe_groups`` the decode's MoE
+    dispatch groups."""
+    model = get_model(cfg)
     depth = min(depth, cfg.n_layers)
     cfg32 = dataclasses.replace(
         cfg, dtype=torch.float32, n_layers=depth,
         first_k_dense=min(cfg.first_k_dense, depth - 1))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    p32 = params if params is not None else tf.init_params(gen, cfg32)
-    tok = make_batch(cfg32, gen, lanes, n_tok)["tokens"]
-    full, _ = tf.forward(p32, {"tokens": tok}, cfg32)
-    cache = tf.init_decode_cache(cfg32, lanes, n_tok)
+    p32 = params if params is not None else model.init_params(gen, cfg32)
+    b = make_batch(cfg32, gen, lanes, n_tok)
+    tok, frames = b["tokens"], b.get("frames")
+    src = {} if frames is None else {"frames": frames}
+    full, _ = model.forward(p32, {"tokens": tok, **src}, cfg32)
+    cache = model.init_decode_cache(cfg32, lanes, n_tok)
+    if frames is not None:
+        cache = model.prefill(p32, cache, frames, cfg32)
     errs = torch.zeros((), device="cuda")
     for t in range(n_tok):
-        lg, cache = tf.decode_step(p32, cache, tok[:, t:t + 1], cfg32,
-                                   moe_groups=moe_groups)
+        lg, cache = model.decode_step(p32, cache, tok[:, t:t + 1], cfg32,
+                                      moe_groups=moe_groups)
         errs = torch.maximum(errs, (lg[:, 0] - full[:, t]).abs().max())
     scale = full[..., :cfg.vocab_size].abs().max().item()
     err = errs.item()
@@ -1428,6 +1504,100 @@ def phase_hybrid() -> dict:
     return run
 
 
+# -- [encdec]: seamless-m4t-medium ---------------------------------------------
+def encdec_greedy(params, cfg, frames, first, n_new: int, plan=None):
+    """``prefill`` of ``frames`` and ``n_new`` greedy tokens after
+    ``first`` (B, 1) through ``encdec.decode_step``, a cache of ``n_new``
+    slots. Returns the tokens, the cache, the prefill ms and each step's
+    (ms, host ms)."""
+    cache = ed.init_decode_cache(cfg, frames.shape[0], n_new)
+    cache, pre_ms, _ = timed_ms(lambda: ed.prefill(params, cache, frames,
+                                                   cfg, plan=plan))
+    cur, out, steps = first, [], []
+    for _ in range(n_new):
+        (logits, cache), *ms = timed_ms(lambda: ed.decode_step(
+            params, cache, cur, cfg, plan=plan))
+        cur = logits[:, :, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        out.append(cur)
+        steps.append(ms)
+    return torch.cat(out, dim=1), cache, pre_ms, steps
+
+
+def phase_encdec(smi: str) -> dict:
+    """``[encdec]``: seamless-m4t-medium whole at full width in bf16,
+    through ``get_model``'s ``encdec``: ``forward`` over 4 x (1024 frames,
+    512 tokens) all local and placed by ``host_offload`` at 0.5 and 0.0,
+    prefetch on and off (logits ``torch.equal``); 36 B2 launches a forward
+    (12 encoder, full; 12 decoder, causal; 12 cross, full with Sq 512 and
+    Sk 1024), every one through wgmma; the path check against the plain
+    flash in float32 at full depth; ``prefill`` and 64 greedy tokens
+    untiered and at host_offload 0.5 (tokens and every cache leaf equal);
+    decode against forward in float32."""
+    cfg = SEAMLESS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = ed.init_params(gen, cfg, device="cpu")
+    batch = make_batch(cfg, gen, ENCDEC["batch"], ENCDEC["tokens"])
+    n_params = sum(t.numel() for _, t in _leaves_with_keys(params))
+    print(f"[encdec] {cfg.name}: {cfg.n_encoder_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.4f} B parameters ({cfg.dtype}, "
+          f"{n_bytes(params) / 1e9:.2f} GB), frames "
+          f"{tuple(batch['frames'].shape)}, tokens "
+          f"{tuple(batch['tokens'].shape)}, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    per_forward = cfg.n_encoder_layers + 2 * cfg.n_layers
+    zero_counts()
+    oracle, rows, n_fwd = drive_placements("encdec", cfg, params, batch)
+    launches, variants = counts(), dict(fa.VARIANT_LAUNCHES)
+    want = {name: per_forward * n_fwd if name == "flash_attention" else 0
+            for name in launches}
+    print(f"[encdec] launches over {n_fwd} forwards: {launches}; flash by "
+          f"variant {variants}")
+    require(launches == want, f"[encdec] launches {launches}, expected "
+                              f"{want} ({per_forward} B2 a forward)")
+    require(variants["ffma"] == 0, f"[encdec] flash launches {variants}, "
+                                   f"expected every one through wgmma")
+    params = place_params(params, TieringConfig())[0]
+    run = {"params": params, "batch": batch, "oracle": oracle.cuda()}
+    path_check("encdec", cfg, run, {"flash": mflash.blocked_flash},
+               {"flash": nudged_kernels()["flash"]}, "plain-flash",
+               "the attention output nudged by 2^-9", cfg.n_layers)
+    del run, oracle
+    torch.cuda.empty_cache()
+
+    first = batch["tokens"][:, :1]
+    toks, cache, pre_ms, steps = encdec_greedy(params, cfg, batch["frames"],
+                                               first, ENCDEC["new"])
+    placed, plan = place_params(params, TieringConfig(
+        mode="host_offload", local_fraction=0.5))
+    toks_t, cache_t, pre_t, steps_t = encdec_greedy(
+        placed, cfg, batch["frames"], first, ENCDEC["new"], plan=plan)
+    require(torch.equal(toks, toks_t),
+            "[encdec] host_offload 0.5 greedy tokens != untiered")
+    for k in ("k", "v", "ck", "cv", "pos"):
+        require(torch.equal(cache[k], cache_t[k]),
+                f"[encdec] host_offload 0.5 cache[{k!r}] != untiered")
+    for label, pms, st in (("untiered", pre_ms, steps),
+                           ("host_offload 0.5", pre_t, steps_t)):
+        steady = sorted(st[1:])
+        med = steady[len(steady) // 2]
+        print(f"[encdec] serve {label}: prefill (encoder + 12 layers' cross "
+              f"K/V) {pms:.3f} ms, {len(st)} greedy steps, median "
+              f"{med[0]:.3f} ms ({med[1]:.3f} ms on the host before the "
+              f"synchronise), min {steady[0][0]:.3f} ms")
+    print(f"[encdec] greedy tokens and every cache leaf torch.equal across "
+          f"placements; tokens {toks[0, :8].tolist()}...")
+    del placed, cache, cache_t
+    torch.cuda.empty_cache()
+    decode_vs_forward("encdec", cfg, cfg.n_layers, ENCDEC["tokens32"],
+                      params=widened(params), lanes=ENCDEC["lanes32"])
+    del params, batch
+    release_memory()
+    print(f"[encdec] {smi}")
+    return {"launches": launches, "forwards": n_fwd, "rows": rows}
+
+
 # -- [moe]: deepseek-v3 and mixtral-8x7b -----------------------------------------
 def mem_available_gb() -> float:
     """The host's ``MemAvailable`` (``/proc/meminfo``) in GB."""
@@ -1623,13 +1793,13 @@ def phase_moe(smi: str) -> dict:
 
 
 # -- [train]: granite-8b trained at full width ----------------------------------
-def b2_backward_bound(q, k, v) -> tuple[float, str]:
-    """The backward's bound over (B, H, S, D) q, causal: five products
-    against the forward's two (S and dP recomputed, dV, dQ, dK), 2.5 x its
+def b2_backward_bound(q, k, v, causal: bool = True) -> tuple[float, str]:
+    """The backward's bound over (B, H, Sq, D) q: five products against
+    the forward's two (S and dP recomputed, dV, dQ, dK), 2.5 x its
     operations; q, k, v, o, do and the lse read once, dq, dk, dv written."""
     B, H, S, D = q.shape
     Dv = v.shape[3]
-    fwd_flops = B * H * S * (S + 1) / 2 * 2.0 * (D + Dv)
+    fwd_flops = B * H * live_pairs(S, k.shape[2], causal) * 2.0 * (D + Dv)
     nbytes = ((2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                + 2 * B * H * S * Dv) * q.element_size() + B * H * S * 4)
     return bound(2.5 * fwd_flops, nbytes, PEAK_FLOPS[q.dtype])
@@ -1670,37 +1840,39 @@ def plain_dq(qt, kt, vt, o, lse, dot, scale: float, exact: bool):
     return dq.reshape(B, H, S, D).transpose(1, 2)
 
 
-def check_b2_vjp(dtype) -> dict:
-    """B2 with its lse and its VJP at granite-8b's attention shape in the
-    train step (causal, in the models' (B, S, H, D) layout): o bit-identical
-    to the launch without the lse; the lse against ``_fwd_all``'s on the
-    same inputs in float32 (``FLASH_TOL`` float32: the kernel's scores are
-    float32 products of the same values); dq, dk and dv of the B2 Function
-    (``flash_attention`` on the card) against ``blocked_flash``'s autograd
-    on the card, within ``FLASH_TOL`` for ``dtype``. In bf16 dq's bound
-    adds o's rounding through delta (:func:`flash_dq_rounding_bound`, from
-    the plain side's o), the share of dq's gap each rounding leaves is
-    printed, and two planted faults, dk and dq each with one 128-key
-    tile's contribution dropped, must fail."""
-    sh = TRAIN_FLASH
+def check_b2_vjp(dtype, sh: dict = TRAIN_FLASH) -> dict:
+    """B2 with its lse and its VJP at a train step's attention shape
+    ``sh`` (granite-8b's by default; ``TRAIN_FLASH_MORE``'s), in the
+    models' (B, S, H, D) layout: o bit-identical to the launch without the
+    lse; the lse against ``_fwd_all``'s on the same inputs in float32
+    (``FLASH_TOL`` float32: the kernel's scores are float32 products of
+    the same values); dq, dk and dv of the B2 Function (``flash_attention``
+    on the card) against ``blocked_flash``'s autograd on the card, within
+    ``FLASH_TOL`` for ``dtype``. In bf16 dq's bound adds o's rounding
+    through delta (:func:`flash_dq_rounding_bound`, from the plain side's
+    o), and the forward, the plain backward and SDPA are timed; at
+    ``TRAIN_FLASH`` the share of dq's gap each rounding leaves is printed,
+    and two planted faults, dk and dq each with one 128-key tile's
+    contribution dropped, must fail."""
     B, H, KV, S, D = (sh[k] for k in ("B", "H", "KV", "S", "D"))
+    Sk, causal = sh.get("Sk", S), sh.get("causal", True)
     rng = np.random.default_rng(12)
     q, k, v, do = (rand(rng, shape, dtype) for shape in (
-        (B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+        (B, S, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, S, H, D)))
     scale = 1.0 / math.sqrt(D)
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
-    what = f"B2 B{B} H{H} KV{KV} S{S} D{D} causal {dtype} " \
+    what = f"B2 {shape_label(q, k, v, causal)} {dtype} " \
            f"{fa._variant(dtype, D, D)}"
 
     def launch(with_lse: bool):
-        return fa._launch(qt, kt, vt, causal=True, window=None, scale=scale,
-                          with_lse=with_lse)
+        return fa._launch(qt, kt, vt, causal=causal, window=None,
+                          scale=scale, with_lse=with_lse)
 
     o, lse = launch(True)
     require(torch.equal(o, launch(False)),
             f"{what}: o with the lse differs from o without it")
-    spec = mflash.MaskSpec(causal=True)
-    block_k = min(mflash.DEFAULT_BLOCK_K, S)
+    spec = mflash.MaskSpec(causal=causal)
+    block_k = min(mflash.DEFAULT_BLOCK_K, Sk)
     _, lse32 = mflash._fwd_all(
         qt.float().reshape(B, KV, H // KV, S, D), kt.float(), vt.float(),
         spec, scale, block_k, mflash.DEFAULT_STRIPS)
@@ -1714,8 +1886,9 @@ def check_b2_vjp(dtype) -> dict:
         ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         return torch.autograd.grad(fn(*ins), ins, do)
 
-    got = grads(lambda a, b, c: mflash.flash_attention(a, b, c, causal=True))
-    want = grads(lambda a, b, c: mflash.blocked_flash(a, b, c, causal=True))
+    got = grads(lambda a, b, c: mflash.flash_attention(a, b, c,
+                                                       causal=causal))
+    want = grads(lambda a, b, c: mflash.blocked_flash(a, b, c, causal=causal))
     dq_extra = None
     if dtype == torch.bfloat16:
         # the plain side's own o and lse, in its (B,H,S,·) layout
@@ -1725,7 +1898,7 @@ def check_b2_vjp(dtype) -> dict:
                                       mflash.DEFAULT_STRIPS))
         # dq also carries o's rounding through delta = sum(do * o)
         dq_extra = flash_dq_rounding_bound(q, k, o_p.transpose(1, 2), do,
-                                           scale=scale)
+                                           causal=causal, scale=scale)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         extra = dq_extra if name == "dq" else None
         out[name] = max_err(g, w, FLASH_TOL[dtype],
@@ -1734,7 +1907,7 @@ def check_b2_vjp(dtype) -> dict:
                             f"blocked_flash's autograd"
                             + (", bound + o's rounding through delta"
                                if extra is not None else ""), extra)
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and sh is TRAIN_FLASH:
         # dq's gap taken apart: the plain side's dq with one of the two
         # roundings it differs in made B2's (worst share of the plain bound)
         plain = {
@@ -1768,9 +1941,10 @@ def check_b2_vjp(dtype) -> dict:
                      is not None else "")
                   + f": {bad} of {faulty.numel()} elements beyond the "
                   f"bound, rejected")
+    if dtype == torch.bfloat16:
         del dq_extra, o_p, lse_p
-        fb, fby = flash_bound(qt, kt, vt)
-        bb, bby = b2_backward_bound(qt, kt, vt)
+        fb, fby = flash_bound(qt, kt, vt, causal)
+        bb, bby = b2_backward_bound(qt, kt, vt, causal)
         k_rep, v_rep = (t.detach().requires_grad_(True)
                         for t in gqa_repeated(qt, kt, vt))
         q_req = qt.detach().requires_grad_(True)
@@ -1783,13 +1957,14 @@ def check_b2_vjp(dtype) -> dict:
             "no_lse_ms": (turns[0] + turns[3]) / 2,
             "bound_ms": fb, "bound_by": fby,
             "backward_ms": time_ms(lambda: fa._plain_bwd(
-                qt, kt, vt, o, lse, dot, causal=True, window=None,
+                qt, kt, vt, o, lse, dot, causal=causal, window=None,
                 scale=scale), 3),
             "backward_bound_ms": bb, "backward_bound_by": bby,
             "sdpa_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
-                sdpa(q_req, k_rep, v_rep, is_causal=True),
+                sdpa(q_req, k_rep, v_rep, is_causal=causal),
                 [q_req, k_rep, v_rep], dot), 10),
-            "sdpa_backend": sdpa_backend(qt, k_rep, v_rep),
+            "sdpa_backend": sdpa_backend(qt, k_rep, v_rep, causal),
+            "shape": shape_label(q, k, v, causal) + " bf16",
         }
         t = out["times"]
         print(f"[time] B2 in the train step ({what}): forward with lse "
@@ -1813,13 +1988,13 @@ class RepeatedBatch:
         return self.dataset.batch_at(0)
 
 
-def saved_by_forward(fn):
-    """``fn()`` with the models' ``loss_fn`` wrapped so that a hook on the
+def saved_by_forward(fn, model=tf):
+    """``fn()`` with ``model``'s ``loss_fn`` wrapped so that a hook on the
     loss reads the device memory allocated when the backward starts:
     returns (``fn()``, those bytes). Less what was allocated before
     ``fn``, that is what the forward saved for the backward."""
     seen = []
-    loss_fn = tf.loss_fn
+    loss_fn = model.loss_fn
 
     def hooked(*args, **kw):
         loss, metrics = loss_fn(*args, **kw)
@@ -1827,11 +2002,11 @@ def saved_by_forward(fn):
             lambda g: seen.append(torch.cuda.memory_allocated()))
         return loss, metrics
 
-    tf.loss_fn = hooked
+    model.loss_fn = hooked
     try:
         out = fn()
     finally:
-        tf.loss_fn = loss_fn
+        model.loss_fn = loss_fn
     require(len(seen) == 1, f"[train] the loss hook ran {len(seen)} times")
     return out, seen[0]
 
@@ -1839,42 +2014,66 @@ def saved_by_forward(fn):
 def profile_step(label: str, step, state: tuple, batch, step_ms: float):
     """One step under ``torch.profiler`` (device time by category, idle
     share against ``step_ms``, the unprofiled step), after one unprofiled
-    step in which CUDA events bracket every call of B2's plain backward:
-    its time in the step. Returns the new state and the numbers."""
-    spans = []
-    plain = fa._plain_bwd
+    step in which CUDA events bracket every call of the whole backward of
+    B2's and B3's autograd Functions (``_B2Function.backward``, the plain
+    ``_plain_bwd``; ``_B3Function.backward``, the plain staged scan
+    recomputed and its ``autograd.grad``): their time in the step. Returns
+    the new state and the numbers."""
+    spans = {"B2": [], "B3": []}
+    funcs = {"B2": fa._B2Function, "B3": ssd._B3Function}
+    # the staticmethod objects themselves, put back as they were
+    saved = {k: f.__dict__["backward"] for k, f in funcs.items()}
 
-    def timed(*args, **kw):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = plain(*args, **kw)
-        ev[1].record()
-        spans.append(ev)
-        return out
+    def timed(kernel: str):
+        backward = saved[kernel].__func__
 
-    fa._plain_bwd = timed
+        def call(ctx, *grads):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = backward(ctx, *grads)
+            ev[1].record()
+            spans[kernel].append(ev)
+            return out
+        return staticmethod(call)
+
+    for k, f in funcs.items():
+        f.backward = timed(k)
     try:
         (params, opt, _), ms, _ = timed_ms(lambda: step(*state, batch))
     finally:
-        fa._plain_bwd = plain
-    bwd_ms = sum(a.elapsed_time(b) for a, b in spans)
+        for k, f in funcs.items():
+            f.backward = saved[k]
+    bwd = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
     box = {}
     wall, kernels = profiled(
         lambda: box.update(out=step(params, opt, batch)))
     report(f"train step {label}", wall, kernels)
     dev_ms = sum(t for t, _ in kernels.values())
-    fwd_ms = sum(t for name, (t, _) in kernels.items() if "flash" in name)
+    fwd = {"B2": sum(t for name, (t, _) in kernels.items() if "flash" in name),
+           "B3": sum(t for name, (t, _) in kernels.items() if "ssd_" in name)}
     print(f"[train] step {label} taken apart: device {dev_ms:.3f} ms (sum of "
           f"kernels under the profiler) against the unprofiled {step_ms:.3f} "
           f"ms best step, idle share {max(0.0, 1 - dev_ms / step_ms):.2%}; "
-          f"B2 forwards {fwd_ms:.3f} ms ({fwd_ms / step_ms:.2%}); B2's plain "
-          f"backward {bwd_ms:.3f} ms over {len(spans)} calls "
-          f"({bwd_ms / ms:.2%} of that step's {ms:.3f} ms, CUDA events "
-          f"around each call)")
+          + "; ".join(
+              f"{k} forwards {fwd[k]:.3f} ms ({fwd[k] / step_ms:.2%}), {k}'s "
+              f"plain backward {bwd[k]:.3f} ms over {len(spans[k])} calls "
+              f"({bwd[k] / ms:.2%} of that step's {ms:.3f} ms)"
+              for k in spans if spans[k] or fwd[k])
+          + " (CUDA events around each call of the Function's backward)")
     return box["out"], {"device_ms": dev_ms, "idle_share":
                         max(0.0, 1 - dev_ms / step_ms),
-                        "b2_forward_ms": fwd_ms, "b2_backward_ms": bwd_ms,
+                        "b2_forward_ms": fwd["B2"], "b2_backward_ms": bwd["B2"],
+                        "b3_forward_ms": fwd["B3"], "b3_backward_ms": bwd["B3"],
+                        "b3_backward_calls": len(spans["B3"]),
                         "bracketed_step_ms": ms}
+
+
+def depth_label(cfg) -> str:
+    """The layers of ``cfg``: the encoder's and the decoder's for the
+    enc-dec family."""
+    if cfg.n_encoder_layers:
+        return f"{cfg.n_encoder_layers} + {cfg.n_layers}"
+    return str(cfg.n_layers)
 
 
 def train_placement(label: str, cfg, host_params, batch, opt_cfg,
@@ -1886,12 +2085,13 @@ def train_placement(label: str, cfg, host_params, batch, opt_cfg,
     placement's, returned when ``base`` is None); the bytes the forward
     saved for the backward; then 1 + BEST_OF more steps, the best of the
     last BEST_OF timed (and with ``profile``, :func:`profile_step`)."""
-    tag = f"{label} ({cfg.n_layers} layers)"
+    tag = f"{label} ({cfg.name}, {depth_label(cfg)} layers)"
     params = map_leaves(lambda _k, t: t.to("cuda"), host_params)
     opt = adamw.init(opt_cfg, params)
     params, opt, plan = place_state(params, opt, tiering)
     streamed = sorted(n for n in plan.remote_names()
-                      if n.startswith("params['layers']")) if plan else []
+                      if re.match(r"params\['(\w+_)?layers'\]", n)
+                      ) if plan else []
     layer_bytes = sum(t[0].nbytes for k, t in _leaves_with_keys(params)
                       if "params" + k in streamed)
     step_cfg = TrainStepConfig.from_tiering(tiering, remat=remat)
@@ -1899,7 +2099,8 @@ def train_placement(label: str, cfg, host_params, batch, opt_cfg,
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     (loss, _, grads), at_bwd = saved_by_forward(
-        lambda: make_value_and_grad(cfg, step_cfg, plan=plan)(params, batch))
+        lambda: make_value_and_grad(cfg, step_cfg, plan=plan)(params, batch),
+        get_model(cfg))
     saved = at_bwd - before
     first = base is None
     if first:  # on the host, out of every later placement's peak
@@ -1953,7 +2154,8 @@ def train_placement(label: str, cfg, host_params, batch, opt_cfg,
           + f", peak {peak:.3f} GiB ({first_peak:.3f} over the first "
           f"forward, backward and step), saved by the forward "
           f"{saved / 2**30:.3f} GiB, B2 launches a step "
-          f"{launches['flash_attention']}, loss {loss.item():.6f}"
+          f"{launches['flash_attention']}, B3 {launches['ssd_scan']}, loss "
+          f"{loss.item():.6f}"
           + ("" if label == "untiered" else
              ", loss, grads, params and moments torch.equal to untiered")
           + f"; {smi}")
@@ -1977,11 +2179,15 @@ def train_leg(cfg, placements: dict, batch, opt_cfg, smi: str,
     all held to the first; ``profile`` names the placement to profile."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     host_params = map_leaves(lambda _k, t: t.cpu(),
-                             tf.init_params(gen, cfg))
+                             get_model(cfg).init_params(gen, cfg))
     n_params = sum(t.numel() for _, t in _leaves_with_keys(host_params))
-    print(f"[train] {cfg.name} at full width, {cfg.n_layers} of "
-          f"{GRANITE_8B.n_layers} layers: {n_params / 1e9:.3f} B parameters,"
-          f" batch {TRAIN['batch']} x {TRAIN['seq']}, {cfg.dtype}, AdamW "
+    depth = (depth_label(cfg) if cfg.n_encoder_layers else
+             f"{cfg.n_layers} of {get_config(cfg.name).n_layers}")
+    frames = (f", frames {tuple(batch['frames'].shape)}" if "frames" in batch
+              else "")
+    print(f"[train] {cfg.name} at full width, {depth} layers: "
+          f"{n_params / 1e9:.3f} B parameters, tokens "
+          f"{tuple(batch['tokens'].shape)}{frames}, {cfg.dtype}, AdamW "
           f"float32 moments")
     rows, base = {}, None
     for label, (tiering, remat) in placements.items():
@@ -2031,17 +2237,157 @@ def check_nesting(cfg, rows: dict) -> None:
               f"{cfg.n_layers * row['layer_bytes'] / 2**30:.3f} GiB a pass")
 
 
+def layers_run_in_a_step(n_layers: int) -> list[int]:
+    """The layer indices a remat "full" step runs, in order: the forward;
+    with nested checkpoints (``min_layers`` 12 and above: ``_block_split``'s
+    blocks) each block's recompute, which stops before its last layer (a
+    recompute stops once it has what the backward needs); and each
+    layer's own recompute. 33 at 12 layers, as granite-8b's 12-layer step
+    measured; 2 x ``n_layers`` below 12."""
+    n_outer, n_inner = ((n_layers, 1) if n_layers < 12
+                        else _block_split(n_layers))
+    outer = [b * n_inner + j for b in range(n_outer)
+             for j in range(n_inner - 1)]
+    return [*range(n_layers), *outer, *range(n_layers)]
+
+
+def step_launches(cfg) -> dict:
+    """B2 and B3 launches a remat "full" train step of ``cfg`` makes
+    (:func:`layers_run_in_a_step` over each layer loop): an SSM layer one
+    B3, the hybrid's shared block one B2 after every ``hybrid_attn_every``
+    layers, a dense or encoder layer one B2, a decoder layer two."""
+    run = layers_run_in_a_step(cfg.n_layers)
+    if cfg.family == "encdec":
+        enc = layers_run_in_a_step(cfg.n_encoder_layers)
+        return {"flash_attention": len(enc) + 2 * len(run), "ssd_scan": 0}
+    if cfg.family in ("ssm", "hybrid"):
+        every = cfg.hybrid_attn_every
+        shared = sum(1 for i in run if every and (i + 1) % every == 0)
+        return {"flash_attention": shared, "ssd_scan": len(run)}
+    return {"flash_attention": len(run), "ssd_scan": 0}
+
+
+def staged_dropping_state(xc, bc, cc, dtc, cum, drop: int) -> torch.Tensor:
+    """The plain staged scan with the state entering chunk ``drop`` zeroed:
+    a backward built on it drops that chunk's incoming state from the
+    VJP."""
+    entering, _ = ssd.ssd_state_passing_plain(
+        ssd.ssd_chunk_state_plain(xc, bc, dtc, cum), cum)
+    keep = torch.ones(entering.shape[2], device=xc.device)
+    keep[drop] = 0.0
+    return ssd.ssd_chunk_output_plain(xc, bc, cc, dtc, cum,
+                                      entering * keep[:, None, None])
+
+
+def check_b3_vjp(label: str, dims: dict) -> dict:
+    """B3 under autograd at one layer's scan in a train step (``dims``):
+    the Function's (``ssd_chunk_scan_gpu`` of grad-requiring inputs)
+    gradients of all five inputs, given a fixed dy, ``torch.equal`` to
+    plain autograd's through ``ssd_staged_plain`` at the same inputs, the
+    check the train steps' gradients are held to; its y within
+    ``SSD_TOL`` of the plain scan's; a planted fault (the backward built on
+    a scan that drops one chunk's incoming state) rejected by the same
+    check. Times the backward (the plain staged VJP, its forward
+    recomputed, as ``_B3Function.backward`` runs it) beside its bound:
+    twice the forward's operations at the 3xTF32 rate B3 uses (and at the
+    CUDA cores' float32, whose einsums the plain VJP runs), or the five
+    inputs and dy read and five gradients written."""
+    rng = np.random.default_rng(13)
+    chunks = ssd_chunks(rng, **dims)
+    dy = torch.randn(chunks[0].shape, generator=torch.Generator(
+        device="cuda").manual_seed(14), device="cuda")
+    shape = " ".join(f"{k}{v}" for k, v in dims.items()) + " float32"
+
+    def grads(fn):
+        ins = [t.detach().clone().requires_grad_(True) for t in chunks]
+        y = fn(*ins)
+        return y, torch.autograd.grad(y, ins, dy)
+
+    y, got = grads(ssd.ssd_chunk_scan_gpu)
+    y_p, want = grads(ssd.ssd_staged_plain)
+    err = max_err(y, y_p, SSD_TOL, f"B3 Function forward at {label}'s train "
+                                   f"scan {shape} against the plain scan")
+    names = ("xc", "bc", "cc", "dtc", "cum")
+    for name, g, w in zip(names, got, want):
+        require(bool(torch.isfinite(g).all()),
+                f"B3 VJP at {label}: d{name} is not finite")
+        require(torch.equal(g, w), f"B3 VJP at {label}: d{name} != plain "
+                                   f"autograd's")
+    grad_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    print(f"[check] B3 VJP at {label}'s train scan {shape}: the Function's "
+          f"gradients of {', '.join(names)} torch.equal to plain autograd's "
+          f"through ssd_staged_plain (max|d| "
+          + ", ".join(f"{g.abs().max().item():.4g}" for g in got) + ")")
+    drop = chunks[0].shape[2] // 2
+    plain = ssd.ssd_staged_plain
+    ssd.ssd_staged_plain = lambda *a: staged_dropping_state(*a, drop=drop)
+    try:
+        _, faulty = grads(ssd.ssd_chunk_scan_gpu)
+    finally:
+        ssd.ssd_staged_plain = plain
+    bad = {name: int((g != w).sum()) for name, g, w in
+           zip(names, faulty, want)}
+    require(any(bad.values()), "the check passes a planted fault: B3's VJP "
+                               f"without chunk {drop}'s incoming state")
+    print(f"[fault] B3 VJP without chunk {drop}'s incoming state at "
+          f"{label}: elements unequal to plain autograd's {bad}, rejected")
+    del faulty, y, y_p
+    ins = [t.detach().clone().requires_grad_(True) for t in chunks]
+    flops, nbytes = ssd_work(chunks)
+    vjp_bytes = 2 * nbytes  # the inputs and dy read, the five grads written
+    b_tf32, by = bound(2 * TF32_PASSES * flops, vjp_bytes, PEAK_FLOPS["tf32"])
+    b_f32, _ = bound(2 * flops, vjp_bytes, PEAK_FLOPS[torch.float32])
+    ms = time_ms(lambda: torch.autograd.grad(ssd.ssd_staged_plain(*ins), ins,
+                                             dy), 3)
+    print(f"[time] B3 backward (the plain staged VJP through _B3Function) at "
+          f"{label}'s train scan {shape}: {ms:.4f} ms; bound {b_tf32:.4f} ms "
+          f"({by}, 2 x the forward's operations at 3xTF32), {b_f32:.4f} ms at "
+          f"the CUDA cores' float32; library none")
+    torch.cuda.synchronize()
+    # the gradients' error (torch.equal, so 0); the Function's y against the
+    # plain scan's apart
+    return {"max_abs_err": grad_err, "forward_max_abs_err": err,
+            "ms": ms, "bound_ms": b_tf32,
+            "bound_by": by, "bound_f32_ms": b_f32, "library_ms": None,
+            "shape": shape}
+
+
+def check_learning(cfg, data) -> None:
+    """``TRAIN_LEARN``'s steps of ``train.loop.train`` on ``data``'s step-0
+    batch repeated: the mean of the last 3 losses below the first 3's."""
+    learn = train(cfg, TrainStepConfig(), AdamWConfig(
+        lr=TRAIN_LEARN["lr"], warmup_steps=0),
+        LoopConfig(steps=TRAIN_LEARN["steps"], batch=data.batch,
+                   seq=data.seq, log_every=5), device="cuda",
+        dataset=RepeatedBatch(data))
+    first, last = np.mean(learn.losses[:3]), np.mean(learn.losses[-3:])
+    require(last < first, f"[train] {cfg.name}: no learning: {first} -> "
+                          f"{last}")
+    print(f"[train] {TRAIN_LEARN['steps']} steps of train.loop.train of "
+          f"{cfg.name} ({cfg.n_layers} layers) on a repeated batch: losses "
+          f"{[round(x, 4) for x in learn.losses]}; mean of the first 3 "
+          f"{first:.4f}, of the last 3 {last:.4f}; step ms median "
+          f"{1e3 * float(np.median(learn.step_times)):.1f}")
+    torch.cuda.empty_cache()
+
+
 def phase_train(smi: str) -> dict:
     """``[train]``: B2's lse and VJP at granite-8b's attention shape (bf16
-    and float32) with planted faults; granite-8b at full width one step
-    under each of ``TRAIN_PLACEMENTS`` (4 layers; the untiered step
-    profiled) and ``TRAIN_DEEP_PLACEMENTS`` (12 layers, where remat nests:
-    :func:`check_nesting`), each leg all ``torch.equal``; 10 steps of
-    ``train.loop.train`` on a repeated batch must lower the loss; a run
+    and float32) with planted faults, and at ``TRAIN_FLASH_MORE``'s;
+    granite-8b at full width one step under each of ``TRAIN_PLACEMENTS``
+    (4 layers; the untiered step profiled) and ``TRAIN_DEEP_PLACEMENTS``
+    (12 layers, where remat nests: :func:`check_nesting`), each leg all
+    ``torch.equal``; B3's backward at ``B3_VJP``'s scans with a planted
+    fault; mamba2-130m, zamba2-1.2b and seamless-m4t-medium at full width
+    and full depth one step under each of ``TRAIN_MODEL_PLACEMENTS``, all
+    ``torch.equal``, B2 and B3 launches a step as
+    :func:`step_launches` counts them; 10 steps of ``train.loop.train`` on
+    a repeated batch must lower the loss (granite-8b, mamba2-130m); a run
     killed after its checkpoint resumes with equal losses, untiered and at
     host_offload 0.5 (the reduced float32 config); ``python -m
-    repro_torch.launch.train --device cuda`` runs at its default (reduced)
-    size. Returns the untiered step's launches and B2's backward numbers."""
+    repro_torch.launch.train --device cuda`` runs at its default (reduced
+    mamba2-130m). Returns the untiered steps' launches and the backward
+    numbers of B2 and B3."""
     t0 = time.perf_counter()
     print(f"[train] on the card before the phase: "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
@@ -2060,19 +2406,40 @@ def phase_train(smi: str) -> dict:
     deep = dataclasses.replace(GRANITE_8B, n_layers=TRAIN_DEEP["n_layers"])
     deep_rows = train_leg(deep, TRAIN_DEEP_PLACEMENTS, batch, opt_cfg, smi)
     check_nesting(deep, deep_rows)
+    check_learning(cfg, data)
+    del batch
 
-    learn = train(cfg, TrainStepConfig(), AdamWConfig(
-        lr=TRAIN_LEARN["lr"], warmup_steps=0),
-        LoopConfig(steps=TRAIN_LEARN["steps"], batch=TRAIN["batch"],
-                   seq=TRAIN["seq"], log_every=5), device="cuda",
-        dataset=RepeatedBatch(data))
-    first, last = np.mean(learn.losses[:3]), np.mean(learn.losses[-3:])
-    require(last < first, f"[train] no learning: {first} -> {last}")
-    print(f"[train] {TRAIN_LEARN['steps']} steps of train.loop.train on a "
-          f"repeated batch: losses {[round(x, 4) for x in learn.losses]}; "
-          f"mean of the first 3 {first:.4f}, of the last 3 {last:.4f}; step "
-          f"ms median {1e3 * float(np.median(learn.step_times)):.1f}")
-    torch.cuda.empty_cache()
+    vjp_more = {label: {dt: check_b2_vjp(dt, sh)
+                        for dt in (torch.bfloat16, torch.float32)}
+                for label, sh in TRAIN_FLASH_MORE.items()}
+    b3_vjp = {label: check_b3_vjp(label, dims)
+              for label, dims in B3_VJP.items()}
+    release_memory()
+    model_rows = {}
+    for name, spec in TRAIN_MODELS.items():
+        mcfg = get_config(name)
+        mdata = SyntheticTokenDataset(mcfg, TRAIN["batch"], spec["seq"],
+                                      seed=0)
+        mrows = train_leg(mcfg, TRAIN_MODEL_PLACEMENTS, to_device_fn(
+            "cuda", mcfg.dtype)(mdata.batch_at(0)), opt_cfg, smi,
+            profile="untiered")
+        got = mrows["untiered"]["launches"]
+        want = step_launches(mcfg)
+        require({k: got[k] for k in want} == want,
+                f"[train] {name}: launches a step {got}, expected {want}")
+        print(f"[train] {name}: launches a step {want} as counted "
+              f"(forward, each nested block's recompute up to its last "
+              f"layer, each layer's recompute)")
+        # one backward call per SSM layer, however often its forward ran
+        calls = mrows["untiered"]["profile"]["b3_backward_calls"]
+        ssm_layers = mcfg.n_layers if want["ssd_scan"] else 0
+        require(calls == ssm_layers,
+                f"[train] {name}: B3's backward ran {calls} times in the "
+                f"profiled step, expected {ssm_layers} (one per SSM layer)")
+        model_rows[name] = mrows
+        if name == "mamba2-130m":
+            check_learning(mcfg, mdata)
+        release_memory()
 
     small = reduced_config(GRANITE_8B, dtype=torch.float32)
     rs = TRAIN_RESTART
@@ -2121,12 +2488,16 @@ def phase_train(smi: str) -> dict:
                          env=env, capture_output=True, text=True, timeout=600)
     require(run.returncode == 0, f"[train] launch.train failed:\n"
             f"{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
+    require("arch=mamba2-130m" in run.stdout,
+            f"[train] launch.train did not run its default, mamba2-130m:\n"
+            f"{run.stdout[-2000:]}")
     print(f"[train] python -m repro_torch.launch.train --device cuda "
           f"--steps 3: {run.stdout.strip().splitlines()[-1]} "
           f"({time.perf_counter() - t_l:.1f} s with the process start)")
     print(f"[train] done in {time.perf_counter() - t0:.1f} s; {smi}")
     return {"launches": rows["untiered"]["launches"], "rows": rows,
-            "deep_rows": deep_rows, "vjp": vjp}
+            "deep_rows": deep_rows, "vjp": vjp, "vjp_more": vjp_more,
+            "b3_vjp": b3_vjp, "model_rows": model_rows}
 
 
 # -- 6. kernel times ----------------------------------------------------------
@@ -2220,15 +2591,20 @@ def phase_times(mm_data, fa_data, ssd_data) -> dict:
     return out
 
 
-def flash_bound(q, k, v) -> tuple[float, str]:
-    """B2's bound for causal self-attention over (B, H, S, D) q: the live
-    (causal) pairs' two products at the card's rate for q's type, or each
-    input read and the output written once."""
-    B, H, S, D = q.shape
+def live_pairs(Sq: int, Sk: int, causal: bool) -> float:
+    """The (query, key) pairs attention computes: the causal half of a
+    square (Sq == Sk), or all of them."""
+    return Sq * (Sq + 1) / 2 if causal else Sq * Sk
+
+
+def flash_bound(q, k, v, causal: bool = True) -> tuple[float, str]:
+    """B2's bound over (B, H, Sq, D) q and (B, KV, Sk, ·) k, v: the live
+    pairs' two products at the card's rate for q's type, or each input
+    read and the output written once."""
+    B, H, Sq, D = q.shape
     Dv = v.shape[3]
-    live_pairs = S * (S + 1) / 2          # causal, Sq == Sk
-    return bound(B * H * live_pairs * 2.0 * (D + Dv),
-                 (q.numel() + k.numel() + v.numel() + B * H * S * Dv)
+    return bound(B * H * live_pairs(Sq, k.shape[2], causal) * 2.0 * (D + Dv),
+                 (q.numel() + k.numel() + v.numel() + B * H * Sq * Dv)
                  * q.element_size(), PEAK_FLOPS[q.dtype])
 
 
@@ -2287,45 +2663,57 @@ def model_flash_data(shape: dict) -> tuple:
     ``mla_attention`` slices it from its up-projection."""
     rng = np.random.default_rng(6)
     B, H, KV, S, D = (shape[k] for k in ("B", "H", "KV", "S", "D"))
+    Sk = shape.get("Sk", S)
     q = rand(rng, (B, S, H, D), torch.bfloat16)
-    k = rand(rng, (B, S, KV, D), torch.bfloat16)
+    k = rand(rng, (B, Sk, KV, D), torch.bfloat16)
     if "Dv" not in shape:
-        return q, k, rand(rng, (B, S, KV, D), torch.bfloat16)
+        return q, k, rand(rng, (B, Sk, KV, D), torch.bfloat16)
     Dv = shape["Dv"]
-    return q, k, rand(rng, (B, S, KV, 2 * Dv), torch.bfloat16)[..., Dv:]
+    return q, k, rand(rng, (B, Sk, KV, 2 * Dv), torch.bfloat16)[..., Dv:]
 
 
-def oracle_by_lane(q, k, v) -> torch.Tensor:
-    """``reference_attention`` (causal) one batch element at a time: the
-    dense oracle's (B, H, S, S) float32 scores at H 128 would take 8.6 GB."""
+def oracle_by_lane(q, k, v, causal: bool = True) -> torch.Tensor:
+    """``reference_attention`` one batch element at a time: the dense
+    oracle's (B, H, S, S) float32 scores at H 128 would take 8.6 GB."""
     return torch.cat([reference_attention(q[b:b + 1], k[b:b + 1],
-                                          v[b:b + 1], causal=True)
+                                          v[b:b + 1], causal=causal)
                       for b in range(q.shape[0])])
 
 
+def shape_label(q, k, v, causal: bool) -> str:
+    """B, H, KV, S (Sq and Sk where they differ), D, Dv and the mask of
+    (B, Sq, H, D) q and (B, Sk, KV, ·) k, v."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    seq = f"S{Sq}" if Sq == Sk else f"Sq{Sq} Sk{Sk}"
+    return (f"B{B} H{H} KV{k.shape[2]} {seq} D{D} Dv{v.shape[3]} "
+            f"{'causal' if causal else 'full'}")
+
+
 def phase_model_shape_checks(fa_inputs: dict, ssd_inputs: dict) -> dict:
-    """B2 at granite-8b's, zamba2-1.2b's and deepseek-v3's MLA attention
-    shapes, through the models' route (``ops.attention`` on the strided
-    (B, S, H, D) tensors), against the dense oracle within ``FLASH_TOL``'s
-    bf16 bound (the tensor-core kernel), and at the MLA shape in float32
-    too (the FFMA kernel, the float32 path check's); B3's three kernels and
-    the scan at zamba2-1.2b's shape within ``SSD_TOL``. Returns each
-    kernel's largest max|err|."""
+    """B2 at the models' attention shapes (``FLASH_MODELS``: granite-8b,
+    zamba2-1.2b, deepseek-v3's MLA, seamless-m4t-medium's encoder, decoder
+    and cross attention), through the models' route (``ops.attention`` on
+    the strided (B, S, H, D) tensors), against the dense oracle within
+    ``FLASH_TOL``'s bf16 bound (the tensor-core kernel), and at the MLA and
+    seamless shapes in float32 too (the FFMA kernel, the float32 path
+    check's); B3's three kernels and the scan at zamba2-1.2b's shape within
+    ``SSD_TOL``. Returns each kernel's largest max|err|."""
     errs = {"flash_attention": 0.0}
     for label, (q, k, v) in fa_inputs.items():
-        S = q.shape[1]
-        B, _, H, D = q.shape
-        Dv = v.shape[3]
-        dtypes = ((torch.bfloat16, torch.float32) if D != Dv
-                  else (torch.bfloat16,))
+        spec = FLASH_MODELS[label]
+        causal = spec.get("causal", True)
+        D, Dv = q.shape[3], v.shape[3]
+        dtypes = ((torch.bfloat16, torch.float32)
+                  if D != Dv or spec.get("f32") else (torch.bfloat16,))
         for dt in dtypes:
             qd, kd, vd = (t.to(dt) for t in (q, k, v))
-            got = ops.attention(qd, kd, vd, causal=True, block_q=S,
-                                block_k=S)
-            want = oracle_by_lane(qd, kd, vd)
+            got = ops.attention(qd, kd, vd, causal=causal,
+                                block_q=q.shape[1], block_k=k.shape[1])
+            want = oracle_by_lane(qd, kd, vd, causal)
             err = max_err(got, want, FLASH_TOL[dt],
-                          f"flash at {label}'s shape B{B} H{H} "
-                          f"KV{k.shape[2]} S{S} D{D} Dv{Dv} causal {dt} "
+                          f"flash at {label}'s shape "
+                          f"{shape_label(q, k, v, causal)} {dt} "
                           f"{fa._variant(dt, D, Dv)}, the models' strided "
                           f"layout")
             errs["flash_attention"] = max(errs["flash_attention"], err)
@@ -2336,13 +2724,14 @@ def phase_model_shape_checks(fa_inputs: dict, ssd_inputs: dict) -> dict:
     return errs
 
 
-def sdpa_backend(q, k, v) -> str:
+def sdpa_backend(q, k, v, causal: bool = True) -> str:
     """The backend ``scaled_dot_product_attention`` picks for these
-    inputs (causal)."""
+    inputs."""
     from torch.nn.attention import SDPBackend
 
     names = {int(b): n for n, b in SDPBackend.__members__.items()}
-    return names.get(int(torch._fused_sdp_choice(q, k, v, is_causal=True)),
+    return names.get(int(torch._fused_sdp_choice(q, k, v,
+                                                 is_causal=causal)),
                      "unknown")
 
 
@@ -2352,28 +2741,28 @@ def phase_model_shape_times(fa_inputs: dict, ssd_inputs: dict) -> dict:
     bound; for B3 also ``ops.ssd_prep`` at that shape."""
     out = {}
     for label, (q, k, v) in fa_inputs.items():
-        S = q.shape[1]
+        causal = FLASH_MODELS[label].get("causal", True)
+        Sq, Sk = q.shape[1], k.shape[1]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        fa_bound, fa_by = flash_bound(qt, kt, vt)
+        fa_bound, fa_by = flash_bound(qt, kt, vt, causal)
         k_rep, v_rep = gqa_repeated(qt, kt, vt)
         row = {}
         if v.shape[3] != q.shape[3]:  # MLA: the FFMA kernel on the same
             row["ffma_ms"] = time_ms(lambda: fa._launch(  # bf16 inputs too
                 qt, kt, vt, causal=True, window=None,
                 scale=1.0 / math.sqrt(q.shape[3]), variant="ffma"), 3)
-        row["sdpa_backend"] = sdpa_backend(qt, k_rep, v_rep)
+        row["sdpa_backend"] = sdpa_backend(qt, k_rep, v_rep, causal)
         out[f"flash_attention {label}"] = {
             **row,
             "ms": time_ms(lambda: ops.attention(
-                q, k, v, causal=True, block_q=S, block_k=S), 10),
+                q, k, v, causal=causal, block_q=Sq, block_k=Sk), 10),
             "plain_ms": time_ms(lambda: mflash.blocked_flash(
-                q, k, v, causal=True), 3),
+                q, k, v, causal=causal), 3),
             "library_ms": time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, k_rep, v_rep, is_causal=True), 10),
+                    qt, k_rep, v_rep, is_causal=causal), 10),
             "bound_ms": fa_bound, "bound_by": fa_by,
-            "shape": f"B{q.shape[0]} H{q.shape[2]} KV{k.shape[2]} S{S} "
-                     f"D{q.shape[3]} Dv{v.shape[3]} causal bf16"}
+            "shape": shape_label(q, k, v, causal) + " bf16"}
         del k_rep, v_rep
     for label, (full, dims) in ssd_inputs.items():
         t = ssd_times(full)
@@ -2457,6 +2846,9 @@ def main() -> None:
         for name, n in run["launches"].items():
             if n:
                 by_path[name][label] = n
+    for name, n in phase_encdec(dev["smi"])["launches"].items():
+        if n:
+            by_path[name]["seamless-m4t-medium"] = n
     times = phase_times(mm_data, fa_data, ssd_data)
     model_times = phase_model_shape_times(fa_models, ssd_models)
     # [train]'s 12-layer step peaks near 70 GiB: nothing else stays on the
@@ -2464,9 +2856,13 @@ def main() -> None:
     del mm_data, fa_data, ssd_data, fa_models, ssd_models
     release_memory()
     trained = phase_train(dev["smi"])
-    for name, n in trained["launches"].items():
-        if n:
-            by_path[name]["granite-8b train step"] = n
+    steps = {"granite-8b": trained["launches"], **{
+        model: rows["untiered"]["launches"]
+        for model, rows in trained["model_rows"].items()}}
+    for model, launches in steps.items():
+        for name, n in launches.items():
+            if n:
+                by_path[name][f"{model} train step"] = n
     for name, paths in by_path.items():
         print(f"[path] {name} launches by path: {paths}")
         require(sum(paths.values()) > 0, f"{name}: launched on no path")
@@ -2503,7 +2899,23 @@ def main() -> None:
             for dt, r in vjp.items()},
         "lse_max_abs_err": {str(dt).removeprefix("torch."): r["lse"]
                             for dt, r in vjp.items()},
-        **vjp[torch.bfloat16]["times"]}
+        **vjp[torch.bfloat16]["times"],
+        "model_shapes": {label: {
+            "max_abs_err": {str(dt).removeprefix("torch."): max(
+                e for k, e in r.items() if k in ("dq", "dk", "dv"))
+                for dt, r in by_dtype.items()},
+            **by_dtype[torch.bfloat16]["times"]}
+            for label, by_dtype in trained["vjp_more"].items()}}
+    # B3's backward: no kernel (the reference defines no VJP), the plain
+    # staged scan's VJP through _B3Function
+    kernels[2]["backward"] = {
+        "route": "plain ssd_staged_plain VJP (src/repro_torch/kernels/"
+                 "ssd_scan.py _B3Function), its forward recomputed",
+        # backward calls in each untiered step, counted by profile_step
+        "calls_by_path": {f"{model} train step": trained["model_rows"][model][
+            "untiered"]["profile"]["b3_backward_calls"]
+            for model in ("mamba2-130m", "zamba2-1.2b")},
+        "model_shapes": trained["b3_vjp"]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))

@@ -1,11 +1,9 @@
 """Model configurations of the port: ``--arch <id>`` resolution and the
 reduced configs of the CPU tests.
 
-A copy of ``repro.configs``: all ten configurations, as data. The models
-serve the dense, vlm, moe, ssm and hybrid families; the enc-dec family
-waits for ROADMAP A9. ``reduced_config`` applies the
-reference's overrides with the same numbers, so both packages build
-identical reduced configs.
+A copy of ``repro.configs``: all ten configurations, as data; the models
+run every family. ``reduced_config`` applies the reference's overrides
+with the same numbers, so both packages build identical reduced configs.
 """
 from __future__ import annotations
 

@@ -10,19 +10,22 @@ iterations. It is the quantitative basis on which
 
 A copy of ``repro.core.objects`` for this package. ``from_pytree`` walks
 nested dicts (and lists/tuples) of torch tensors or numpy arrays and names
-the leaves as ``jax.tree_util.keystr`` does (``['a']['b']``). The access
-census from a traced step function (``from_step_fn``) waits for the
-training slice.
+the leaves as ``jax.tree_util.keystr`` does (``['a']['b']``);
+``from_step_fn`` takes the access census of one eager run of a step
+function (see there for how its read counts relate to the reference's).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import math
-from typing import Any, Iterable, Iterator, Mapping
+from typing import Any, Callable, Iterable, Iterator, Mapping, Sequence
 
 import numpy as np
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 
 class ObjectKind(enum.Enum):
@@ -148,6 +151,76 @@ class ObjectCatalog:
             )
         return catalog
 
+    @classmethod
+    def from_step_fn(
+        cls,
+        step_fn: Callable[..., Any],
+        *args: Any,
+        kinds: Sequence[ObjectKind] | None = None,
+        donate_argnums: Sequence[int] = (),
+    ) -> "ObjectCatalog":
+        """Run ``step_fn(*args)`` once and recover per-leaf access statistics.
+
+        ``kinds[i]`` labels every leaf of ``args[i]``; leaves are named
+        ``arg{i}`` plus their keystr. Donated arguments are read+written
+        (in-place update across iterations), as a training step's params
+        and optimizer state are; optimizer state is written too. Params,
+        optimizer state and KV caches live for the whole program, the
+        rest for one iteration. These are the reference's rules.
+
+        ``n_reads`` is a census of the run, with no tracer: a
+        :class:`TorchDispatchMode` counts, for each leaf, the ATen ops
+        whose tensor arguments share its storage (a view of it included),
+        one per occurrence, as the reference counts one per jaxpr
+        equation input; view and alias ops themselves (``view``,
+        ``t``, ``select``, ``detach``, ...) are not reads. It runs eagerly
+        on the arguments' own device, the CPU at a reduced size as the
+        reference's census does: a meta-device run would need every
+        kernel wrapper to accept meta tensors, and they take the CPU or a
+        card by design. Leaves that are the same tensor under two names
+        (a batch whose labels are its tokens) are each credited every
+        read of it.
+
+        **The two censuses differ by construction.** The reference counts
+        the equations of a ``jax.make_jaxpr`` trace, a ``scan`` body once:
+        a stacked layer leaf read by every layer counts the body's reads
+        once (plus the scan's own). This census counts what runs, so a
+        stacked leaf's reads are counted once per layer that reads it.
+        Where no layer loop is traced (a function without ``scan``) the
+        two counts are equal.
+        """
+        if kinds is None:
+            kinds = [ObjectKind.INPUT] * len(args)
+        records: list[tuple[str, ObjectKind, bool, torch.Tensor]] = []
+        for i, arg in enumerate(args):
+            for key, leaf in _leaves_with_keys(arg):
+                records.append((f"arg{i}{key}", kinds[i],
+                                i in donate_argnums, leaf))
+        census = _ReadCensus([leaf for *_, leaf in records])
+        with census:
+            step_fn(*args)
+
+        catalog = cls()
+        for (name, kind, donated, leaf), n_reads in zip(records,
+                                                        census.counts):
+            lifetime = math.inf if kind in (
+                ObjectKind.PARAM,
+                ObjectKind.OPT_STATE,
+                ObjectKind.KV_CACHE,
+            ) else 0
+            catalog.add(
+                DataObject(
+                    name=name,
+                    shape=tuple(leaf.shape),
+                    dtype=leaf.dtype,
+                    kind=kind,
+                    n_reads=n_reads,
+                    n_writes=int(donated or kind is ObjectKind.OPT_STATE),
+                    lifetime_iters=lifetime,
+                )
+            )
+        return catalog
+
     # -- queries ------------------------------------------------------------
     def __len__(self) -> int:
         return len(self._objects)
@@ -189,3 +262,35 @@ class ObjectCatalog:
             "large_fraction_of_peak": sum(o.size_bytes for o in large) / total,
             "n_short_lived": sum(1 for o in self if o.is_short_lived),
         }
+
+
+def _is_view(func) -> bool:
+    """Whether an ATen op only aliases its input (a view, ``detach``,
+    ``alias``): every result carries a read-only alias annotation."""
+    returns = func._schema.returns
+    return bool(returns) and all(
+        r.alias_info is not None and not r.alias_info.is_write
+        for r in returns)
+
+
+class _ReadCensus(TorchDispatchMode):
+    """Counts, per leaf tensor, the ops that take it (or a view of it) as
+    an argument: ``counts[i]`` for ``leaves[i]``."""
+
+    def __init__(self, leaves: Sequence[torch.Tensor]):
+        super().__init__()
+        self.owners: dict[StorageWeakRef, list[int]] = {}
+        for i, t in enumerate(leaves):
+            self.owners.setdefault(StorageWeakRef(t.untyped_storage()),
+                                   []).append(i)
+        self.counts = [0] * len(leaves)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if not _is_view(func):
+            for t in tree_leaves((args, kwargs)):
+                if isinstance(t, torch.Tensor):
+                    for i in self.owners.get(
+                            StorageWeakRef(t.untyped_storage()), ()):
+                        self.counts[i] += 1
+        return func(*args, **kwargs)

@@ -10,6 +10,8 @@ point; on CPU tensors it composes the stages' plain versions. Which one runs
 is decided by the tensors' device alone. :func:`ssd_chunk_scan_plain`, the
 one-loop version of what the TPU kernel computes, is the oracle of both. The
 chunking and cumsum prep lives in :func:`repro_torch.kernels.ops.ssd_prep`.
+On a card the scan is differentiable through :class:`_B3Function`: the
+kernels forward, the plain staged scan's VJP backward.
 """
 from __future__ import annotations
 
@@ -89,11 +91,20 @@ def ssd_state_passing_plain(states, cum) -> tuple[torch.Tensor, torch.Tensor]:
 
 def ssd_chunk_output_plain(xc, bc, cc, dtc, cum, entering) -> torch.Tensor:
     """Stage 3: y of every chunk from its inputs and the state entering it,
-    ``(C B^T o L) x + (C S_in^T) o exp(cum)``; the causal mask selects."""
+    ``(C B^T o L) x + (C S_in^T) o exp(cum)``.
+
+    The causal mask selects *before* the exp: ``exp(cum_i - cum_j)`` of
+    j > i overflows once a chunk's decay passes e^88 (a chunk of 256
+    reaches it at the reference test's distributions), and the exp's VJP
+    would then take 0 x inf. The reference's chunked scan masks after the
+    exp and its gradients are NaN there (ROADMAP C7); the values are the
+    same bits either way, and so are the gradients wherever the
+    reference's are finite."""
     Q = xc.shape[3]
     causal = torch.ones((Q, Q), dtype=torch.bool, device=xc.device).tril()
-    lmat = torch.exp(cum[..., :, None] - cum[..., None, :]) * dtc[..., None, :]
-    lmat = torch.where(causal, lmat, 0.0)
+    seg = torch.where(causal, cum[..., :, None] - cum[..., None, :],
+                      -torch.inf)
+    lmat = torch.exp(seg) * dtc[..., None, :]
     scores = torch.einsum("bhcin,bhcjn->bhcij", cc, bc)
     y_intra = torch.einsum("bhcij,bhcjp->bhcip", scores * lmat, xc)
     y_inter = torch.einsum("bhcin,bhcpn->bhcip", cc, entering)
@@ -182,17 +193,17 @@ def _on_cuda(what: str, t: torch.Tensor) -> bool:
 
 
 def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
-    """Raise where a kernel launch would drop a gradient: the kernels are
-    launched through ctypes, so their outputs carry no ``grad_fn``, and the
-    reference defines no VJP for the SSD scan. Called on the card path only;
-    the CPU plain path keeps its autograd (the reference's models train
-    through the jnp chunked scan)."""
+    """Raise where a stage kernel's launch would drop a gradient: the
+    kernels are launched through ctypes, so their outputs carry no
+    ``grad_fn``. Called by the three per-stage entry points on the card
+    path only; the fused scan (:func:`ssd_chunk_scan_gpu`) is the one with
+    a backward (:class:`_B3Function`)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what}: an input requires grad on a card; the SSD kernels "
-            f"have no backward yet (ROADMAP A9, second part: 'B3 under "
-            f"autograd')")
+            f"{what}: an input requires grad on a card; the per-stage SSD "
+            f"kernels have no backward: the fused scan ssd_chunk_scan_gpu "
+            f"is the one with a backward")
 
 
 def ssd_chunk_state_gpu(xc, bc, dtc, cum) -> torch.Tensor:
@@ -263,6 +274,33 @@ def _launch(xc, bc, cc, dtc, cum) -> torch.Tensor:
     return y
 
 
+class _B3Function(torch.autograd.Function):
+    """The scan on the card with a backward: the forward launches the
+    three kernels (:func:`_launch`) and saves only the five inputs; the
+    backward is the VJP of the plain staged scan (:func:`ssd_staged_plain`)
+    at those inputs, recomputed under autograd. The reference defines no
+    VJP for its Pallas kernel and trains through its plain chunked scan,
+    so this is its gradient. The backward launches no kernel, so
+    :data:`LAUNCHES` counts one launch per forward (and one per recompute
+    under a checkpoint)."""
+
+    @staticmethod
+    def forward(ctx, xc, bc, cc, dtc, cum):
+        ctx.save_for_backward(xc, bc, cc, dtc, cum)
+        return _launch(xc, bc, cc, dtc, cum)
+
+    @staticmethod
+    def backward(ctx, dy):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            y = ssd_staged_plain(*ins)
+            got = iter(torch.autograd.grad(
+                y, [t for t, n in zip(ins, need) if n], dy))
+        return tuple(next(got) if n else None for n in need)
+
+
 def ssd_chunk_scan_gpu(
     xc: torch.Tensor,    # (B, H, nc, Q, P)
     bc: torch.Tensor,    # (B, H, nc, Q, N)  (per-head broadcast B)
@@ -271,9 +309,10 @@ def ssd_chunk_scan_gpu(
     cum: torch.Tensor,   # (B, H, nc, Q)     inclusive cumsum of dt*A
 ) -> torch.Tensor:
     """SSD chunk scan -> y (B, H, nc, Q, P), all float32, the state starting
-    at zero in each (batch, head)."""
+    at zero in each (batch, head). On a card the scan goes through
+    :class:`_B3Function`: a grad-requiring input gives a ``y`` whose
+    backward is the plain staged scan's VJP."""
     _validate(xc, bc, cc, dtc, cum)
     if not _on_cuda("ssd_chunk_scan", xc):
         return ssd_staged_plain(xc, bc, cc, dtc, cum)
-    refuse_autograd("ssd_chunk_scan", xc, bc, cc, dtc, cum)
-    return _launch(xc, bc, cc, dtc, cum)
+    return _B3Function.apply(xc, bc, cc, dtc, cum)

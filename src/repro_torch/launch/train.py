@@ -7,12 +7,6 @@ moments beyond the budget live in pinned host memory). The reduced float32
 config by default; ``--full`` takes the architecture's real config.
 ``--mesh``, ``--rules`` and ``--distributed`` wait for the sharding slice
 (ROADMAP A11).
-
-The default architecture is granite-8b, where the reference's is
-mamba2-130m: the SSM and hybrid families train on a card once the SSD
-kernels have a backward (ROADMAP A9, second part, "B3 under autograd");
-until then ``--arch mamba2-130m --device cuda`` raises, and on the CPU it
-trains through the plain chunked scan.
 """
 from __future__ import annotations
 
@@ -33,7 +27,7 @@ from repro_torch.train.step import TrainStepConfig  # noqa: E402
 
 def main(argv: list[str] | None = None) -> LoopResult:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-8b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="mamba2-130m", choices=ARCH_IDS)
     ap.add_argument("--full", action="store_true",
                     help="full config (accelerator-scale)")
     ap.add_argument("--steps", type=int, default=100)

@@ -1,8 +1,7 @@
 """Core layers: RMSNorm, RoPE, GQA attention (full, sliding window, decode,
 cross), the SwiGLU MLP, the tied embedding and head.
 
-A port of ``repro.models.layers`` (``cross_entropy`` waits for the training
-slice, ROADMAP A9). Parameters are nested dicts of tensors, as in the
+A port of ``repro.models.layers``, ``cross_entropy`` included. Parameters are nested dicts of tensors, as in the
 reference. The projections are plain ``x @ w``, as there; full-sequence
 attention goes through :func:`repro_torch.models.flash.flash_attention`
 (kernel B2 on a card), decode and masked attention through :func:`_sdpa`.

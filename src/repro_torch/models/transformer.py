@@ -43,7 +43,9 @@ across the shared block. The layer body is given its layer index, so a
 recompute of any layer or block applies the shared block after the same
 layers.
 
-The enc-dec family waits for ROADMAP A9.
+The enc-dec family lives in :mod:`repro_torch.models.encdec`, which
+drives its two layer loops through :func:`scan_stacked_layers` and
+:class:`_Fetcher`.
 """
 from __future__ import annotations
 
@@ -73,12 +75,6 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 Params = dict[str, Any]
-
-_WAITS_FOR = {
-    "encdec": "ROADMAP A9 (models/encdec.py)",
-    "audio": "ROADMAP A9 (models/encdec.py)",
-}
-
 
 def _saving(*ops) -> Callable:
     """A checkpoint ``context_fn`` that saves the outputs of ``ops`` and
@@ -127,13 +123,6 @@ def scan_stacked_layers(fn, carry, stacked, n_layers: int, *, remat: str,
         policy=REMAT_POLICIES[remat.removesuffix("_flat")],
         prefetch=prefetch and prefetch_under_remat,
         min_layers=10 ** 9 if flat else 12, **scan_kw)
-
-
-def _require_served(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{what}: the {cfg.family} family waits for "
-            f"{_WAITS_FOR.get(cfg.family, 'its slice')}")
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +236,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
                 device: str | torch.device = "cuda") -> Params:
     """Random parameters drawn from ``gen`` (on its device) with the
     reference's shapes and scales, then moved to ``device``."""
-    _require_served(cfg, "init_params")
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+        raise ValueError(
+            f"init_params: family {cfg.family} handled in encdec.py")
     dev = resolve_device(device)
     p: Params = {
         "embed": L.embed_init(gen, cfg),
@@ -432,7 +423,6 @@ def forward(
     and the ``remote_grads`` that gather the REMOTE leaves' gradients
     (:class:`~repro_torch.core.tiering.RemoteGrads`).
     """
-    _require_served(cfg, "forward")
     fetch = _Fetcher(params, plan, batch["tokens"].device, engine,
                      remote_grads)
     logits = None
@@ -470,7 +460,6 @@ def loss_fn(
     full sequence with the last two positions masked out of the loss.
     ``plan``, ``engine`` and ``remote_grads`` as in :func:`forward`.
     """
-    _require_served(cfg, "loss_fn")
     want_hidden = bool(cfg.mtp_depth and "mtp" in params)
     fetch = _Fetcher(params, plan, batch["tokens"].device, engine,
                      remote_grads)
@@ -521,7 +510,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     recurrent state (O(1) in ``max_len``), and the decode position ``pos``
     (a 0-d tensor; a ``(batch,)`` vector decodes every lane at its own
     position)."""
-    _require_served(cfg, "init_decode_cache")
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+        raise ValueError(
+            f"decode cache for {cfg.family} lives in encdec.py")
     dev = resolve_device(device)
     nL = cfg.n_layers
     cache: dict = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -572,7 +563,6 @@ def decode_step(
     engine's expert pager validates residency against it and feeds its
     router-mass EMA from it); None for the other families.
     """
-    _require_served(cfg, "decode_step")
     engine = _engine(plan, tokens.device)
     remote = remote_keys(plan, "params")
     pos = cache["pos"]

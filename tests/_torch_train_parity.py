@@ -14,12 +14,12 @@ import torch
 
 from repro.configs import get_config as ref_get_config
 from repro.configs import reduced_config as ref_reduced_config
-from repro.models import transformer as ref_tf
+from repro.models import get_model as ref_get_model
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.convert import params_from_reference
 from repro_torch.core.objects import _leaves_with_keys
-from repro_torch.models import transformer as tf
+from repro_torch.models import get_model
 
 B, S = 2, 16
 
@@ -32,9 +32,10 @@ def as_np(t) -> np.ndarray:
 
 class Ref:
     """A reduced architecture in both packages: the reference's parameters
-    (and the port's copy), one numpy batch, and the reference's loss,
-    metrics and gradients (``jax.value_and_grad`` of its ``loss_fn``,
-    computed at their first use)."""
+    (and the port's copy), one numpy batch (with the enc-dec family's
+    ``frames``), and the reference's loss, metrics and gradients
+    (``jax.value_and_grad`` of its ``loss_fn``, computed at their first
+    use)."""
 
     def __init__(self, arch: str, dtype: str = "float32", batch: int = B,
                  seq: int = S, **overrides):
@@ -43,20 +44,29 @@ class Ref:
         self.ref_cfg = ref_reduced_config(ref_get_config(arch), dtype=jdt,
                                           **overrides)
         self.cfg = reduced_config(get_config(arch), dtype=tdt, **overrides)
-        self.ref_params = ref_tf.init_params(jax.random.PRNGKey(0),
-                                             self.ref_cfg)
-        tokens = np.random.default_rng(1).integers(
-            0, self.cfg.vocab_size, (batch, seq)).astype(np.int32)
+        self.ref_model = ref_get_model(self.ref_cfg)
+        self.model = get_model(self.cfg)
+        self.ref_params = self.ref_model.init_params(jax.random.PRNGKey(0),
+                                                     self.ref_cfg)
+        rng = np.random.default_rng(1)
+        tokens = rng.integers(0, self.cfg.vocab_size,
+                              (batch, seq)).astype(np.int32)
         self.ref_batch = {"tokens": jnp.asarray(tokens),
                           "labels": jnp.asarray(tokens)}
         self.batch = {"tokens": torch.from_numpy(tokens),
                       "labels": torch.from_numpy(tokens)}
+        if self.cfg.family in ("encdec", "audio"):
+            frames = rng.standard_normal(
+                (batch, self.cfg.frontend_len, self.cfg.d_model)).astype(
+                np.float32)
+            self.ref_batch["frames"] = jnp.asarray(frames).astype(jdt)
+            self.batch["frames"] = torch.from_numpy(frames).to(tdt)
 
     @functools.cached_property
     def _value_and_grad(self):
         (loss, metrics), grads = jax.jit(jax.value_and_grad(
-            lambda p: ref_tf.loss_fn(p, self.ref_batch, self.ref_cfg,
-                                     remat="none"), has_aux=True))(
+            lambda p: self.ref_model.loss_fn(p, self.ref_batch, self.ref_cfg,
+                                             remat="none"), has_aux=True))(
             self.ref_params)
         return (float(loss), {k: float(v) for k, v in metrics.items()},
                 {k: as_np(g) for k, g in _leaves_with_keys(grads)})
@@ -79,7 +89,8 @@ class Ref:
     def port_loss_and_grads(self, remat: str):
         params = self.params()
         leaves = [t.requires_grad_(True) for _, t in _leaves_with_keys(params)]
-        loss, metrics = tf.loss_fn(params, self.batch, self.cfg, remat=remat)
+        loss, metrics = self.model.loss_fn(params, self.batch, self.cfg,
+                                           remat=remat)
         grads = torch.autograd.grad(loss, leaves)
         keys = [k for k, _ in _leaves_with_keys(params)]
         return (loss.detach(), {k: float(v) for k, v in metrics.items()},

@@ -44,6 +44,7 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.launch.train, repro_torch.checkpoint.manager\n"
         "import repro_torch.data.pipeline, repro_torch.optim\n"
         "import repro_torch.optim.compression, repro_torch.optim.quantized\n"
+        "import repro_torch.models.encdec\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))))\n"

@@ -297,9 +297,10 @@ def test_tiered_scan_checks_the_stack():
 
 
 def test_other_families_name_their_roadmap_item():
-    """The dense, vlm, moe, ssm and hybrid families are served (the moe
-    family's entry points run: both its configs, GQA with a sliding window
-    and MLA); the enc-dec family names ROADMAP A9."""
+    """Every family is served: the moe family's entry points run (both its
+    configs, GQA with a sliding window and MLA), and the enc-dec family's
+    are ``models.encdec``'s (the transformer module refuses it, as the
+    reference's does)."""
     for arch, keys in (("mixtral-8x7b", {"k", "v"}),
                        ("deepseek-v3-671b", {"c", "kr"})):
         moe = reduced_config(get_config(arch))
@@ -311,10 +312,18 @@ def test_other_families_name_their_roadmap_item():
         cache = model.init_decode_cache(moe, 1, 4, device="cpu")
         assert set(cache) == keys | {"pos"}
     encdec = reduced_config(get_config("seamless-m4t-medium"))
-    with pytest.raises(NotImplementedError, match="A9"):
-        get_model(encdec)
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_batch(encdec, torch.Generator(), 1, 4, device="cpu")
+    model = get_model(encdec)
+    assert model.__name__ == "repro_torch.models.encdec"
+    params = model.init_params(torch.Generator(), encdec, device="cpu")
+    batch = make_batch(encdec, torch.Generator(), 1, 4, device="cpu")
+    logits, aux = model.forward(params, batch, encdec)
+    assert logits.shape[:2] == (1, 4) and float(aux) == 0.0
+    cache = model.init_decode_cache(encdec, 1, 4, device="cpu")
+    assert set(cache) == {"pos", "k", "v", "ck", "cv"}
+    with pytest.raises(ValueError, match="handled in encdec.py"):
+        tf.init_params(torch.Generator(), encdec, device="cpu")
+    with pytest.raises(ValueError, match="lives in encdec.py"):
+        tf.init_decode_cache(encdec, 1, 4, device="cpu")
     for arch in ("granite-8b", "internvl2-1b", "zamba2-1.2b"):
         cfg = reduced_config(get_config(arch))
         assert get_model(cfg).init_decode_cache(cfg, 1, 4, device="cpu")

@@ -3,7 +3,8 @@ policy against ``jax.value_and_grad`` of the reference's on the same
 inputs (reduced granite-8b, at a depth that takes ``_block_split``'s blocks,
 in bf16, deepseek-v3 with aux and MTP, mamba2-130m, zamba2-1.2b with its
 shared block under remat); the flash backward against ``jax.grad`` of the
-reference's flash; B3's refusal of autograd on a card. The train step,
+reference's flash; B3's backward on a card (the fused scan's Function) and
+the per-stage kernels' refusal. The train step,
 placements and the loop are in ``test_torch_train_step.py``."""
 import functools
 import math
@@ -183,12 +184,14 @@ def test_b2_function_backward_matches_reference(case, monkeypatch):
                                    rtol=2e-5)
 
 
-# -- B3 refuses autograd on a card ----------------------------------------------
+# -- B3 on a card: the fused scan has a backward, the stages refuse -------------
 
 def test_ssd_refuses_grad_on_a_card(monkeypatch):
-    """On a card the SSD kernels' outputs would carry no grad_fn: a
-    grad-requiring input raises, naming the ROADMAP item; without grad (or
-    on the CPU) the call goes through."""
+    """On a card the fused scan of a grad-requiring input returns a tensor
+    whose grad_fn is ``_B3Function``'s (its backward the plain staged
+    scan's VJP); the per-stage kernels' outputs would carry no grad_fn, so
+    a grad-requiring input to one of them raises, naming the fused scan.
+    Without grad (or on the CPU) every call goes through."""
     rng = np.random.default_rng(0)
     Bn, L, H, P, G, N = 1, 32, 4, 8, 1, 8
     xh, Bm, Cm = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
@@ -198,12 +201,16 @@ def test_ssd_refuses_grad_on_a_card(monkeypatch):
     xh.requires_grad_(True)
     y = ops.ssd(xh, Bm, Cm, dt, A, chunk=16)   # the CPU: plain, with grad
     assert y.requires_grad
+    chunks = ops.ssd_prep(xh, Bm, Cm, dt, A, chunk=16)
     monkeypatch.setattr(ssd_scan, "_on_cuda", lambda what, t: True)
-    monkeypatch.setattr(ssd_scan, "_launch", lambda *a: "launched")
-    with pytest.raises(NotImplementedError, match="B3 under autograd"):
-        ops.ssd(xh, Bm, Cm, dt, A, chunk=16)
-    with pytest.raises(NotImplementedError, match="A9, second part"):
+    monkeypatch.setattr(ssd_scan, "_launch", lambda *a: torch.zeros_like(
+        a[0]))
+    out = ssd_scan.ssd_chunk_scan_gpu(*chunks)
+    assert type(out.grad_fn).__name__ == "_B3FunctionBackward"
+    with pytest.raises(NotImplementedError, match="fused scan"):
+        ssd_scan.ssd_chunk_state_gpu(chunks[0], chunks[1], chunks[3],
+                                     chunks[4])
+    with pytest.raises(NotImplementedError, match="fused scan"):
         ssd_scan.refuse_autograd("ssd", xh)
     with torch.no_grad():
-        assert ssd_scan.ssd_chunk_scan_gpu(
-            *ops.ssd_prep(xh, Bm, Cm, dt, A, chunk=16)) == "launched"
+        assert ssd_scan.ssd_chunk_scan_gpu(*chunks).grad_fn is None

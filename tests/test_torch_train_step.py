@@ -402,10 +402,11 @@ def test_straggler_watchdog_detects(monkeypatch, tiny_cfg):
 def test_launcher_trains_on_the_cpu(capsys):
     from repro_torch.launch import train as launch
 
-    res = launch.main(["--device", "cpu", "--arch", "granite-8b", "--steps",
-                       "3", "--batch", "2", "--seq", "16"])
+    res = launch.main(["--device", "cpu", "--steps", "3", "--batch", "2",
+                       "--seq", "16"])
     assert res.final_step == 3 and len(res.losses) == 3
-    assert "done: step 3" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "arch=mamba2-130m" in out and "done: step 3" in out
     for flag in (["--mesh", "2,1"], ["--distributed"], ["--rules", "{}"]):
         with pytest.raises(NotImplementedError, match="A11"):
             launch.main(["--device", "cpu", *flag])
