@@ -63,7 +63,8 @@ Phases (any failed check raises and exits non-zero):
      deepseek-v3-671b and mixtral-8x7b; ``[encdec]`` (below):
      seamless-m4t-medium whole; then ``[train]`` (below): granite-8b,
      mamba2-130m, zamba2-1.2b and seamless-m4t-medium trained at full
-     width, B2's lse and VJP, B3's backward;
+     width, B2's lse and VJP, B3's backward; then ``[mesh]`` (below):
+     the sharding layer on a one-rank NCCL mesh;
   6. kernel times at the main paths' shapes (CUDA events), per variant
      (the tensor-core kernel on the path and the FFMA kernel on the same
      bf16 inputs), beside the plain version's, one library call's (none for
@@ -151,6 +152,20 @@ config killed after its checkpoint must resume with the uninterrupted run's loss
 ``python -m repro_torch.launch.train --device cuda`` must run 3 steps of
 its default, reduced mamba2-130m.
 
+``[mesh]`` (after ``[train]``): a one-rank NCCL process group (its
+``FileStore`` in a temporary directory) and a (1, 1) device mesh over
+(data, model) with the default sharding rules; granite-8b at ``[train]``'s
+width, depth and batch, one step under each of ``MESH_LEGS`` (without a
+mesh; under the mesh with the state laid out by the spec trees; under
+``fsdp_stream`` 0.5 with prefetch on and off, which on a data axis of one
+split nothing and must post no gather, so they time the plain mesh step;
+at host_offload 0.5): the loss, every gradient and every updated parameter
+and moment ``torch.equal`` to the step without a mesh, B2's launches a
+step 8 in every leg, each launch under the mesh through ``local_map``, the
+best of 3 step ms, host ms and peak memory beside NCCL's version; then
+``launch.train.main(MESH_LAUNCH)`` (``--mesh 1,1``) on that group, its
+loss falling over 3 steps.
+
 Three checks ride along. ``[serving-bench]`` (after ``[hpc]``):
 ``benchmarks/fig_autoscale.py``'s and ``fig_serving_mt.py``'s loops through
 the port, the reduced granite-8b engine in float32 on the card, must give
@@ -202,8 +217,10 @@ from repro_torch.configs.seamless_m4t_medium import (  # noqa: E402
 )
 from repro_torch.configs.zamba2_1_2b import CONFIG as ZAMBA2_1_2B  # noqa: E402
 from repro_torch.core.tiering import (  # noqa: E402
+    GATHERS,
     TieringConfig,
     _block_split,
+    local_part,
     map_leaves,
     place_params,
     place_state,
@@ -224,6 +241,12 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import streaming_matmul as sm  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    HBM_BYTES_PER_S,
+    PEAK_FLOPS,
+    make_smoke_mesh,
+)
 from repro_torch.kernels.ref import (  # noqa: E402
     NEG_INF,
     flash_dq_rounding_bound,
@@ -239,8 +262,10 @@ from repro_torch.models import flash as mflash  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
     SyntheticTokenDataset,
+    device_put_fn,
     to_device_fn,
 )
+from repro_torch.models import sharding as shd  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.loop import LoopConfig, train  # noqa: E402
@@ -258,11 +283,8 @@ from repro_torch.serving import (  # noqa: E402
     ServingEngine,
 )
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W); "tf32" is
-# the tensor cores' TF32 rate, which the SSD kernels use in three passes
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
+# the SSD kernels use the tensor cores' TF32 rate in three passes
 TF32_PASSES = 3
-HBM_BYTES_PER_S = 3.35e12
 
 # the reference's kernel tolerances (tests/test_kernels.py); bf16 is also
 # held to a bound scaled to each output row (kernels.ref.tolerance_ratio)
@@ -418,6 +440,25 @@ B3_VJP = {"mamba2-130m": dict(B=2, H=24, L=2048, P=64, N=128, chunk=256,
 # translation's target is shorter than its source); prefill and 64 greedy
 # tokens; decode against forward in float32 over 2 x 128 tokens
 ENCDEC = dict(batch=4, tokens=512, new=64, lanes32=2, tokens32=128)
+# [mesh]: the sharding layer on a one-rank NCCL process group and a (1, 1)
+# mesh over (data, model), DEFAULT_RULES: granite-8b at [train]'s width,
+# depth (4 of 36 layers) and batch, one step per leg from the same weights,
+# every leg torch.equal to the one without a mesh (on one rank every
+# redistribute is the identity and the local ops are the unsharded ones)
+MESH_LEGS = {  # label: (under the mesh, TieringConfig)
+    "no mesh": (False, TieringConfig(mode="none")),
+    "mesh": (True, TieringConfig(mode="none")),
+    "mesh fsdp_stream 0.5": (True, TieringConfig(mode="fsdp_stream",
+                                                 local_fraction=0.5)),
+    "mesh fsdp_stream 0.5 prefetch off": (True, TieringConfig(
+        mode="fsdp_stream", local_fraction=0.5, prefetch=False)),
+    "mesh host_offload 0.5": (True, TieringConfig(mode="host_offload",
+                                                  local_fraction=0.5)),
+}
+# the launcher over the one-rank mesh: reduced granite-8b (float32), whose
+# loss must fall in 3 steps
+MESH_LAUNCH = ["--arch", "granite-8b", "--mesh", "1,1", "--device", "cuda",
+               "--steps", "3", "--batch", "4", "--seq", "64", "--lr", "3e-3"]
 
 
 def zero_counts() -> None:
@@ -2500,6 +2541,165 @@ def phase_train(smi: str) -> dict:
             "b3_vjp": b3_vjp, "model_rows": model_rows}
 
 
+# -- [mesh]: the sharding layer on a one-rank NCCL mesh ----------------------
+def mesh_leg(label: str, cfg, host_params, host_batch, opt_cfg,
+             tiering: TieringConfig, mesh, base: dict | None,
+             smi: str) -> tuple[dict, dict]:
+    """One train step of ``cfg`` from ``host_params`` (zero moments) and
+    ``host_batch``, under ``mesh`` (DTensor state laid out by the spec
+    trees, the batch by ``device_put_fn``) or without one, placed by
+    ``tiering``: the loss, every gradient, updated parameter and moment
+    ``torch.equal`` to ``base`` (the first leg's, returned when ``base``
+    is None), B2's launches a step (each through ``local_map`` under the
+    mesh), then the best of BEST_OF more steps and the peak memory."""
+    tag = f"{label} ({cfg.name}, {cfg.n_layers} layers)"
+    step_cfg = TrainStepConfig.from_tiering(tiering, remat="full")
+    first = base is None
+    base = {} if first else base
+
+    def hold(part: str, leaves: dict) -> None:
+        leaves = {k: local_part(t).detach() for k, t in leaves.items()}
+        if first:
+            base[part] = {k: t.cpu() for k, t in leaves.items()}
+            return
+        require(leaves.keys() == base[part].keys(),
+                f"[mesh] {tag}: the {part}' leaves differ")
+        for k, t in leaves.items():
+            require(torch.equal(t.to("cuda"), base[part][k].to("cuda")),
+                    f"[mesh] {tag}: {part}{k} != the step's without a mesh")
+
+    with shd.use_mesh(mesh):
+        params = map_leaves(lambda _k, t: t.to("cuda"), host_params)
+        opt = adamw.init(opt_cfg, params)
+        if mesh is None:
+            batch = to_device_fn("cuda", cfg.dtype)(host_batch)
+        else:
+            batch = device_put_fn(mesh, lambda b: shd.batch_pspec_tree(
+                b, mesh), dtype=cfg.dtype)(host_batch)
+            specs = shd.params_pspec_tree(
+                params, expert_sharding=cfg.expert_sharding, mesh=mesh)
+            params = shd.distribute_tree(params, specs, mesh)
+            opt = shd.distribute_tree(
+                opt, shd.opt_pspec_tree(opt, specs, mesh), mesh)
+        params, opt, plan = place_state(params, opt, tiering)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, grads = make_value_and_grad(cfg, step_cfg, plan=plan)(
+            params, batch)
+        hold("loss", {"": loss})
+        hold("grads", grads)
+        del grads
+        step = make_train_step(cfg, step_cfg, opt_cfg, plan=plan)
+        zero_counts()
+        shd.LOCAL_MAP_CALLS.clear()
+        GATHERS.clear()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        launches, calls = counts(), dict(shd.LOCAL_MAP_CALLS)
+        gathers = dict(GATHERS)
+        wgmma = fa.VARIANT_LAUNCHES["wgmma"]
+        hold("step_loss", {"": metrics["loss"]})
+        hold("params", dict(_leaves_with_keys(params)))
+        hold("opt", dict(_leaves_with_keys(opt)))
+        runs = []
+        for _ in range(1 + BEST_OF):  # the first is the warm-up
+            (params, opt, metrics), ms, host_ms = timed_ms(
+                lambda: step(params, opt, batch))
+            runs.append((ms, host_ms))
+        best, best_host = min(runs[1:])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    n_b2 = launches["flash_attention"]
+    require(wgmma == n_b2, f"[mesh] {tag}: {n_b2 - wgmma} of {n_b2} B2 "
+                           f"launches not through wgmma")
+    if mesh is not None:
+        require(calls.get("flash", 0) == n_b2 > 0,
+                f"[mesh] {tag}: {n_b2} B2 launches, {calls.get('flash', 0)} "
+                f"through local_map")
+    if plan is not None and plan.remote_medium == "peer":
+        # fsdp_stream on a data axis of one splits nothing: its REMOTE
+        # leaves stay whole on the device, no gather is posted, and the leg
+        # times the plain mesh step (the dual buffer over peer HBM runs in
+        # the CPU tests' 4-rank world)
+        require(not plan.peer_split and not gathers,
+                f"[mesh] {tag}: {len(plan.peer_split)} leaves split and "
+                f"gathers {gathers} posted on a data axis of one")
+        where = ("split over data 0 GiB (an axis of one: no gather posted, "
+                 "the plain mesh step)")
+    else:
+        remote = plan.remote_bytes if plan else 0
+        where = f"in host memory {remote / 2**30:.3f} GiB"
+    print(f"[mesh] step {tag}: best of {BEST_OF} {best:.3f} ms "
+          f"({best_host:.3f} ms on the host before the synchronise; runs "
+          f"{', '.join(f'{m:.3f}' for m, _ in runs)}), peak {peak:.3f} GiB, "
+          f"{where}"
+          + f", B2 launches a step {n_b2} (all wgmma"
+          + (f", all through local_map: {calls}" if mesh is not None else "")
+          + f"), loss {loss.item():.6f}"
+          + ("" if first else ", loss, grads, params and moments "
+             "torch.equal to the step without a mesh") + f"; {smi}")
+    del params, opt, metrics
+    torch.cuda.empty_cache()
+    return {"ms": best, "host_ms": best_host, "peak_gib": peak,
+            "launches": launches, "local_map": calls}, base
+
+
+def phase_mesh(smi: str) -> dict:
+    """``[mesh]``: a one-rank NCCL process group (its store in a temporary
+    directory) and a (1, 1) device mesh over (data, model); granite-8b at
+    [train]'s width, depth and batch one step under each of ``MESH_LEGS``,
+    all ``torch.equal`` to the step without a mesh, B2's launches a step
+    equal (8) and, under the mesh, each through ``local_map``; then
+    ``launch.train.main(MESH_LAUNCH)`` on that group, its loss falling.
+    Returns the mesh leg's launches."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_smoke_mesh()
+            nccl = ".".join(map(str, torch.cuda.nccl.version()))
+            print(f"[mesh] one-rank NCCL {nccl} process group, device mesh "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+                  f"{torch.cuda.get_device_name(0)}, rules "
+                  f"{shd.get_rules()}; {smi}")
+            cfg = dataclasses.replace(GRANITE_8B, n_layers=TRAIN["n_layers"])
+            host_batch = SyntheticTokenDataset(
+                cfg, TRAIN["batch"], TRAIN["seq"], seed=0).batch_at(0)
+            opt_cfg = AdamWConfig(lr=TRAIN_LEARN["lr"], warmup_steps=0)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            host_params = map_leaves(lambda _k, t: t.cpu(),
+                                     get_model(cfg).init_params(gen, cfg))
+            rows, base = {}, None
+            for label, (on, tiering) in MESH_LEGS.items():
+                rows[label], base = mesh_leg(
+                    label, cfg, host_params, host_batch, opt_cfg, tiering,
+                    mesh if on else None, base, smi)
+            want = rows["no mesh"]["launches"]["flash_attention"]
+            require(want == 2 * cfg.n_layers,
+                    f"[mesh] B2 launches a step {want} != {2 * cfg.n_layers}")
+            for label, row in rows.items():
+                got = row["launches"]["flash_attention"]
+                require(got == want, f"[mesh] {label}: B2 launches a step "
+                                     f"{got} != {want} without a mesh")
+            del base, host_params
+            release_memory()
+            t_l = time.perf_counter()
+            res = launch_train.main(MESH_LAUNCH)
+            require(len(res.losses) == 3 and res.losses[-1] < res.losses[0],
+                    f"[mesh] launch.train {' '.join(MESH_LAUNCH)}: losses "
+                    f"{res.losses} do not fall")
+            print(f"[mesh] launch.train {' '.join(MESH_LAUNCH)}: losses "
+                  f"{[round(x, 4) for x in res.losses]} "
+                  f"({time.perf_counter() - t_l:.1f} s)")
+        finally:
+            dist.destroy_process_group()
+    print(f"[mesh] done in {time.perf_counter() - t0:.1f} s; {smi}")
+    return {"launches": rows["mesh"]["launches"], "rows": rows}
+
+
 # -- 6. kernel times ----------------------------------------------------------
 def phase_times(mm_data, fa_data, ssd_data) -> dict:
     x, w = mm_data
@@ -2856,7 +3056,9 @@ def main() -> None:
     del mm_data, fa_data, ssd_data, fa_models, ssd_models
     release_memory()
     trained = phase_train(dev["smi"])
-    steps = {"granite-8b": trained["launches"], **{
+    meshed = phase_mesh(dev["smi"])
+    steps = {"granite-8b": trained["launches"],
+             "granite-8b mesh": meshed["launches"], **{
         model: rows["untiered"]["launches"]
         for model, rows in trained["model_rows"].items()}}
     for model, launches in steps.items():

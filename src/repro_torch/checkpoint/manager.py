@@ -21,7 +21,14 @@ It mirrors DOLMA's reliability design:
   * only objects dirty since the last checkpoint are rewritten (delta
     checkpoints by per-leaf content hashes, as hard links);
   * writes go to ``<dir>/tmp.<prefix>.<step>`` and are renamed into place,
-    so a crash mid-write never corrupts the latest complete checkpoint.
+    so a crash mid-write never corrupts the latest complete checkpoint;
+  * arrays are saved whole (logical, unsharded), so a restart may use
+    another mesh: :meth:`CheckpointManager.restore` lays each leaf onto the
+    new mesh's placements (``shardings=``), the elastic restart.
+
+Under a device mesh every rank calls :meth:`CheckpointManager.save`: each
+DTensor leaf is gathered whole on every rank (every rank must join the
+collective), and rank 0 alone writes.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.objects import _leaves_with_keys
 from repro_torch.core.tiering import map_leaves
@@ -42,11 +50,26 @@ from repro_torch.core.tiering import map_leaves
 _V2 = np.dtype("V2")
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor leaf gathered whole (a collective every rank joins); a
+    shard that lives in host memory (a REMOTE leaf) goes to the mesh's
+    device for it."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t
+    local = t.to_local().detach()
+    if local.device.type != t.device_mesh.device_type:
+        t = DTensor.from_local(local.to(t.device_mesh.device_type),
+                               t.device_mesh, t.placements, run_check=False)
+    return t.full_tensor()
+
+
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """A copy of ``t`` on the host: a leaf that already lives there (a
     REMOTE parameter or moment) is updated in place by the next step while
     the writer thread still reads the snapshot."""
-    t = t.detach().to("cpu", copy=True).contiguous()
+    t = _whole(t).detach().to("cpu", copy=True).contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(_V2)
     return t.numpy()
@@ -72,9 +95,39 @@ def _unflatten_like(template: Any, flat: dict[str, np.ndarray], prefix: str):
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"checkpoint leaf {prefix + key}: {arr.shape} != "
                              f"{tuple(like.shape)}")
-        return _from_numpy(arr, like)
+        out = _from_numpy(arr, like)
+        return _laid_like(out, like)
 
     return map_leaves(leaf, template)
+
+
+def _laid_like(whole: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``whole`` laid out as the template leaf ``like``: a DTensor template
+    gives a DTensor with its placements on its mesh's device."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if not isinstance(like, DTensor):
+        return whole
+    mesh = like.device_mesh
+    return distribute_tensor(whole.to(mesh.device_type), mesh,
+                             like.placements, src_data_rank=None)
+
+
+def _resharded(tree: Any, shardings: Any) -> Any:
+    """Each leaf of ``tree`` as a DTensor with its sharding in
+    ``shardings`` (the same structure)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    by_key = dict(_leaves_with_keys(shardings))
+
+    def put(key: str, t: torch.Tensor) -> torch.Tensor:
+        sh = by_key[key]
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        return distribute_tensor(t.to(sh.mesh.device_type), sh.mesh,
+                                 sh.placements, src_data_rank=None)
+
+    return map_leaves(put, tree)
 
 
 class CheckpointManager:
@@ -92,9 +145,12 @@ class CheckpointManager:
     # -- save --------------------------------------------------------------
     def save(self, step: int, params: Any, opt_state: Any, *,
              metadata: dict | None = None, blocking: bool = False) -> None:
-        """Snapshot to host, then persist asynchronously."""
+        """Snapshot to host, then persist asynchronously (on rank 0 alone
+        when a process group is up)."""
         snap = {"params": _flatten(params, "params"),
                 "opt": _flatten(opt_state, "opt")}
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         meta = dict(metadata or {})
         meta["step"] = step
         meta["time"] = time.time()
@@ -212,19 +268,22 @@ class CheckpointManager:
     def restore(self, params_template: Any, opt_template: Any, *,
                 shardings: tuple | None = None):
         """Load the latest checkpoint: each leaf a tensor of its template
-        leaf's dtype, on its device. ``shardings`` (the reference's elastic
-        re-sharding onto a new mesh) waits for ROADMAP A11."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "CheckpointManager.restore: shardings wait for the sharding "
-                "slice (ROADMAP A11)")
+        leaf's dtype, on its device (a DTensor template leaf: on its mesh's
+        device). With ``shardings`` = (params', opt state's) trees of
+        :class:`~repro_torch.models.sharding.NamedSharding` (the
+        reference's elastic restart onto a new mesh), each leaf becomes a
+        DTensor with its sharding, every rank keeping its own block of
+        the whole array it read."""
         d = self.latest_dir()
         if d is None:
             return None
         meta = json.loads((d / "meta.json").read_text())
         flat = {key: np.load(d / entry["file"])
                 for key, entry in meta["manifest"].items()}
-        return {"step": meta["step"],
-                "params": _unflatten_like(params_template, flat, "params"),
-                "opt_state": _unflatten_like(opt_template, flat, "opt"),
+        params = _unflatten_like(params_template, flat, "params")
+        opt = _unflatten_like(opt_template, flat, "opt")
+        if shardings is not None:
+            p_sh, o_sh = shardings
+            params, opt = _resharded(params, p_sh), _resharded(opt, o_sh)
+        return {"step": meta["step"], "params": params, "opt_state": opt,
                 "metadata": meta}

@@ -76,7 +76,7 @@ def resolve_device(device: str | torch.device) -> torch.device:
                 "device='cpu' to run the plain versions on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):  # meta: shapes only, no data
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -38,6 +38,13 @@ class PlacementPlan:
     # memory-node id -> remote bytes homed there (stripe-period load balance)
     node_load: Mapping[int, int] = dataclasses.field(default_factory=dict)
     n_nodes: int = 1
+    # where a train step's REMOTE leaves live: host memory ("host",
+    # host_offload) or the peers' HBM over a mesh axis ("peer",
+    # fsdp_stream; see repro_torch.core.tiering)
+    remote_medium: str = "host"
+    # the REMOTE leaves a "peer" plan's placement split, each with the mesh
+    # axis it split it over: the layer loop gathers their layers
+    peer_split: Mapping[str, str] = dataclasses.field(default_factory=dict)
 
     @property
     def local_fraction(self) -> float:

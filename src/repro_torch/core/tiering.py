@@ -1,18 +1,24 @@
 """DOLMA placement applied to a model's parameters and optimizer state, and
 the layer loop's dual buffer with sqrt-L checkpointing.
 
-The port of ``repro.core.tiering``. One backend so far:
+The port of ``repro.core.tiering``. Two backends realize a plan:
 
 * ``host_offload`` — REMOTE leaves live in host memory (pinned when the
   model runs on a card): HBM is the local tier, host DRAM the remote tier.
   :func:`place_params` and :func:`place_state` put every leaf where its
   tier says; :func:`tiered_scan` streams each layer's REMOTE slices to the
   device through a :class:`~repro_torch.core.exec.HostFetchEngine` (a copy
-  stream and CUDA events).
+  stream and CUDA events). Under a device mesh the leaves are DTensors and
+  each rank keeps its own local shard of a REMOTE leaf on the host.
+* ``fsdp_stream`` (the default, as in the reference) — under a mesh, REMOTE
+  leaves are split over the ``fsdp_axis`` (``data``): a stacked leaf on its
+  layer dim where the axis divides it, otherwise on a weight dim its spec
+  left whole (:func:`leaf_sharding`). Peer HBM is the remote tier:
+  :func:`tiered_scan` gathers layer i+1 with an asynchronous collective
+  posted before layer i computes, and waits on its work handle at first
+  use. Without a mesh there is no peer, and every leaf stays on the device.
 
-``mode="none"`` keeps every leaf on the device. The reference's
-``fsdp_stream`` (peer HBM as the remote tier) and a mesh for
-:func:`remote_carry_placer` wait for the sharding slice (ROADMAP A11).
+``mode="none"`` keeps every leaf on the device.
 
 :func:`tiered_scan` is the single engine of the layer loop. It composes
 the dual buffer with activation checkpointing:
@@ -49,11 +55,14 @@ device and writes them back.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
-from typing import Any, Callable, Literal
+import re
+from typing import Any, Callable, Literal, Mapping
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.exec import HostFetchEngine, host_tensor, resolve_device
@@ -85,18 +94,17 @@ class TieringConfig:
     into the train step.
     """
 
-    mode: TieringMode = "none"
+    mode: TieringMode = "fsdp_stream"
     local_fraction: float | str = 1.0
     degradation_target: float = 0.16
     prefetch: bool = True
     prefetch_under_remat: bool = True
+    # the mesh axis fsdp_stream splits the REMOTE leaves over (the plan
+    # names the leaves it split, and this axis, in ``peer_split``)
+    fsdp_axis: str = "data"
 
     def __post_init__(self):
-        if self.mode == "fsdp_stream":
-            raise NotImplementedError(
-                "TieringConfig: mode 'fsdp_stream' waits for the sharding "
-                "slice (ROADMAP A11); use 'host_offload' or 'none'")
-        if self.mode not in ("none", "host_offload"):
+        if self.mode not in ("none", "host_offload", "fsdp_stream"):
             raise ValueError(f"TieringConfig: unknown mode {self.mode!r}")
 
 
@@ -162,11 +170,115 @@ def map_leaves(fn: Callable[[str, torch.Tensor], torch.Tensor], tree: Any,
     return fn(key, tree)
 
 
-def _placer(plan: PlacementPlan, prefix: str, dev: torch.device):
+def _is_dtensor(t) -> bool:
+    return isinstance(t, DTensor)
+
+
+def local_part(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (differentiably); a plain tensor itself."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+def like_global(local: torch.Tensor, like: torch.Tensor, placements=None):
+    """``local`` as the local shard of a DTensor on ``like``'s mesh (with
+    ``like``'s placements unless given); ``local`` itself when ``like`` is
+    a plain tensor."""
+    if not _is_dtensor(like):
+        return local
+    return DTensor.from_local(local, like.device_mesh,
+                              like.placements if placements is None
+                              else placements, run_check=False)
+
+
+def _mesh_of(tree: Any):
+    for _, t in _leaves_with_keys(tree):
+        if _is_dtensor(t):
+            return t.device_mesh
+    return None
+
+
+#: The stacked layer groups: their leaves' leading dim is the layer.
+STACKS = ("layers", "dense_layers", "enc_layers", "dec_layers")
+
+
+def _path(name: str) -> list[str]:
+    """The dict keys of a plan name (``"opt['m']['layers']['wq']"`` ->
+    ``['layers', 'wq']``: a moment's keys are its parameter's)."""
+    keys = re.findall(r"\['([^']*)'\]", name)
+    if name.startswith("opt") and keys[:1] in (["m"], ["v"]):
+        keys = keys[1:]
+    return keys
+
+
+def leaf_sharding(mesh, placements: tuple, *, tier: Tier,
+                  config: TieringConfig, shape: tuple[int, ...],
+                  stacked: bool) -> tuple[tuple, str]:
+    """A leaf's placements and memory under ``config`` given its DOLMA
+    tier: ``(placements, "device" | "host")``.
+
+    ``host_offload`` keeps a REMOTE leaf's placements and puts each rank's
+    local shard in host memory (pinned where
+    :func:`supports_host_offload_spmd`). ``fsdp_stream`` splits a REMOTE
+    leaf over ``config.fsdp_axis`` where it is whole on that axis: a
+    stacked leaf on its layer dim when the axis divides it (and nothing
+    else splits that dim), otherwise the first weight dim (past the layer
+    dim; a matrix or larger) that nothing splits and the axis divides, as
+    the reference's ``fsdp`` names pick one. A LOCAL leaf keeps its
+    placements on the device."""
+    placements = tuple(placements)
+    if tier is not Tier.REMOTE:
+        return placements, "device"
+    if config.mode == "host_offload":
+        return placements, "host"
+    names = tuple(mesh.mesh_dim_names)
+    if config.mode != "fsdp_stream" or config.fsdp_axis not in names:
+        return placements, "device"
+    m = names.index(config.fsdp_axis)
+    n = mesh.shape[m]
+    if n == 1 or placements[m] != Replicate():  # an axis of one splits nothing
+        return placements, "device"
+    split = {pl.dim for pl in placements if pl.is_shard()}
+    lead = 1 if stacked else 0
+    dims = [0] if stacked else []
+    if len(shape) - lead >= 2:
+        dims += list(range(lead, len(shape)))
+    for d in dims:
+        if d not in split and shape[d] % n == 0:
+            return placements[:m] + (Shard(d),) + placements[m + 1:], "device"
+    return placements, "device"
+
+
+def supports_host_offload_spmd(mesh) -> bool:
+    """Whether each rank's local shard of a REMOTE leaf can live in pinned
+    host memory behind the copy stream: True on a CUDA mesh with a card,
+    False on the CPU (whose shards stay ordinary host tensors)."""
+    return mesh.device_type == "cuda" and torch.cuda.is_available()
+
+
+def _placer(plan: PlacementPlan, prefix: str, dev: torch.device,
+            config: TieringConfig, split: dict[str, str]):
+    """The placement of each leaf of ``plan`` under ``prefix``; a leaf
+    split over ``config.fsdp_axis`` is recorded in ``split``."""
     pin = dev.type == "cuda"
 
     def place(key: str, t: torch.Tensor) -> torch.Tensor:
-        if plan.tier_of(prefix + key) is Tier.REMOTE:
+        tier = plan.tier_of(prefix + key)
+        if _is_dtensor(t):
+            mesh = t.device_mesh
+            pl, memory = leaf_sharding(
+                mesh, t.placements, tier=tier, config=config,
+                shape=tuple(t.shape),
+                stacked=_path(prefix + key)[:1] in [[g] for g in STACKS])
+            t = t.detach()
+            if memory == "host":
+                return like_global(host_tensor(t.to_local().to(
+                    "cpu", copy=True), pin=supports_host_offload_spmd(mesh)),
+                    t)
+            if tuple(t.placements) == pl:
+                return t
+            split[prefix + key] = config.fsdp_axis
+            return t.redistribute(mesh, pl)
+        if tier is Tier.REMOTE and config.mode == "host_offload":
             # a copy: the train step writes REMOTE leaves back in place
             return host_tensor(t.detach().to("cpu", copy=True), pin=pin)
         return t.detach().to(dev)
@@ -174,20 +286,49 @@ def _placer(plan: PlacementPlan, prefix: str, dev: torch.device):
     return place
 
 
+def _unplanned(config: TieringConfig, tree: Any) -> bool:
+    """Whether ``config`` places nothing: ``none``, or ``fsdp_stream``
+    without a mesh (no peer to stream from)."""
+    return config.mode == "none" or (
+        config.mode == "fsdp_stream" and _mesh_of(tree) is None)
+
+
+def _placed(plan: PlacementPlan, config: TieringConfig, dev: torch.device,
+            **trees: Any) -> tuple[list, PlacementPlan]:
+    """Each of ``trees`` (a plan prefix -> its tree) placed by ``plan``,
+    and the plan with where its REMOTE leaves went: under ``fsdp_stream``
+    the peers' HBM, and the leaves split there (``peer_split``)."""
+    split: dict[str, str] = {}
+    out = [map_leaves(_placer(plan, prefix, dev, config, split), tree)
+           for prefix, tree in trees.items()]
+    if config.mode == "fsdp_stream":
+        plan = dataclasses.replace(plan, remote_medium="peer",
+                                   peer_split=split)
+    return out, plan
+
+
+def _to(dev: torch.device):
+    return lambda _k, t: t if _is_dtensor(t) else t.to(dev)
+
+
 def place_params(params: Any, config: TieringConfig, *,
                  device: str | torch.device = "cuda",
                  ) -> tuple[Any, PlacementPlan | None]:
     """Put every leaf where ``config`` says; returns (params, plan).
 
-    ``mode="none"``: every leaf on ``device``, no plan. ``host_offload``:
-    :func:`plan_for_params` decides; a REMOTE leaf moves to host memory
-    (pinned when ``device`` is a card), a LOCAL one to ``device``.
+    ``mode="none"`` (and ``fsdp_stream`` on plain tensors): every leaf on
+    ``device``, no plan. Otherwise :func:`plan_for_params` decides and
+    :func:`leaf_sharding` says where each leaf goes: under
+    ``host_offload`` a REMOTE leaf (a DTensor's local shard) moves to host
+    memory, pinned when ``device`` is a card; under ``fsdp_stream`` it is
+    split over the mesh's ``fsdp_axis``; a LOCAL leaf goes to ``device``.
     """
     dev = resolve_device(device)
-    if config.mode == "none":
-        return map_leaves(lambda _k, t: t.to(dev), params), None
-    plan = plan_for_params(params, config=config)
-    return map_leaves(_placer(plan, "params", dev), params), plan
+    if _unplanned(config, params):
+        return map_leaves(_to(dev), params), None
+    (params,), plan = _placed(plan_for_params(params, config=config), config,
+                              dev, params=params)
+    return params, plan
 
 
 def place_state(params: Any, opt_state: Any, config: TieringConfig, *,
@@ -196,12 +337,13 @@ def place_state(params: Any, opt_state: Any, config: TieringConfig, *,
     """:func:`place_params` over a train step's parameters *and* optimizer
     state, one plan for both: returns (params, opt_state, plan)."""
     dev = resolve_device(device)
-    if config.mode == "none":
-        to = lambda _k, t: t.to(dev)  # noqa: E731
-        return map_leaves(to, params), map_leaves(to, opt_state), None
-    plan = plan_for_params(params, config=config, opt_state=opt_state)
-    return (map_leaves(_placer(plan, "params", dev), params),
-            map_leaves(_placer(plan, "opt", dev), opt_state), plan)
+    if _unplanned(config, params):
+        return map_leaves(_to(dev), params), map_leaves(_to(dev),
+                                                        opt_state), None
+    (params, opt_state), plan = _placed(
+        plan_for_params(params, config=config, opt_state=opt_state), config,
+        dev, params=params, opt=opt_state)
+    return params, opt_state, plan
 
 
 def supports_host_offload(device: str | torch.device = "cuda") -> bool:
@@ -217,13 +359,30 @@ def supports_host_offload(device: str | torch.device = "cuda") -> bool:
     return torch.device(device).type == "cuda" and torch.cuda.is_available()
 
 
+def host_names(plan: PlacementPlan | None) -> list[str]:
+    """The plan's REMOTE leaves that live in host memory: all of them under
+    ``host_offload``, none under ``fsdp_stream`` (peer HBM)."""
+    if plan is None or plan.remote_medium != "host":
+        return []
+    return plan.remote_names()
+
+
 def remote_keys(plan: PlacementPlan | None, prefix: str) -> frozenset[str]:
     """The keys, relative to ``prefix`` (``"params['layers']"``), of the
-    plan's REMOTE leaves under it."""
-    if plan is None:
-        return frozenset()
-    return frozenset(n[len(prefix):] for n in plan.remote_names()
+    plan's REMOTE leaves under it that live in host memory."""
+    return frozenset(n[len(prefix):] for n in host_names(plan)
                      if n.startswith(prefix))
+
+
+def peer_keys(plan: PlacementPlan | None, prefix: str) -> dict[str, str]:
+    """The keys, relative to ``prefix``, of the leaves under it that
+    :func:`place_state` split over a mesh axis into the peers' HBM
+    (``fsdp_stream``'s REMOTE leaves), each with that axis: what
+    :func:`tiered_scan` gathers layer by layer."""
+    if plan is None:
+        return {}
+    return {n[len(prefix):]: a for n, a in plan.peer_split.items()
+            if n.startswith(prefix)}
 
 
 # ---------------------------------------------------------------------------
@@ -313,6 +472,127 @@ class RemoteGrads:
 
     def reset(self) -> None:
         self.grads = {}
+
+
+class _Gathered(torch.autograd.Function):
+    """Layer i of a stacked leaf split over a mesh axis, as a collective
+    gathered it (``full``), attached to the rank's local shard ``local``:
+    the backward puts this rank's part of the layer's gradient (which
+    arrives whole: the DTensor around ``full`` is replicated on that axis)
+    into a zero gradient of the shard, as indexing a local leaf does."""
+
+    @staticmethod
+    def forward(ctx, local, full, scatter):
+        ctx.scatter = scatter
+        ctx.like = (local.shape, local.dtype, local.device)
+        return full.view_as(full)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.like
+        grad = torch.zeros(shape, dtype=dtype, device=device)
+        ctx.scatter(grad, g)
+        return grad, None, None
+
+
+def split_on(t: torch.Tensor, axis: str) -> bool:
+    """Whether ``t`` is a DTensor split over the mesh axis ``axis``."""
+    return (_is_dtensor(t) and axis in (t.device_mesh.mesh_dim_names or ())
+            and t.placements[t.device_mesh.mesh_dim_names.index(axis)]
+            .is_shard())
+
+
+def _slice_placements(placements, m: int) -> tuple:
+    """A stacked leaf's placements for one layer of it: mesh dim ``m``
+    gathered, every other split one dim lower."""
+    out = []
+    for j, pl in enumerate(placements):
+        if j == m or not pl.is_shard():
+            out.append(Replicate() if j == m else pl)
+        elif pl.dim == 0:
+            raise ValueError("tiered_scan: a stacked leaf's layer dim is split "
+                             "over a mesh axis other than the gathered one")
+        else:
+            out.append(Shard(pl.dim - 1))
+    return tuple(out)
+
+
+#: Collectives posted by :func:`_post_gather`, by kind (``"broadcast"``:
+#: a layer of a leaf split on its layer dim; ``"all_gather"``: a layer of
+#: a leaf split on a weight dim). On an axis of one nothing is split, so
+#: nothing is posted.
+GATHERS: collections.Counter = collections.Counter()
+
+
+def _scatter_row(grad: torch.Tensor, g: torch.Tensor, j: int,
+                 owns: bool) -> None:
+    """A broadcast layer's gradient ``g`` into row ``j`` of the owner's
+    shard gradient ``grad`` (the other ranks' shards hold no part of it)."""
+    if owns:
+        grad[j] = g
+
+
+def _scatter_part(grad: torch.Tensor, g: torch.Tensor, i: int, d: int,
+                  r: int, c: int) -> None:
+    """Rank ``r``'s part (``c`` wide on dim ``d``) of an all-gathered
+    layer's gradient ``g`` into row ``i`` of its shard gradient ``grad``."""
+    grad[i] = g.narrow(d, r * c, c)
+
+
+def _post_gather(t: torch.Tensor, i: int, axis: str):
+    """Post the collective that gathers layer ``i`` of the stacked DTensor
+    ``t`` over the mesh axis ``axis``: a broadcast from the rank holding
+    that layer where the axis splits the layer dim, an all-gather of every
+    rank's part otherwise. Returns ``acquire() -> DTensor``: it waits on
+    the collective's work handle and gives the layer, replicated on
+    ``axis``."""
+    import torch.distributed as dist
+
+    mesh = t.device_mesh
+    m = mesh.mesh_dim_names.index(axis)
+    group, r, n = mesh.get_group(m), mesh.get_local_rank(m), mesh.shape[m]
+    d = t.placements[m].dim
+    local = t.to_local()
+    data = local.detach()
+    if d == 0:
+        GATHERS["broadcast"] += 1
+        per = data.shape[0]
+        owner, j = divmod(i, per)
+        buf = (data[j].contiguous() if r == owner else
+               torch.empty(data.shape[1:], dtype=data.dtype,
+                           device=data.device))
+        work = dist.broadcast(buf, src=dist.get_global_rank(group, owner),
+                              group=group, async_op=True)
+
+        def scatter(grad, g):
+            _scatter_row(grad, g, j, r == owner)
+
+        def full():
+            return buf
+    else:
+        GATHERS["all_gather"] += 1
+        part = data[i].contiguous()
+        out = torch.empty((n, *part.shape), dtype=data.dtype,
+                          device=data.device)
+        gather = getattr(dist, "all_gather_single",
+                         dist.all_gather_into_tensor)
+        work = gather(out.flatten(0, 1), part, group=group, async_op=True)
+        c = part.shape[d - 1]
+
+        def scatter(grad, g):
+            _scatter_part(grad, g, i, d - 1, r, c)
+
+        def full():
+            return out.movedim(0, d - 1).reshape(
+                *part.shape[:d - 1], n * c, *part.shape[d:])
+
+    pl = _slice_placements(t.placements, m)
+
+    def acquire():
+        work.wait()
+        return like_global(_Gathered.apply(local, full(), scatter), t, pl)
+
+    return acquire
 
 
 # ---------------------------------------------------------------------------
@@ -408,6 +688,7 @@ def tiered_scan(
     with_index: bool = False,
     grads: RemoteGrads | None = None,
     prefix: str = "",
+    peer: Mapping[str, str] | None = None,
 ):
     """Run ``layer_fn(carry, layer_params)`` over ``n_layers`` stacked layers
     (``layer_fn(carry, layer_params, i)`` with ``with_index``, so that a
@@ -437,30 +718,56 @@ def tiered_scan(
     Depths below ``min_layers`` checkpoint each layer alone (``n_outer =
     n_layers``). ``remote_carry_fn`` is applied to each saved block carry
     (:func:`remote_carry_placer`).
+
+    Under a device mesh the leaves are DTensors. A REMOTE leaf's slice is
+    this rank's local shard, copied as above and made a DTensor again. The
+    leaves named in ``peer`` (key -> mesh axis, :func:`peer_keys` of an
+    ``fsdp_stream`` plan) live split over that axis in the peers' HBM:
+    each is gathered layer by layer with an asynchronous collective
+    (:func:`_post_gather`), posted where a host copy is posted and waited
+    on where a host copy is acquired; prefetch on and off run the same
+    collectives on the same data.
     """
     _check_stack_depth(stacked_params, n_layers)
     leaves = dict(_leaves_with_keys(stacked_params))
-    unknown = remote - leaves.keys()
+    peer = dict(peer or {})
+    unknown = (remote | peer.keys()) - leaves.keys()
     if unknown:
         raise ValueError(f"tiered_scan: remote leaves {sorted(unknown)} are "
                          f"not in stacked_params")
     if remote and engine is None:
         raise ValueError("tiered_scan: remote leaves need a HostFetchEngine")
 
-    def post(i: int):
-        if not remote:
-            return None
-        return engine.fetch(f"layer{i}", {k: leaves[k][i] for k in remote},
-                            pace=False)
+    whole = sorted(k for k, a in peer.items() if not split_on(leaves[k], a))
+    if whole:
+        raise ValueError(f"tiered_scan: peer leaves {whole} are not split "
+                         f"over their mesh axes")
 
-    def layer(i: int, fut) -> Any:
-        flat = {k: t[i] for k, t in leaves.items() if k not in remote}
+    def post(i: int):
+        fut = None
+        if remote:
+            fut = engine.fetch(f"layer{i}", {
+                k: local_part(leaves[k]).detach()[i] for k in remote},
+                pace=False)
+        return fut, {k: _post_gather(leaves[k], i, peer[k])
+                     for k in sorted(peer)}
+
+    def layer(i: int, posted) -> Any:
+        fut, pending = posted
+        flat = {k: t[i] for k, t in leaves.items()
+                if k not in remote and k not in peer}
         if fut is not None:
             got = engine.acquire(fut)
-            if grads is not None:
-                got = {k: grads.attach(prefix + k, i, t, leaves[k].shape)
-                       for k, t in got.items()}
-            flat.update(got)
+            for k, t in got.items():
+                like = leaves[k]
+                if grads is not None:
+                    t = grads.attach(prefix + k, i, t,
+                                     local_part(like).shape)
+                if _is_dtensor(like):
+                    t = like_global(t, like,
+                                    _slice_placements(like.placements, -1))
+                flat[k] = t
+        flat.update({k: acquire() for k, acquire in pending.items()})
         return _unflatten(flat, stacked_params)
 
     def call(c, p, i: int):
@@ -521,17 +828,39 @@ def tiered_scan(
 def remote_carry_placer(mesh: Any, config: TieringConfig | None = None, *,
                         spec_fn: Callable | None = None,
                         ) -> Callable[[Any], Any] | None:
-    """A ``remote_carry_fn`` that places saved block carries off HBM.
+    """A ``remote_carry_fn`` that places saved block carries on the remote
+    tier; ``None`` without a mesh, as the reference's single-host case.
 
-    ``None`` without a mesh, as the reference's single-host case. The
-    reference constrains each saved carry to its logical spec (on pinned
-    host memory where the SPMD partitioner accepts it); meshes wait for the
-    sharding slice (ROADMAP A11)."""
+    Under a mesh each saved carry leaf of two or more dims (a DTensor) is
+    redistributed to the placements of its logical spec, ``spec_fn(leaf)``
+    (a :class:`~repro_torch.models.sharding.P`; replicated by default):
+    split over the batch and sequence axes, each rank keeps only its share
+    of the saved activations, the peers' HBM as the remote tier (the
+    reference's ``fsdp_stream`` realization). The reference moves them to
+    pinned host memory where XLA's partitioner accepts that memory kind;
+    the port keeps them on the devices."""
     if mesh is None:
         return None
-    raise NotImplementedError(
-        "remote_carry_placer: a device mesh waits for the sharding slice "
-        "(ROADMAP A11)")
+    from repro_torch.models.sharding import P, to_placements
+
+    def place_leaf(leaf):
+        if not _is_dtensor(leaf) or leaf.ndim < 2:  # scalars, small aux
+            return leaf
+        spec = spec_fn(leaf) if spec_fn is not None else P(
+            *([None] * leaf.ndim))
+        placements = to_placements(spec, mesh)
+        if tuple(leaf.placements) == placements:
+            return leaf
+        return leaf.redistribute(mesh, placements)
+
+    def place(c):
+        if isinstance(c, (tuple, list)):
+            return type(c)(place(x) for x in c)
+        if isinstance(c, dict):
+            return {k: place(v) for k, v in c.items()}
+        return place_leaf(c)
+
+    return place
 
 
 # ---------------------------------------------------------------------------

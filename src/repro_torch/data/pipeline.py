@@ -110,9 +110,21 @@ def to_device_fn(device: str | torch.device = "cuda",
     return put
 
 
-def device_put_fn(mesh, pspec_tree_fn):
-    """The reference's ``put_fn`` that lands host batches in their sharded
-    layout over a device mesh: meshes wait for the sharding slice."""
-    raise NotImplementedError(
-        "device_put_fn: a device mesh waits for the sharding slice "
-        "(ROADMAP A11); use to_device_fn(device)")
+def device_put_fn(mesh, pspec_tree_fn: Callable[[dict], Any], *,
+                  dtype: torch.dtype = torch.float32
+                  ) -> Callable[[dict], dict]:
+    """``put_fn`` that lands a host batch in its sharded layout over
+    ``mesh``: each leaf a DTensor with the placements of its spec in
+    ``pspec_tree_fn(batch)`` (``lambda b: batch_pspec_tree(b, mesh)``),
+    every rank keeping its own block of the batch it drew (the draw is a
+    function of (seed, step), so every rank draws the same). The types are
+    :func:`to_device_fn`'s."""
+    from repro_torch.models.sharding import distribute_tree
+
+    to_dev = to_device_fn(mesh.device_type, dtype)
+
+    def put(batch: dict) -> dict:
+        out = to_dev(batch)
+        return distribute_tree(out, pspec_tree_fn(out), mesh)
+
+    return put

@@ -1,7 +1,9 @@
-"""Family dispatch and batch construction.
+"""Family dispatch and batch construction (real tensors, and shape-only
+stand-ins on the ``meta`` device).
 
-A port of part of ``repro.models.api``; ``batch_specs`` and
-``decode_specs`` wait for the sharding slice (ROADMAP A11).
+A port of ``repro.models.api``. The reference's ``jax.ShapeDtypeStruct``
+and ``jax.eval_shape`` trees become trees of ``meta`` tensors: shapes and
+types, no storage.
 """
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.core.exec import resolve_device
 from repro_torch.models import encdec, transformer
 
@@ -20,6 +22,31 @@ def get_model(cfg: ModelConfig) -> types.ModuleType:
     if cfg.family in ("encdec", "audio"):
         return encdec
     return transformer
+
+
+def batch_specs(cfg: ModelConfig, cell: ShapeCell) -> dict[str, Any]:
+    """Meta-tensor stand-ins for one train/prefill batch (no allocation)."""
+    B, S = cell.global_batch, cell.seq_len
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    specs: dict[str, Any] = {"tokens": meta((B, S), torch.int32),
+                             "labels": meta((B, S), torch.int32)}
+    if cfg.family in ("encdec", "audio"):
+        specs["frames"] = meta((B, cfg.frontend_len, cfg.d_model), cfg.dtype)
+    if cfg.family == "vlm":
+        specs["patches"] = meta((B, cfg.frontend_len, cfg.d_model), cfg.dtype)
+    return specs
+
+
+def decode_specs(cfg: ModelConfig, cell: ShapeCell) -> tuple[Any, Any]:
+    """(cache, tokens) stand-ins for a serve step at context
+    ``cell.seq_len``: the model's decode cache built on the ``meta``
+    device."""
+    B, S = cell.global_batch, cell.seq_len
+    cache = get_model(cfg).init_decode_cache(cfg, B, S, device="meta")
+    return cache, torch.empty((B, 1), dtype=torch.int32, device="meta")
 
 
 def make_batch(cfg: ModelConfig, gen: torch.Generator, batch: int, seq: int,

@@ -45,10 +45,12 @@ from repro_torch.core.placement import PlacementPlan
 from repro_torch.core.tiering import (
     RemoteGrads,
     map_leaves,
+    peer_keys,
     remote_keys,
     tiered_scan,
 )
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import constrain, replicate_like
 from repro_torch.models.transformer import (
     _dense_layer_init,
     _engine,
@@ -80,8 +82,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     return map_leaves(lambda _k, t: t.to(dev), p)
 
 
-def _positions(B: int, S: int, dev: torch.device) -> torch.Tensor:
-    return torch.arange(S, device=dev).expand(B, S)
+def _positions(B: int, S: int, like: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions on ``like``'s device (replicated on its mesh when
+    ``like`` is a DTensor)."""
+    return replicate_like(torch.arange(S, device=like.device).expand(B, S),
+                          like)
 
 
 def _encode(frames, cfg: ModelConfig, fetch: _Fetcher, *, remat: str,
@@ -89,19 +94,22 @@ def _encode(frames, cfg: ModelConfig, fetch: _Fetcher, *, remat: str,
     """The encoder over ``fetch``'s placement: (B, F, d) frames -> (B, F,
     d) in the model's dtype."""
     B, F, _ = frames.shape
-    positions = _positions(B, F, frames.device)
+    positions = _positions(B, F, frames)
+    x = constrain(frames.to(cfg.dtype), "batch", "seq_sp", None)
 
     def layer(c, p):
-        c = c + L.gqa_attention(p["attn"], L.rmsnorm(p["ln1"], c), cfg,
-                                positions=positions, causal=False)
-        return c + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], c))
+        c = c + L.as_carry(L.gqa_attention(p["attn"], L.whole_seq(L.rmsnorm(
+            p["ln1"], c)), cfg, positions=positions, causal=False))
+        c = c + L.as_carry(L.mlp(p["mlp"], L.whole_seq(L.rmsnorm(
+            p["ln2"], c))))
+        return constrain(c, "batch", "seq_sp", None)
 
     x = scan_stacked_layers(
-        layer, frames.to(cfg.dtype), fetch.params["enc_layers"],
+        layer, x, fetch.params["enc_layers"],
         cfg.n_encoder_layers, remat=remat, prefetch=prefetch,
         prefetch_under_remat=prefetch_under_remat,
         **fetch.scan_kw("enc_layers"))
-    return L.rmsnorm(fetch("ln_enc"), x)
+    return L.whole_seq(L.rmsnorm(fetch("ln_enc"), x))
 
 
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *,
@@ -127,15 +135,18 @@ def _forward(params, batch, cfg: ModelConfig, fetch: _Fetcher, *, remat: str,
                   prefetch_under_remat=prefetch_under_remat)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    positions = _positions(B, S, tokens.device)
-    x = L.embed(fetch("embed"), tokens, cfg)
+    positions = _positions(B, S, tokens)
+    x = constrain(L.embed(fetch("embed"), tokens, cfg), "batch", "seq_sp",
+                  None)
 
     def layer(c, p):
-        c = c + L.gqa_attention(p["attn"], L.rmsnorm(p["ln1"], c), cfg,
-                                positions=positions, causal=True)
-        c = c + L.gqa_attention(p["cross"], L.rmsnorm(p["ln_x"], c), cfg,
-                                positions=positions, kv=enc)
-        return c + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], c))
+        c = c + L.as_carry(L.gqa_attention(p["attn"], L.whole_seq(L.rmsnorm(
+            p["ln1"], c)), cfg, positions=positions, causal=True))
+        c = c + L.as_carry(L.gqa_attention(p["cross"], L.whole_seq(
+            L.rmsnorm(p["ln_x"], c)), cfg, positions=positions, kv=enc))
+        c = c + L.as_carry(L.mlp(p["mlp"], L.whole_seq(L.rmsnorm(
+            p["ln2"], c))))
+        return constrain(c, "batch", "seq_sp", None)
 
     x = scan_stacked_layers(
         layer, x, params["dec_layers"], cfg.n_layers, remat=remat,
@@ -229,8 +240,10 @@ def _layer_scan(body, x, params: Params, caches: dict, cfg: ModelConfig,
     for k in sub:
         tree, prefix = tree[k], prefix + f"[{k!r}]"
     layer_remote = frozenset("['p']" + k for k in remote_keys(plan, prefix))
+    layer_peer = {"['p']" + k: a for k, a in peer_keys(plan, prefix).items()}
     return tiered_scan(body, x, {"p": tree, **caches}, n_layers=cfg.n_layers,
-                       prefetch=prefetch, engine=engine, remote=layer_remote)
+                       prefetch=prefetch, engine=engine, remote=layer_remote,
+                       peer=layer_peer)
 
 
 def prefill(params: Params, cache: dict, frames: torch.Tensor,

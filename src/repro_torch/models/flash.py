@@ -10,6 +10,10 @@ Which computation runs is decided by the tensors' device alone:
   kernel also writes each row's lse, and the backward is
   :func:`_flash_bwd` from the saved (q, k, v, o, lse)
   (:class:`repro_torch.kernels.flash_attention._B2Function`).
+* On DTensors (under a device mesh) it runs inside
+  :func:`~repro_torch.models.sharding.local_call` on each rank's local
+  shards, batch on ``data`` and heads on ``model``, and takes one of the
+  two routes here on those shards (:func:`_local_flash`).
 * On a CPU tensor it computes :func:`blocked_flash`, the reference's jnp
   flash in plain torch: queries in up to ``n_strips`` strips, each scanning
   only the KV blocks between its sliding-window edge and its diagonal, with
@@ -29,14 +33,17 @@ order (no atomics, so the backward is deterministic on a card too).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF, reference_attention
+from repro_torch.models.sharding import is_dtensor, local_call
 
 DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 1024
@@ -281,6 +288,10 @@ def flash_attention(
     ValueError, see :func:`b2_route`), :func:`blocked_flash` on the CPU;
     ``block_k`` and ``n_strips`` shape only the latter."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+    if is_dtensor(q):
+        return _local_flash(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, scale=scale, block_k=block_k,
+                            n_strips=n_strips)
     if q.device.type == "cuda":
         return _b2(q, k, v, causal=causal, window=window, q_offset=q_offset,
                    scale=scale)
@@ -289,3 +300,22 @@ def flash_attention(
     return blocked_flash(q, k, v, causal=causal, window=window,
                          q_offset=q_offset, scale=scale, block_k=block_k,
                          n_strips=n_strips)
+
+
+def _local_flash(q, k, v, **kw):
+    """:func:`flash_attention` of DTensors on each rank's local shards.
+
+    A mesh dim on which q and k/v are split alike (both on the batch, both
+    on the heads) stays split: the local q heads then group onto the local
+    k/v heads exactly as the whole tensors do. Any other split (the query
+    heads split where the k/v heads do not divide the axis, or a split
+    sequence) is gathered first on that mesh dim."""
+    keep = (Shard(0), Shard(2), Replicate())
+    qp, kp = [], []
+    for a, b in zip(q.placements, k.placements):
+        same = a == b and a in keep
+        qp.append(a if same else Replicate())
+        kp.append(b if same else Replicate())
+    qp, kp = tuple(qp), tuple(kp)
+    return local_call("flash", functools.partial(flash_attention, **kw),
+                      (q, k, v), (qp, kp, kp), qp, q.device_mesh)

@@ -14,10 +14,12 @@ import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.flash import flash_attention
+from repro_torch.models.sharding import constrain, is_dtensor, replicate_like
 
 Params = dict[str, Any]
 
@@ -49,6 +51,22 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x * p["scale"].float()).to(dt)
 
 
+def whole_seq(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, S, ...) with its sequence laid out by the ``seq`` rule (not
+    split, by default) under a mesh: what a block computes on, where the
+    carry between blocks keeps it split (``seq_sp``), as the reference's
+    partitioner gathers it before a block's projections."""
+    return constrain(x, "batch", "seq", *([None] * (x.ndim - 2)))
+
+
+def as_carry(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, S, d), a block's output, laid out as the residual carry
+    (``batch``, ``seq_sp``) under a mesh before it is added to it: the add
+    then passes each operand a gradient laid out as that operand, where a
+    redistribution DTensor would make inside the add would not."""
+    return constrain(x, "batch", "seq_sp", None)
+
+
 # -- rotary ------------------------------------------------------------------
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -58,6 +76,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     half = x.shape[-1] // 2
     freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
                                           device=x.device) / half))
+    freqs = replicate_like(freqs, x)
     angles = positions.float()[..., None, None] * freqs  # (...,S,1,half)
     sin, cos = torch.sin(angles).to(x.dtype), torch.cos(angles).to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
@@ -78,6 +97,14 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def _split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    if is_dtensor(x):
+        # a projection split finer than its n heads is gathered first
+        last = [i for i, pl in enumerate(x.placements)
+                if pl.is_shard(x.ndim - 1)]
+        if n % math.prod(x.device_mesh.shape[i] for i in last):
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if i in last else pl
+                for i, pl in enumerate(x.placements)])
     return x.reshape(*x.shape[:-1], n, d)
 
 
@@ -136,11 +163,15 @@ def gqa_attention(
         if kv_positions is not None:
             k = rope(k, kv_positions, cfg.rope_theta)
         causal = False
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
     if mask is None:
         out = flash_attention(q, k, v, causal=causal,
                               window=cfg.sliding_window if kv is None else None)
     else:
         out = _sdpa(q, k, v, mask, cfg)
+    out = constrain(out, "batch", None, "heads", None)
     return out.reshape(B, S, H * Dh) @ p["wo"]
 
 
@@ -204,6 +235,8 @@ def gqa_decode_step(
     slot = lane_pos % S_cache if cfg.sliding_window else lane_pos
     write_slot(cache_k, k_new, slot)
     write_slot(cache_v, v_new, slot)
+    cache_k = constrain(cache_k, "batch", "kv_len", "kv_heads", None)
+    cache_v = constrain(cache_v, "batch", "kv_len", "kv_heads", None)
     if per_lane:
         if cfg.sliding_window:
             valid = (idx[None, :] <= slot[:, None]) | (
@@ -235,6 +268,7 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int | None = None,
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = constrain(h, "batch", None, "ff")
     return h @ p["w_down"]
 
 
@@ -250,22 +284,31 @@ def embed_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["embedding"][tokens.long()]
+    e = constrain(p["embedding"], "vocab", None)
+    return constrain(e[tokens.long()], "batch", None, None)
 
 
 def logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B,S,d) -> (B,S,V_padded) float32, the tied embedding as the head;
     the padded vocabulary columns hold the finite ``NEG_INF``."""
+    x = whole_seq(x)
     e = p["embedding"]
-    out = (x @ e.t().to(x.dtype)).float()
+    out = constrain((x @ e.t().to(x.dtype)).float(), "batch", None, "vocab")
     V = padded_vocab(cfg)
-    if V != cfg.vocab_size:
+    if V != cfg.vocab_size and is_dtensor(out):
+        # DTensor refuses the in-place write into a view of the vocabulary
+        pad = torch.arange(V, device=out.device) >= cfg.vocab_size
+        out.masked_fill_(replicate_like(pad, out), NEG_INF)
+    elif V != cfg.vocab_size:
         out[..., cfg.vocab_size:] = NEG_INF
     return out
 
 
 def cross_entropy(logit: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token NLL; logit (B,S,V) float32, labels (B,S) int."""
+    """Mean token NLL; logit (B,S,V) float32, labels (B,S) int. Under a
+    mesh the vocabulary is gathered first (the pick of each label's logit
+    has no vocabulary-split form)."""
+    logit = constrain(logit, "batch", None, None)
     lse = torch.logsumexp(logit, dim=-1)
     picked = logit.gather(-1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - picked)

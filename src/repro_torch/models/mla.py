@@ -23,6 +23,7 @@ from repro_torch.models.layers import (
     rope,
     write_slot,
 )
+from repro_torch.models.sharding import constrain
 
 Params = dict[str, Any]
 
@@ -77,8 +78,12 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q = torch.cat([q_nope, q_rope], dim=-1)  # (B,S,H,nope+rdim)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rdim)],
                   dim=-1)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "heads", None)
+    v = constrain(v, "batch", None, "heads", None)
     out = flash_attention(q, k, v, causal=True,
                           scale=1.0 / math.sqrt(nope + rdim))
+    out = constrain(out, "batch", None, "heads", None)
     return out.reshape(B, S, H * vh) @ p["wo"]
 
 
@@ -113,6 +118,8 @@ def mla_decode_step(
     lane_pos = positions[:, 0].long() if per_lane else pos.long()
     write_slot(cache_c, c_new, lane_pos)
     write_slot(cache_kr, kr_new, lane_pos)
+    cache_c = constrain(cache_c, "batch", "kv_len", None)
+    cache_kr = constrain(cache_kr, "batch", "kv_len", None)
 
     wkv_b = p["wkv_b"].reshape(kr, H, nope + vh)
     w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]

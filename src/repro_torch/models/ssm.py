@@ -17,10 +17,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, _init, rmsnorm
+from repro_torch.models.sharding import constrain, is_dtensor, local_call
 
 
 def ssm_init(gen: torch.Generator, cfg: ModelConfig, *, stack: int) -> Params:
@@ -62,12 +64,32 @@ def _split_proj(p, x, cfg: ModelConfig):
 def _causal_conv(p, xbc: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Depthwise causal conv over (B, L, C) in the activation dtype: a
     cross-correlation (no flip) with w-1 zeros on the left, then silu."""
+    if is_dtensor(xbc):
+        return _local_conv(p, xbc, cfg)
     w = cfg.ssm_conv_width
     C = xbc.shape[-1]
     weight = p["conv_w"].to(xbc.dtype).t().reshape(C, 1, w)
     out = F.conv1d(F.pad(xbc.transpose(1, 2), (w - 1, 0)), weight, groups=C)
     out = out.transpose(1, 2)
     return F.silu(out + p["conv_b"].to(out.dtype))
+
+
+def _local_conv(p, xbc: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`_causal_conv` of a DTensor on each rank's local shards: a
+    split batch or channel dim stays split (the conv is per channel), a
+    split sequence is gathered first (each position reads the w - 1
+    before it)."""
+    rep = Replicate()
+    x_p, w_p, b_p = [], [], []
+    for a in xbc.placements:
+        x_p.append(a if a in (Shard(0), Shard(2)) else rep)
+        w_p.append(Shard(1) if a == Shard(2) else rep)
+        b_p.append(Shard(0) if a == Shard(2) else rep)
+    return local_call(
+        "conv", lambda x, w, b: _causal_conv({"conv_w": w, "conv_b": b}, x,
+                                             cfg),
+        (xbc, p["conv_w"], p["conv_b"]), (x_p, w_p, b_p), tuple(x_p),
+        xbc.device_mesh)
 
 
 def _ssd_scan(xh, Bm, Cm, dt, A, cfg: ModelConfig, init_state=None):
@@ -143,11 +165,38 @@ def ssm_block(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
     # ops.ssd returns float32; the reference's scan casts y to xs's dtype
     # before the D term is added
-    y = ops.ssd(xs, Bm, Cm, dt, A, chunk=cfg.ssm_chunk).to(xs.dtype)
+    xs = constrain(xs, "batch", None, "heads", None)
+    y = _ssd(xs, Bm, Cm, dt, A, chunk=cfg.ssm_chunk).to(xs.dtype)
     y = y + (p["D"][:, None] * xs.float()).to(y.dtype)
     y = y.reshape(Bsz, L, di)
     y = rmsnorm(p["norm"], y * F.silu(z))
     return y @ p["out_proj"]
+
+
+def _ssd(xs, Bm, Cm, dt, A, *, chunk: int) -> torch.Tensor:
+    """:func:`ops.ssd`; on DTensors, on each rank's local shards.
+
+    A mesh dim that splits the batch splits every input alike. One that
+    splits the heads keeps them split when the local heads read only local
+    groups (one group, read by every head, or a group count the dim
+    divides); any other split is gathered first on that mesh dim."""
+    if not is_dtensor(xs):
+        return ops.ssd(xs, Bm, Cm, dt, A, chunk=chunk)
+    mesh, G = xs.device_mesh, Bm.shape[2]
+    rep = Replicate()
+    x_p, bc_p, dt_p, a_p = [], [], [], []
+    for a, n in zip(xs.placements, mesh.shape):
+        if a == Shard(0):
+            row = (a, a, a, rep)
+        elif a == Shard(2) and (G == 1 or G % n == 0):
+            row = (a, rep if G == 1 else a, a, Shard(0))
+        else:
+            row = (rep,) * 4
+        for out, pl in zip((x_p, bc_p, dt_p, a_p), row):
+            out.append(pl)
+    return local_call(
+        "ssd", lambda *ts: ops.ssd(*ts, chunk=chunk), (xs, Bm, Cm, dt, A),
+        (x_p, bc_p, bc_p, dt_p, a_p), tuple(x_p), mesh)
 
 
 # -- decode -----------------------------------------------------------------

@@ -65,7 +65,12 @@ from repro_torch.core.objects import _leaves_with_keys
 from repro_torch.core.placement import PlacementPlan
 from repro_torch.core.tiering import (
     RemoteGrads,
+    host_names,
+    like_global,
+    local_part,
     map_leaves,
+    peer_keys,
+    remote_carry_placer,
     remote_keys,
     tiered_scan,
 )
@@ -73,6 +78,12 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.models.sharding import (
+    constrain,
+    current_mesh,
+    replicate_like,
+    resolve_spec,
+)
 
 Params = dict[str, Any]
 
@@ -108,9 +119,8 @@ def scan_stacked_layers(fn, carry, stacked, n_layers: int, *, remat: str,
     carries). Under remat the dual buffer runs only with
     ``prefetch and prefetch_under_remat``. ``scan_kw`` goes to
     :func:`tiered_scan` (the placement's ``remote`` leaves and ``engine``).
-    The saved block carries stay on the device: the reference places them
-    off HBM only under a mesh (:func:`~repro_torch.core.tiering.
-    remote_carry_placer`, ROADMAP A11). The hybrid's shared block runs
+    Under a mesh the saved block carries take their logical placements
+    (:func:`_activation_carry_placer`). The hybrid's shared block runs
     inside its layer's checkpoint, where the reference checkpoints it on
     its own.
     """
@@ -122,7 +132,25 @@ def scan_stacked_layers(fn, carry, stacked, n_layers: int, *, remat: str,
         fn, carry, stacked, n_layers=n_layers, remat=True,
         policy=REMAT_POLICIES[remat.removesuffix("_flat")],
         prefetch=prefetch and prefetch_under_remat,
-        min_layers=10 ** 9 if flat else 12, **scan_kw)
+        min_layers=10 ** 9 if flat else 12,
+        remote_carry_fn=_activation_carry_placer(), **scan_kw)
+
+
+def _activation_carry_placer():
+    """The layer loop's ``remote_carry_fn`` for its saved block carries:
+    under a mesh, each carry leaf is constrained to its logical
+    (``batch``, ``seq_sp``) spec, so that saved activations are split like
+    the weights (:func:`~repro_torch.core.tiering.remote_carry_placer`);
+    None without one."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+
+    def spec_fn(leaf):
+        names = ("batch", "seq_sp") + (None,) * (leaf.ndim - 2)
+        return resolve_spec(leaf.shape, names, mesh)
+
+    return remote_carry_placer(mesh, spec_fn=spec_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -167,22 +195,25 @@ def _ssm_layer_init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _attention_part(p, x, cfg, positions):
-    h = L.rmsnorm(p["ln1"], x)
+    h = L.whole_seq(L.rmsnorm(p["ln1"], x))
     if cfg.attention == "mla":
-        return x + MLA.mla_attention(p["attn"], h, cfg, positions=positions)
-    return x + L.gqa_attention(p["attn"], h, cfg, positions=positions)
+        return x + L.as_carry(MLA.mla_attention(p["attn"], h, cfg,
+                                                positions=positions))
+    return x + L.as_carry(L.gqa_attention(p["attn"], h, cfg,
+                                          positions=positions))
 
 
 def _dense_layer(p, x, cfg, positions):
     x = _attention_part(p, x, cfg, positions)
-    return x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x))
+    x = x + L.as_carry(L.mlp(p["mlp"], L.whole_seq(L.rmsnorm(p["ln2"], x))))
+    return constrain(x, "batch", "seq_sp", None)
 
 
 def _moe_layer(p, x, cfg, positions, groups=None):
     x = _attention_part(p, x, cfg, positions)
     out, aux = MOE.moe_ffn(p["moe"], L.rmsnorm(p["ln2"], x), cfg,
                            groups=groups)
-    return x + out, aux
+    return constrain(x + L.as_carry(out), "batch", "seq_sp", None), aux
 
 
 def _block_decode(p, x, caches: dict, pos, cfg, *, groups=None,
@@ -212,7 +243,9 @@ def _block_decode(p, x, caches: dict, pos, cfg, *, groups=None,
 
 
 def _ssm_layer(p, x, cfg):
-    return x + SSM.ssm_block(p["ssm"], L.rmsnorm(p["ln"], x), cfg)
+    x = x + L.as_carry(SSM.ssm_block(p["ssm"], L.whole_seq(L.rmsnorm(
+        p["ln"], x)), cfg))
+    return constrain(x, "batch", "seq_sp", None)
 
 
 def _with_shared_block(layer_fn: Callable, shared_fn: Callable,
@@ -269,7 +302,7 @@ def _engine(plan: PlacementPlan | None,
             dev: torch.device) -> HostFetchEngine | None:
     """The copy engine of a host-offload plan with REMOTE leaves: unpaced,
     so a transfer costs only its real copy."""
-    if plan is None or not plan.remote_names():
+    if not host_names(plan):
         return None
     return HostFetchEngine(throttle=0.0, device=dev)
 
@@ -287,10 +320,12 @@ def _fetched(params: Params, key: str, engine: HostFetchEngine | None,
         return sub
     leaves = dict(_leaves_with_keys(sub))
     got = engine.acquire(engine.fetch(
-        key, {k: leaves[k] for k in names}, pace=False))
+        key, {k: local_part(leaves[k]).detach() for k in names}, pace=False))
     if grads is not None:
-        got = {k: grads.attach("params" + prefix + k, None, t, leaves[k].shape)
+        got = {k: grads.attach("params" + prefix + k, None, t,
+                               local_part(leaves[k]).shape)
                for k, t in got.items()}
+    got = {k: like_global(t, leaves[k]) for k, t in got.items()}
     return map_leaves(lambda k, t: got.get(k, t), sub)
 
 
@@ -321,7 +356,8 @@ class _Fetcher:
         """:func:`tiered_scan`'s placement arguments for ``params[key]``."""
         prefix = f"params[{key!r}]"
         return {"engine": self.engine, "remote": remote_keys(self.plan, prefix),
-                "grads": self.grads, "prefix": prefix}
+                "peer": peer_keys(self.plan, prefix), "grads": self.grads,
+                "prefix": prefix}
 
     def close(self, out: torch.Tensor | None) -> None:
         """Close an engine of its own, unless ``out`` still needs it: a
@@ -383,12 +419,14 @@ def _forward(params, batch, cfg: ModelConfig, fetch: _Fetcher, *, remat: str,
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    positions = replicate_like(torch.arange(S, device=x.device).expand(B, S),
+                               x)
+    x = constrain(x, "batch", "seq_sp", None)
     x, aux = _run_trunk(params, x, positions, cfg, remat=remat,
                         prefetch=prefetch,
                         prefetch_under_remat=prefetch_under_remat,
                         fetch=fetch, moe_groups=moe_groups)
-    x = L.rmsnorm(fetch("ln_f"), x)
+    x = L.whole_seq(L.rmsnorm(fetch("ln_f"), x))
     if cfg.family == "vlm":
         x = x[:, batch["patches"].shape[1]:]
     return L.logits(fetch("embed"), x, cfg), aux, x
@@ -481,18 +519,27 @@ def loss_fn(
     return loss, metrics
 
 
+def _roll_seq(t: torch.Tensor, shift: int) -> torch.Tensor:
+    """``t`` (B, S) rolled along its sequence; a DTensor (split over the
+    batch alone) on each rank's rows."""
+    return like_global(torch.roll(local_part(t), shift, 1), t)
+
+
 def _mtp_nll(fetch: _Fetcher, hidden, batch, cfg: ModelConfig):
     """The MTP block's mean NLL of token t+2 at the first S - 2 positions."""
     mtp = fetch("mtp")
     B, S, _ = hidden.shape
-    emb_next = L.embed(fetch("embed"), torch.roll(batch["tokens"], -1, 1), cfg)
+    emb_next = L.embed(fetch("embed"), _roll_seq(batch["tokens"], -1), cfg)
     h = torch.cat([hidden, emb_next], dim=-1) @ mtp["proj"]
-    positions = torch.arange(S, device=h.device).expand(B, S)
+    positions = replicate_like(torch.arange(S, device=h.device).expand(B, S),
+                               h)
     h = _dense_layer(mtp["layer"], h, cfg, positions)
     h = L.rmsnorm(mtp["ln"], h)
-    mtp_logits = L.logits(fetch("embed"), h, cfg).float()
-    tgt = torch.roll(batch["labels"], -2, 1)
-    valid = torch.arange(S, device=h.device) < S - 2
+    # the vocabulary gathered under a mesh, as for the main head's loss
+    mtp_logits = constrain(L.logits(fetch("embed"), h, cfg).float(),
+                           "batch", None, None)
+    tgt = _roll_seq(batch["labels"], -2)
+    valid = replicate_like(torch.arange(S, device=h.device) < S - 2, h)
     lse = torch.logsumexp(mtp_logits, dim=-1)
     picked = mtp_logits.gather(-1, tgt.long()[..., None])[..., 0]
     return torch.sum((lse - picked) * valid) / torch.clamp(
@@ -570,11 +617,14 @@ def decode_step(
     routing = [] if return_routing and cfg.family == "moe" else None
 
     def scan(body, x, key: str, caches: dict, n: int, **kw):
-        layer_remote = frozenset(
-            "['p']" + k for k in remote_keys(plan, f"params[{key!r}]"))
+        prefix = f"params[{key!r}]"
+        layer_remote = frozenset("['p']" + k
+                                 for k in remote_keys(plan, prefix))
+        layer_peer = {"['p']" + k: a
+                      for k, a in peer_keys(plan, prefix).items()}
         return tiered_scan(body, x, {"p": params[key], **caches}, n_layers=n,
                            prefetch=prefetch, engine=engine,
-                           remote=layer_remote, **kw)
+                           remote=layer_remote, peer=layer_peer, **kw)
 
     try:
         x = L.embed(_fetched(params, "embed", engine, remote), tokens, cfg)

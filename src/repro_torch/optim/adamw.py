@@ -22,6 +22,7 @@ import math
 from typing import Any, Iterator
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.optim.quantized import dequantize, quantize
 
@@ -96,8 +97,15 @@ def init(cfg: AdamWConfig, params: Any) -> dict:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    """The leaves' joint L2 norm. A DTensor leaf's sum of squares is its
+    shards' sum, reduced over the mesh dims that split it only (a replica
+    is counted once); the leaves are added in order either way."""
+    return torch.sqrt(sum(_whole(torch.sum(torch.square(x.float())))
                           for _, x in leaves(tree)))
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def step_scalars(cfg: AdamWConfig, step: torch.Tensor, gnorm: torch.Tensor

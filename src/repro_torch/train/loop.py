@@ -15,6 +15,13 @@ placement is the step config's ``tiering`` (:class:`~repro_torch.core.
 tiering.TieringConfig`; None, the default, keeps every leaf on the
 device), applied after the restore by
 :func:`~repro_torch.core.tiering.place_state`.
+
+Under a device mesh (:func:`~repro_torch.models.sharding.use_mesh`) every
+rank runs the loop: the state, drawn alike on every rank from the seed (or
+restored whole from a checkpoint of any mesh), is laid out by the spec
+trees (:func:`~repro_torch.models.sharding.distribute_tree`) before it is
+placed, and each batch lands in its sharded layout
+(:func:`~repro_torch.data.pipeline.device_put_fn`).
 """
 from __future__ import annotations
 
@@ -33,7 +40,16 @@ from repro_torch.core.tiering import TieringConfig, place_state
 from repro_torch.data.pipeline import (
     PrefetchingLoader,
     SyntheticTokenDataset,
+    device_put_fn,
     to_device_fn,
+)
+from repro_torch.models.sharding import (
+    batch_pspec_tree,
+    current_mesh,
+    distribute_tree,
+    get_rules,
+    opt_pspec_tree,
+    params_pspec_tree,
 )
 from repro_torch.optim import AdamWConfig
 from repro_torch.train.step import (
@@ -96,6 +112,13 @@ def train(
             params, opt_state = restored["params"], restored["opt_state"]
             start_step = restored["step"]
             restored_from = start_step
+    mesh = current_mesh()
+    if mesh is not None:
+        pspecs = params_pspec_tree(
+            params, expert_sharding=model_cfg.expert_sharding, mesh=mesh)
+        params = distribute_tree(params, pspecs, mesh)
+        opt_state = distribute_tree(
+            opt_state, opt_pspec_tree(opt_state, pspecs, mesh), mesh)
     params, opt_state, plan = place_state(
         params, opt_state, step_cfg.tiering or TieringConfig(), device=dev)
     train_step = make_train_step(model_cfg, step_cfg, opt_cfg, plan=plan)
@@ -103,8 +126,10 @@ def train(
     if dataset is None:
         dataset = SyntheticTokenDataset(model_cfg, loop_cfg.batch,
                                         loop_cfg.seq, seed=loop_cfg.seed)
-    loader = PrefetchingLoader(dataset, start_step=start_step,
-                               put_fn=to_device_fn(dev, model_cfg.dtype))
+    put_fn = (to_device_fn(dev, model_cfg.dtype) if mesh is None else
+              device_put_fn(mesh, lambda b: batch_pspec_tree(b, mesh),
+                            dtype=model_cfg.dtype))
+    loader = PrefetchingLoader(dataset, start_step=start_step, put_fn=put_fn)
 
     losses: list[float] = []
     times: list[float] = []
@@ -137,7 +162,8 @@ def train(
                 fault_hook(step)  # tests raise here to simulate node failure
             if ckpt is not None and step % loop_cfg.ckpt_every == 0:
                 ckpt.save(step, params, opt_state, metadata={
-                    "rules": {},  # sharding rules wait for ROADMAP A11
+                    "rules": {k: list(v) if isinstance(v, tuple) else v
+                              for k, v in get_rules().items()},
                     "arch": model_cfg.name,
                     "seed": loop_cfg.seed,
                 })

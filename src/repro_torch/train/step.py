@@ -11,6 +11,16 @@ step level:
   * microbatch gradient accumulation (bounds activation memory);
   * optional int8 error-feedback gradient compression.
 
+Under a device mesh (:mod:`repro_torch.models.sharding`) the parameters,
+moments and batch are DTensors, laid out by
+:func:`~repro_torch.models.sharding.distribute_tree` as the reference's
+dry-run lays them out with its spec trees. Each gradient comes back with
+its parameter's placements (a share summed over the ranks that computed
+it), the global norm sums each shard once (:func:`~repro_torch.optim.adamw.
+global_norm`), and AdamW runs on each rank's local shards: parameter,
+gradient and moments are split alike. Gradient compression and int8
+moments are not ported under a mesh and raise there.
+
 ``jax.value_and_grad`` becomes ``torch.autograd.grad`` over the parameters
 kept on the device, and the gradients of REMOTE parameters gather on the
 device through :class:`~repro_torch.core.tiering.RemoteGrads`. The update
@@ -34,12 +44,21 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exec import HostFetchEngine, resolve_device
 from repro_torch.core.placement import PlacementPlan
-from repro_torch.core.tiering import RemoteGrads, TieringConfig
+from repro_torch.core.tiering import (
+    RemoteGrads,
+    TieringConfig,
+    host_names,
+    like_global,
+    local_part,
+    remote_keys,
+)
 from repro_torch.models import get_model
+from repro_torch.models.sharding import is_dtensor
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import leaves, unflatten
 from repro_torch.optim.compression import (
@@ -108,7 +127,7 @@ class _Store:
 
     def __init__(self, plan: PlacementPlan | None,
                  engine: HostFetchEngine | None):
-        self.remote = frozenset(plan.remote_names()) if plan else frozenset()
+        self.remote = frozenset(host_names(plan))
         self.engine = engine
         self.writes: list = []
 
@@ -155,8 +174,40 @@ def _row_slices(t: torch.Tensor) -> list[slice]:
 
 
 def _split(batch: dict, n: int) -> list[dict]:
-    return [{k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
-             for k, x in batch.items()} for i in range(n)]
+    """``n`` microbatches of ``batch``, microbatch i its i-th block of
+    contiguous rows, as the reference's reshape makes them. A DTensor batch
+    is gathered once and each microbatch laid out as the batch was: every
+    rank keeps its share of that microbatch's rows (the batch's own local
+    rows would interleave the global ones, which changes a loss that is
+    not a plain mean over rows, the MoE's balance term)."""
+    def parts(x):
+        if not is_dtensor(x):
+            return x.reshape(n, x.shape[0] // n, *x.shape[1:])
+        whole = x.full_tensor()
+        return [distribute_tensor(t, x.device_mesh, x.placements,
+                                  src_data_rank=None)
+                for t in whole.reshape(n, whole.shape[0] // n,
+                                       *whole.shape[1:])]
+
+    split = {k: parts(x) for k, x in batch.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A replicated DTensor (the loss, a metric) as a plain tensor."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _grad_like(g: torch.Tensor | None, t: torch.Tensor,
+               dev: torch.device) -> torch.Tensor:
+    """A parameter's gradient with its placements (zeros if none arrived;
+    a share summed over the ranks that hold it)."""
+    if g is None:
+        return like_global(torch.zeros(local_part(t).shape, dtype=t.dtype,
+                                       device=dev), t)
+    if is_dtensor(g) and tuple(g.placements) != tuple(t.placements):
+        return g.redistribute(t.device_mesh, t.placements)
+    return g
 
 
 def make_value_and_grad(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
@@ -169,8 +220,7 @@ def make_value_and_grad(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
     fetched through ``engine``, one of its own if none is given."""
     model = get_model(model_cfg)
     n_mb = step_cfg.microbatches
-    remote = frozenset(n[len("params"):] for n in plan.remote_names()
-                       if n.startswith("params")) if plan else frozenset()
+    remote = remote_keys(plan, "params")
 
     def one(p_req, local, all_leaves, mb, engine, rg):
         if rg is not None:
@@ -185,14 +235,15 @@ def make_value_and_grad(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
         got = torch.autograd.grad(loss, inputs, allow_unused=True)
         grads = {}
         for (k, t), g in zip(local.items(), got):
-            grads[k] = torch.zeros_like(t) if g is None else g
+            grads[k] = torch.zeros_like(t) if g is None else _grad_like(
+                g, t, loss.device)
         for k in remote:
             t = all_leaves[k]
             g = rg.grads.get("params" + k)
-            grads[k] = (torch.zeros(t.shape, dtype=t.dtype, device=loss.device)
-                        if g is None else g)
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                grads)
+            grads[k] = _grad_like(None if g is None else like_global(g, t),
+                                  t, loss.device)
+        return (_plain(loss.detach()),
+                {k: _plain(v.detach()) for k, v in metrics.items()}, grads)
 
     def value_and_grad(params, batch, engine: HostFetchEngine | None = None):
         dev = batch["tokens"].device
@@ -217,7 +268,8 @@ def make_value_and_grad(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
         # the reference's scan: float32 zeros, then the losses, metrics
         # and grads summed over the microbatches in order, scaled by 1/n
         acc_loss = acc_metrics = None
-        acc = {k: torch.zeros(t.shape, dtype=torch.float32, device=dev)
+        acc = {k: like_global(torch.zeros(local_part(t).shape,
+                                          dtype=torch.float32, device=dev), t)
                for k, t in all_leaves.items()}
         for mb in _split(batch, n_mb):
             loss, metrics, grads = one(p_req, local, all_leaves, mb,
@@ -258,6 +310,14 @@ def make_train_step(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
         quantization blocks span rows): a REMOTE leaf is fetched and
         written back slice by slice, a LOCAL one assembled into new
         tensors."""
+        if is_dtensor(olds[0]):
+            if any(isinstance(t, QTensor) for t in olds):
+                raise NotImplementedError(
+                    "train step: int8 moments under a device mesh are not "
+                    "ported; use moment_style 'f32' or 'bf16'")
+            news = update_leaf(names, [local_part(t) for t in olds],
+                               local_part(g), s, store)
+            return [like_global(x, t) for x, t in zip(news, olds)]
         parts = _row_slices(olds[0])
         if len(parts) == 1 or any(isinstance(t, QTensor) for t in olds):
             cur = [store.get(n, t) for n, t in zip(names, olds)]
@@ -281,6 +341,10 @@ def make_train_step(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
         device: :func:`adamw.update`'s math through ``store``. Each leaf's
         gradient is dropped once the leaf is updated."""
         new_opt = {}
+        if step_cfg.compression.enabled and is_dtensor(opt_state["step"]):
+            raise NotImplementedError(
+                "train step: gradient compression under a device mesh is not "
+                "ported")
         if step_cfg.compression.enabled:
             ef = {}
             for k, r in leaves(opt_state["ef"]):
@@ -289,7 +353,7 @@ def make_train_step(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
                     grads[k], store.get(name, r), step_cfg.compression.block)
                 ef[k] = store.put(name, r, e)
             new_opt["ef"] = unflatten(params, ef)
-        step = store.get("opt['step']", opt_state["step"]) + 1
+        step = store.get("opt['step']", local_part(opt_state["step"])) + 1
         gnorm = adamw.global_norm(unflatten(params, grads))
         s = adamw.step_scalars(opt_cfg, step, gnorm)
         m_of, v_of = dict(leaves(opt_state["m"])), dict(leaves(opt_state["v"]))
@@ -298,15 +362,16 @@ def make_train_step(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
             names = ("params" + k, "opt['m']" + k, "opt['v']" + k)
             new_p[k], new_m[k], new_v[k] = update_leaf(
                 names, (p, m_of[k], v_of[k]), grads.pop(k), s, store)
+        step = store.put("opt['step']", local_part(opt_state["step"]), step)
         new_opt.update(m=unflatten(params, new_m), v=unflatten(params, new_v),
-                       step=store.put("opt['step']", opt_state["step"], step))
+                       step=like_global(step, opt_state["step"]))
         return (unflatten(params, new_p), new_opt,
                 {"grad_norm": gnorm, "lr": s["lr"]})
 
     def train_step(params, opt_state, batch):
         dev = batch["tokens"].device
         engine = (HostFetchEngine(throttle=0.0, device=dev)
-                  if plan is not None and plan.remote_names() else None)
+                  if host_names(plan) else None)
         store = _Store(plan, engine)
         try:
             with deterministic():

@@ -90,16 +90,33 @@ def test_atomicity_no_partial_checkpoints(tmp_path):
 def test_restore_onto_template_devices_and_dtypes(tmp_path):
     """The reference's elastic restore re-places leaves onto new
     shardings; the port restores each leaf onto its template's device and
-    dtype, and a mesh's shardings wait for ROADMAP A11."""
-    mgr = CheckpointManager(tmp_path)
+    dtype, and with ``shardings`` onto a mesh's placements (here a (1, 1)
+    mesh of this process; test_torch_mesh.py restores (2, 2) onto (1, 4))."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.core.tiering import map_leaves
+    from repro_torch.models.sharding import NamedSharding
+
+    from _torch_dist import one_rank_group
+
+    mgr = CheckpointManager(tmp_path / "ckpt")
     params, opt = _state(1)
     mgr.save(3, params, opt, blocking=True)
     template = {"w": params["w"].to(torch.bfloat16), "b": params["b"]}
     out = mgr.restore(template, opt)
     assert out["params"]["w"].dtype == torch.bfloat16
     assert torch.equal(out["params"]["w"], params["w"].to(torch.bfloat16))
-    with pytest.raises(NotImplementedError, match="A11"):
-        mgr.restore(params, opt, shardings=({}, {}))
+    with one_rank_group(str(tmp_path)):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
+                                                               "model"))
+        sh = NamedSharding(mesh, (Replicate(), Replicate()))
+        out = mgr.restore(params, opt, shardings=(
+            map_leaves(lambda _k, _t: sh, params),
+            map_leaves(lambda _k, _t: sh, opt)))
+        w = out["params"]["w"]
+        assert tuple(w.placements) == (Replicate(), Replicate())
+        assert torch.equal(w.full_tensor(), params["w"])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,7 +1,10 @@
 """The port's input pipeline (``repro_torch.data.pipeline``): the
 reference's cases of ``tests/test_data_pipeline.py`` pointed at the port
-(its ``device_put_fn`` takes a mesh, which waits for ROADMAP A11), batches
-``==`` to the reference's, and the loader's device put."""
+(``device_put_fn`` over a (1, 1) mesh here; test_torch_mesh.py runs it on a
+four-rank mesh), batches ``==`` to the reference's, and the loader's
+device put."""
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -81,5 +84,20 @@ def test_to_device_fn_types():
     assert out["tokens"].dtype == torch.int32
     assert out["patches"].dtype == torch.bfloat16
     assert np.array_equal(out["labels"].numpy(), batch["labels"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        device_put_fn(None, None)
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.models.sharding import batch_pspec_tree
+
+    from _torch_dist import one_rank_group
+
+    # over a mesh, the same batch as DTensors in their sharded layout
+    with tempfile.TemporaryDirectory() as d, one_rank_group(d):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
+                                                               "model"))
+        put = device_put_fn(mesh, lambda b: batch_pspec_tree(b, mesh),
+                            dtype=cfg.dtype)(batch)
+        # an axis of one splits nothing: replicated
+        assert tuple(put["tokens"].placements) == (Replicate(), Replicate())
+        for k, t in out.items():
+            assert torch.equal(put[k].full_tensor(), t), k

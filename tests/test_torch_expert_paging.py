@@ -17,8 +17,8 @@ exactly.
 
 The reference's four expert-parallel cases (``test_ep_threads_groups``,
 ``test_ep_rejects_bad_groups``, ``test_dense_vs_ep_property`` and
-``test_zero_rows_are_exact[ep]``) wait for the port's EP dispatch (ROADMAP
-A11); ``test_zero_rows_are_exact[dense]`` runs in ``test_torch_moe.py``.
+``test_zero_rows_are_exact[ep]``) run on a mesh in ``test_torch_mesh.py``;
+``test_zero_rows_are_exact[dense]`` runs in ``test_torch_moe.py``.
 """
 import jax
 import jax.numpy as jnp

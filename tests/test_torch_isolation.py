@@ -11,9 +11,11 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "kernel_ab.py", ROOT / "profile_models.py",
+    ROOT / "step_ab.py",
     ROOT / "tests" / "_torch_hpc_parity.py",
     ROOT / "tests" / "_torch_serving_parity.py",
-    ROOT / "tests" / "_torch_paging_parity.py"]
+    ROOT / "tests" / "_torch_paging_parity.py",
+    ROOT / "tests" / "_torch_dist.py", ROOT / "tests" / "_torch_mesh_cases.py"]
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -45,6 +47,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.data.pipeline, repro_torch.optim\n"
         "import repro_torch.optim.compression, repro_torch.optim.quantized\n"
         "import repro_torch.models.encdec\n"
+        "import repro_torch.models.sharding, repro_torch.launch.mesh\n"
+        "import _torch_dist, _torch_mesh_cases\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))))\n"

@@ -187,6 +187,17 @@ def test_depth_mismatch_raises_clear_error():
         tiered_scan(_layer, x0, stacked, n_layers=7)
 
 
+def test_peer_leaves_must_be_known_and_split():
+    """``tiered_scan(peer=)`` gathers only leaves a placement split over a
+    mesh axis (``peer_keys`` of an fsdp_stream plan): a key not in the
+    stack, or a leaf not split over its axis (a plain tensor), raises."""
+    x0, stacked = _setup(3)
+    with pytest.raises(ValueError, match="not in stacked_params"):
+        tiered_scan(_layer, x0, stacked, n_layers=3, peer={"['u']": "data"})
+    with pytest.raises(ValueError, match="not split"):
+        tiered_scan(_layer, x0, stacked, n_layers=3, peer={"['w']": "data"})
+
+
 def test_deprecated_shims_delegate():
     L = 6
     x0, stacked = _setup(L)
@@ -199,8 +210,12 @@ def test_deprecated_shims_delegate():
 
 def test_remote_carry_placer_needs_no_mesh():
     assert remote_carry_placer(None) is None
-    with pytest.raises(NotImplementedError, match="A11"):
-        remote_carry_placer(object())
+    # under a mesh it places DTensor carries (test_torch_mesh.py); a plain
+    # tensor or a scalar passes through
+    place = remote_carry_placer(object())
+    x, aux = torch.ones((2, 3)), torch.zeros(())
+    got = place((x, aux))
+    assert got[0] is x and got[1] is aux
 
 
 @pytest.mark.parametrize("mode", ["none", "full"])

@@ -407,6 +407,14 @@ def test_launcher_trains_on_the_cpu(capsys):
     assert res.final_step == 3 and len(res.losses) == 3
     out = capsys.readouterr().out
     assert "arch=mamba2-130m" in out and "done: step 3" in out
-    for flag in (["--mesh", "2,1"], ["--distributed"], ["--rules", "{}"]):
-        with pytest.raises(NotImplementedError, match="A11"):
-            launch.main(["--device", "cpu", *flag])
+    # a mesh of one starts its own one-process group; a larger one needs
+    # a running group (test_torch_mesh.py runs --mesh 2,2 in one)
+    res = launch.main(["--device", "cpu", "--steps", "2", "--batch", "2",
+                       "--seq", "16", "--mesh", "1,1",
+                       "--rules", '{"ff": null}'])
+    assert res.final_step == 2
+    assert "mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="process group"):
+        launch.main(["--device", "cpu", "--mesh", "2,1"])
+    with pytest.raises(ValueError, match="--mesh"):
+        launch.main(["--device", "cpu", "--distributed"])
