@@ -31,7 +31,7 @@ Phases (any failed check raises and exits non-zero):
      the one-loop oracle; and two planted faults: a plain version that drops
      one chunk's carry update, and the oracle run in single-pass TF32;
      the three kernels and the scan at zamba2-1.2b's shape too;
-  4. the streaming executor over 36-stage granite-8b-width matmul and
+  4. the streaming executor over 12-stage granite-8b-width matmul and
      attention chains (bf16) — untiered oracle, unpaced probe, balanced
      throttle, best of 3 runs with prefetch on and off, every output
      ``torch.equal`` to the oracle, the kernels' launch counters matching
@@ -64,7 +64,11 @@ Phases (any failed check raises and exits non-zero):
      seamless-m4t-medium whole; then ``[train]`` (below): granite-8b,
      mamba2-130m, zamba2-1.2b and seamless-m4t-medium trained at full
      width, B2's lse and VJP, B3's backward; then ``[mesh]`` (below):
-     the sharding layer on a one-rank NCCL mesh;
+     the sharding layer on a one-rank NCCL mesh; then ``[dryrun]``: the
+     trace analysis's predicted peak of ``[train]``'s granite-8b step
+     (fake CUDA tensors on a one-rank mesh, untiered and at host_offload
+     0.5) held to the real step's within ``DRYRUN_BAND``, and two
+     production cells traced over a 256-rank fake process group;
   6. kernel times at the main paths' shapes (CUDA events), per variant
      (the tensor-core kernel on the path and the FFMA kernel on the same
      bf16 inputs), beside the plain version's, one library call's (none for
@@ -240,6 +244,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import streaming_matmul as sm  # noqa: E402
+from repro_torch.kernels import work  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
@@ -375,6 +380,10 @@ MOE_MODELS = {
                          lanes32=2, tokens32=128),
 }
 MOE_PROMPT, MOE_NEW = 64, 16
+# the executor chains' depth at granite-8b's width: 12 of its 36 layers,
+# cut for the script's time limit (drawing their host data on the CPU took
+# most of the chains' time at 36)
+CHAIN_STAGES = 12
 # [train]: granite-8b trained at full width (d_model 4096, 32 heads with 8
 # KV heads of 128, d_ff 14336, vocab 49152, tied embedding, bf16), its depth
 # cut to 4 of its 36 layers: 1.07 B parameters, 2.1 GB of weights and as
@@ -455,6 +464,24 @@ MESH_LEGS = {  # label: (under the mesh, TieringConfig)
     "mesh host_offload 0.5": (True, TieringConfig(mode="host_offload",
                                                   local_fraction=0.5)),
 }
+# [dryrun]: [train]'s granite-8b step traced on fake CUDA tensors (a
+# one-rank mesh) against the real step's peak, untiered and at
+# host_offload 0.5; the predicted/measured peak ratio must lie in the band;
+# then two production cells over a 256-rank fake group
+DRYRUN_LEGS = {"untiered": TieringConfig(mode="none"),
+               "host_offload 0.5": TieringConfig(mode="host_offload",
+                                                 local_fraction=0.5)}
+DRYRUN_BAND = (0.90, 1.10)
+DRYRUN_CELLS = [("granite-8b", "train_4k"), ("deepseek-v3-671b", "decode_32k")]
+# one cell's record, as a JSON line: run by [dryrun] in a process a cell
+DRYRUN_CELL_CODE = """
+import json, sys, time
+t0 = time.perf_counter()
+from repro_torch.launch import dryrun
+rec = dryrun.run_cell(sys.argv[1], sys.argv[2], multi_pod=False)
+rec["wall_s"] = time.perf_counter() - t0
+print(json.dumps(rec, default=str))
+"""
 # the launcher over the one-rank mesh: reduced granite-8b (float32), whose
 # loss must fall in 3 steps
 MESH_LAUNCH = ["--arch", "granite-8b", "--mesh", "1,1", "--device", "cuda",
@@ -1840,7 +1867,8 @@ def b2_backward_bound(q, k, v, causal: bool = True) -> tuple[float, str]:
     operations; q, k, v, o, do and the lse read once, dq, dk, dv written."""
     B, H, S, D = q.shape
     Dv = v.shape[3]
-    fwd_flops = B * H * live_pairs(S, k.shape[2], causal) * 2.0 * (D + Dv)
+    fwd_flops = work.live_pairs(S, k.shape[2], causal) * B * H * 2.0 * (
+        D + Dv)
     nbytes = ((2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                + 2 * B * H * S * Dv) * q.element_size() + B * H * S * 4)
     return bound(2.5 * fwd_flops, nbytes, PEAK_FLOPS[q.dtype])
@@ -2700,13 +2728,213 @@ def phase_mesh(smi: str) -> dict:
     return {"launches": rows["mesh"]["launches"], "rows": rows}
 
 
+# -- [dryrun]: the trace analysis held to the card, and production cells ---------
+def traced_step(cfg, host_batch, opt_cfg, tiering: TieringConfig):
+    """``[train]``'s step of ``cfg`` under ``tiering`` traced on fake CUDA
+    tensors on a one-rank mesh (a fake process group of one): parameters,
+    moments and batch laid out by the spec trees and placed by the plan as
+    a real step's are, then ``analyze`` of one step."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import Tracer, analyze
+
+    step_cfg = TrainStepConfig.from_tiering(tiering, remat="full")
+    with dryrun.fake_process_group(1):
+        mesh = make_smoke_mesh(device="cuda")
+        tr = Tracer()
+        with tr:
+            params = get_model(cfg).init_params(
+                torch.Generator().manual_seed(0), cfg, device="cuda")
+            opt = adamw.init(opt_cfg, params)
+            batch = {k: torch.empty(v.shape, dtype=torch.int32 if k in (
+                "tokens", "labels") else cfg.dtype, device="cuda")
+                for k, v in host_batch.items()}
+        with shd.use_mesh(mesh):
+            specs = shd.params_pspec_tree(
+                params, expert_sharding=cfg.expert_sharding, mesh=mesh)
+            params = dryrun.laid_out(params, specs, mesh, tr)
+            opt = dryrun.laid_out(opt, shd.opt_pspec_tree(opt, specs, mesh),
+                                  mesh, tr)
+            batch = dryrun.laid_out(batch, shd.batch_pspec_tree(batch, mesh),
+                                    mesh, tr)
+            with tr:
+                params, opt, plan = place_state(params, opt, tiering,
+                                                device="cuda")
+            step = make_train_step(cfg, step_cfg, opt_cfg, plan=plan)
+            return analyze(step, params, opt, batch, device="cuda")
+
+
+def measured_step(cfg, host_params, host_batch, opt_cfg,
+                  tiering: TieringConfig) -> tuple[int, dict]:
+    """One real step of the same (without a mesh, as ``[train]`` runs it)
+    from fresh state: the device bytes it peaks at above what was
+    allocated before its state was made (``max_memory_allocated`` after
+    ``reset_peak_memory_stats``, its arguments included), and the
+    kernels' launches."""
+    release_memory()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params = map_leaves(lambda _k, t: t.to("cuda"), host_params)
+    opt = adamw.init(opt_cfg, params)
+    batch = to_device_fn("cuda", cfg.dtype)(host_batch)
+    params, opt, plan = place_state(params, opt, tiering)
+    step = make_train_step(cfg, TrainStepConfig.from_tiering(
+        tiering, remat="full"), opt_cfg, plan=plan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = step(params, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    launches = counts()
+    require(bool(torch.isfinite(out[2]["loss"])), "[dryrun] non-finite loss")
+    del params, opt, batch, out
+    release_memory()
+    return peak, launches
+
+
+def start_dryrun_cells() -> list:
+    """``[dryrun]`` (b)'s cells, each traced in a process of its own, begun
+    before ``[mesh]`` so that they trace while ``[mesh]`` and (a) run;
+    their output goes to files (a pipe left unread could fill)."""
+    cells = []
+    for arch, cell in DRYRUN_CELLS:
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        cells.append((subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CELL_CODE, arch, cell],
+            stdout=out, stderr=err,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT),
+            out, err))
+    return cells
+
+
+def stop_dryrun_cells(cells: list) -> None:
+    for proc, out, err in cells:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        err.close()
+
+
+def phase_dryrun(smi: str, cells: list) -> dict:
+    """``[dryrun]``: (a) the trace analysis's predicted peak of granite-8b's
+    ``[train]`` step (4 layers, 2 x 2048 tokens, bf16, AdamW float32
+    moments, remat full) untiered and at host_offload 0.5, traced on fake
+    CUDA tensors on a one-rank mesh, against the real step's
+    ``max_memory_allocated``: each ratio within ``DRYRUN_BAND``; the
+    trace's B2 launches beside the real step's. (b) ``run_cell`` of
+    ``DRYRUN_CELLS`` over a 256-rank fake process group on this card's
+    host, with the card's memory as the budget: each record's decision
+    (the host-offload probe True here, and the decision
+    ``decide_tiering`` gives over an abstract mesh with the probe forced
+    True, the function the CPU tests hold to the reference's), per-device
+    peak, FLOPs and collectives; ``cells`` from
+    :func:`start_dryrun_cells`."""
+    t0 = time.perf_counter()
+    rows = dryrun_legs(smi)
+    rows.update(dryrun_cells(cells, smi))
+    print(f"[dryrun] done in {time.perf_counter() - t0:.1f} s; {smi}")
+    return rows
+
+
+def dryrun_legs(smi: str) -> dict:
+    """``[dryrun]`` (a): the predicted peaks held to the card's."""
+    cfg = dataclasses.replace(GRANITE_8B, n_layers=TRAIN["n_layers"])
+    opt_cfg = AdamWConfig(lr=TRAIN_LEARN["lr"], warmup_steps=0)
+    host_batch = SyntheticTokenDataset(cfg, TRAIN["batch"], TRAIN["seq"],
+                                       seed=0).batch_at(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    host_params = map_leaves(lambda _k, t: t.cpu(),
+                             get_model(cfg).init_params(gen, cfg))
+    rows = {}
+    for label, tiering in DRYRUN_LEGS.items():
+        t_leg = time.perf_counter()
+        a = traced_step(cfg, host_batch, opt_cfg, tiering)
+        t_trace = time.perf_counter() - t_leg
+        real, launches = measured_step(cfg, host_params, host_batch, opt_cfg,
+                                       tiering)
+        mem = a.memory
+        ratio = mem["peak_bytes_est"] / real
+        b2 = a.launches("repro_torch.b2_flash")
+        print(f"[dryrun] {cfg.name} {cfg.n_layers} layers, {label}: "
+              f"predicted peak {mem['peak_bytes_est'] / 2**30:.3f} GiB "
+              f"(arguments {mem['argument_bytes'] / 2**30:.3f}, outputs "
+              f"{mem['output_bytes'] / 2**30:.3f}, host "
+              f"{mem['host_argument_bytes'] / 2**30:.3f}; traced in "
+              f"{t_trace:.1f} s), measured {real / 2**30:.3f} GiB, ratio "
+              f"{ratio:.4f}; B2 launches traced {b2}, real "
+              f"{launches['flash_attention']}; per-device FLOPs "
+              f"{a.flops:.4e}; {smi}")
+        require(DRYRUN_BAND[0] <= ratio <= DRYRUN_BAND[1],
+                f"[dryrun] {label}: predicted/measured peak {ratio:.4f} "
+                f"outside {DRYRUN_BAND}")
+        require(b2 == launches["flash_attention"] == 2 * cfg.n_layers,
+                f"[dryrun] {label}: B2 launches traced {b2}, real "
+                f"{launches['flash_attention']}, want {2 * cfg.n_layers}")
+        rows[label] = {"predicted": mem["peak_bytes_est"], "measured": real,
+                       "ratio": ratio, "b2": b2}
+    del host_params
+    release_memory()
+    return rows
+
+
+def dryrun_cells(cells: list, smi: str) -> dict:
+    """``[dryrun]`` (b): each cell's record from its process, its decision
+    held to ``decide_tiering``'s with the probe forced True."""
+    from repro_torch.configs.base import SHAPE_CELLS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import Tracer
+
+    rows = {}
+    card = torch.cuda.get_device_properties(0).total_memory
+    mesh16 = shd.abstract_mesh((16, 16), ("data", "model"))
+    real_probe = dryrun.supports_host_offload_spmd
+    for (arch, cell), (proc, out, err) in zip(DRYRUN_CELLS, cells):
+        proc.wait(timeout=600)
+        out.seek(0)
+        err.seek(0)
+        require(proc.returncode == 0, f"[dryrun] {arch} {cell}: exit "
+                                      f"{proc.returncode}\n"
+                                      f"{err.read()[-3000:]}")
+        rec = json.loads(out.read().strip().splitlines()[-1])
+        dryrun.supports_host_offload_spmd = lambda _m: True
+        try:
+            want = dryrun.decide_tiering(
+                get_config(arch), SHAPE_CELLS[cell], mesh16,
+                dryrun.abstract_params(get_config(arch), Tracer(), "cpu"),
+                hbm_bytes=card)
+        finally:
+            dryrun.supports_host_offload_spmd = real_probe
+        require(rec["tiering"] == want,
+                f"[dryrun] {arch} {cell}: decision {rec['tiering']} != "
+                f"{want} (the probe forced True)")
+        if SHAPE_CELLS[cell].kind == "train":
+            require(rec["tiering"]["host_offload_supported"] is True,
+                    f"[dryrun] {arch} {cell}: the probe is False on a card")
+        mem = rec["memory"]
+        print(f"[dryrun] {arch} {cell} on 16x16 over a 256-rank fake group "
+              f"(budget {card / 1e9:.2f} GB, this card's): decision "
+              f"{json.dumps(rec['tiering'])}; per-device peak "
+              f"{mem['peak_bytes_est'] / 2**30:.3f} GiB (arguments "
+              f"{mem['argument_bytes'] / 2**30:.3f}, host "
+              f"{mem['host_argument_bytes'] / 2**30:.3f}), per-device FLOPs "
+              f"{rec['analysis']['flops']:.4e} (global "
+              f"{rec['flop_counter']['flops']:.4e}), bytes "
+              f"{rec['analysis']['bytes']:.4e}, collectives "
+              f"{json.dumps(rec['collectives_by_group'])}, launches "
+              f"{rec['launches']}; built in {rec['lower_s']} s, traced in "
+              f"{rec['analyze_s']} s, {rec['wall_s']:.1f} s in its process; "
+              f"{smi}")
+        rows[f"{arch} {cell}"] = rec
+    return rows
+
+
 # -- 6. kernel times ----------------------------------------------------------
 def phase_times(mm_data, fa_data, ssd_data) -> dict:
     x, w = mm_data
     M, K = x.shape
     N = w.shape[1]
-    mm_bound, mm_by = bound(2.0 * M * N * K,
-                            (M * K + K * N + M * N) * x.element_size(),
+    mm_bound, mm_by = bound(*work.matmul_work(M, N, K, x.element_size()),
                             PEAK_FLOPS[x.dtype])
     mm = {
         "variant": sm._variant(x.dtype, K, N),
@@ -2791,21 +3019,15 @@ def phase_times(mm_data, fa_data, ssd_data) -> dict:
     return out
 
 
-def live_pairs(Sq: int, Sk: int, causal: bool) -> float:
-    """The (query, key) pairs attention computes: the causal half of a
-    square (Sq == Sk), or all of them."""
-    return Sq * (Sq + 1) / 2 if causal else Sq * Sk
-
-
 def flash_bound(q, k, v, causal: bool = True) -> tuple[float, str]:
-    """B2's bound over (B, H, Sq, D) q and (B, KV, Sk, ·) k, v: the live
-    pairs' two products at the card's rate for q's type, or each input
-    read and the output written once."""
+    """B2's bound over (B, H, Sq, D) q and (B, KV, Sk, ·) k, v
+    (:func:`repro_torch.kernels.work.flash_work`) at the card's rate for
+    q's type."""
     B, H, Sq, D = q.shape
-    Dv = v.shape[3]
-    return bound(B * H * live_pairs(Sq, k.shape[2], causal) * 2.0 * (D + Dv),
-                 (q.numel() + k.numel() + v.numel() + B * H * Sq * Dv)
-                 * q.element_size(), PEAK_FLOPS[q.dtype])
+    KV, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    return bound(*work.flash_work(B, H, Sq, Sk, KV, D, Dv, causal=causal,
+                                  window=None, itemsize=q.element_size()),
+                 PEAK_FLOPS[q.dtype])
 
 
 def gqa_repeated(q, k, v):
@@ -2815,15 +3037,10 @@ def gqa_repeated(q, k, v):
 
 
 def ssd_work(ssd_data) -> tuple[float, int]:
-    """The SSD scan's operations and bytes: per (b, h, chunk) the causal
-    half of C B^T and of its product with x, then C S^T and the carry
-    x^T (w o B); the five float32 inputs read and y written once."""
+    """The SSD scan's operations and bytes over its five inputs
+    (:func:`repro_torch.kernels.work.ssd_work`)."""
     xc, bc = ssd_data[0], ssd_data[1]
-    B, H, nc, Q, P = xc.shape
-    N = bc.shape[-1]
-    live = Q * (Q + 1) / 2
-    flops = B * H * nc * (2.0 * live * (N + P) + 4.0 * Q * N * P)
-    return flops, sum(t.numel() for t in ssd_data + (xc,)) * 4
+    return work.ssd_work(*xc.shape, bc.shape[-1])
 
 
 def ssd_times(ssd_data) -> dict:
@@ -2991,7 +3208,7 @@ def main() -> None:
     phase_serving_bench(dev)
 
     cfg = GRANITE_8B
-    L, d, heads, kv, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+    L, d, heads, kv, hd = (CHAIN_STAGES, cfg.d_model, cfg.n_heads,
                            cfg.n_kv_heads, cfg.head_dim)
     seq = 4096
     mm_stages, mm_x0 = matmul_chain(L, m=seq, k=d, dtype=cfg.dtype, seed=0)
@@ -3056,7 +3273,12 @@ def main() -> None:
     del mm_data, fa_data, ssd_data, fa_models, ssd_models
     release_memory()
     trained = phase_train(dev["smi"])
-    meshed = phase_mesh(dev["smi"])
+    cells = start_dryrun_cells()
+    try:
+        meshed = phase_mesh(dev["smi"])
+        phase_dryrun(dev["smi"], cells)
+    finally:
+        stop_dryrun_cells(cells)
     steps = {"granite-8b": trained["launches"],
              "granite-8b mesh": meshed["launches"], **{
         model: rows["untiered"]["launches"]

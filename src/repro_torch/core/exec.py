@@ -61,6 +61,7 @@ from repro_torch.core.objects import DataObject, ObjectCatalog, ObjectKind
 from repro_torch.core.placement import PlacementPlan, PlacementPolicy
 from repro_torch.core.telemetry import NULL_TELEMETRY, Telemetry
 from repro_torch.kernels import ops
+from repro_torch.kernels.traced import is_traced
 
 #: Default RDMA-op chunk for the emulated QP (the paper's 4 MiB anchor).
 DEFAULT_CHUNK_BYTES = 4 << 20
@@ -91,7 +92,9 @@ def host_tensor(a: Any, *, pin: bool) -> torch.Tensor:
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(a))
     t = t.contiguous()
-    if pin and not t.is_pinned():
+    # a traced (fake) tensor has no memory to pin: it stands for the
+    # pinned copy it would be
+    if pin and not is_traced(t) and not t.is_pinned():
         t = t.pin_memory()
     return t
 
@@ -210,7 +213,8 @@ class HostFetchEngine:
                 host = (into[k] if into is not None else
                         torch.empty(a.shape, dtype=a.dtype, pin_memory=True))
                 host.copy_(a, non_blocking=True)
-                a.record_stream(cs)
+                if not is_traced(a):
+                    a.record_stream(cs)
                 out[k] = host
             done = torch.cuda.Event()
             done.record(cs)
@@ -261,8 +265,20 @@ class HostFetchEngine:
         """Post an async read (host → device). The future resolves to the
         device tensors and the copy's CUDA event (``None`` on the CPU);
         :meth:`acquire` is the barrier that hands them to a consumer."""
-        return self._pool.submit(self._transfer, "read", name, payloads, pace,
-                                 None)
+        return self._submit("read", name, payloads, pace, None)
+
+    def _submit(self, *args) -> Future:
+        """``_transfer(*args)`` on the worker; inline for traced (fake)
+        tensors, whose fake mode takes one thread at a time: a trace posts
+        the same copies, in the caller's thread."""
+        if not any(is_traced(t) for t in args[2].values()):
+            return self._pool.submit(self._transfer, *args)
+        fut: Future = Future()
+        try:
+            fut.set_result(self._transfer(*args))
+        except BaseException as e:  # noqa: BLE001 - raised at result()
+            fut.set_exception(e)
+        return fut
 
     def acquire(self, fut: Future) -> dict[str, torch.Tensor]:
         """The deferred access barrier of a posted read, called by the
@@ -275,7 +291,8 @@ class HostFetchEngine:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(ready)
             for t in tensors.values():
-                t.record_stream(stream)
+                if not is_traced(t):
+                    t.record_stream(stream)
         return tensors
 
     def write(self, name: str, arrays: dict[str, torch.Tensor],
@@ -288,8 +305,7 @@ class HostFetchEngine:
         if self._copy_stream is not None:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
-        return self._pool.submit(self._transfer, "write", name, arrays, pace,
-                                 ready, into)
+        return self._submit("write", name, arrays, pace, ready, into)
 
     def measure_sweep(
         self,

@@ -182,12 +182,28 @@ def local_part(t: torch.Tensor) -> torch.Tensor:
 def like_global(local: torch.Tensor, like: torch.Tensor, placements=None):
     """``local`` as the local shard of a DTensor on ``like``'s mesh (with
     ``like``'s placements unless given); ``local`` itself when ``like`` is
-    a plain tensor."""
+    a plain tensor. A host shard on a card's mesh (a REMOTE leaf's) stays
+    in host memory (:func:`_on_host`)."""
     if not _is_dtensor(like):
         return local
-    return DTensor.from_local(local, like.device_mesh,
-                              like.placements if placements is None
-                              else placements, run_check=False)
+    placements = like.placements if placements is None else placements
+    if local.device.type == "cpu" != like.device_mesh.device_type:
+        return _on_host(local, like, placements)
+    return DTensor.from_local(local, like.device_mesh, placements,
+                              run_check=False)
+
+
+def _on_host(local: torch.Tensor, like: DTensor, placements) -> DTensor:
+    """``local`` (a host tensor) as the local shard of a DTensor on
+    ``like``'s mesh and global shape. ``DTensor.from_local`` would move it
+    to the mesh's device type: a REMOTE leaf's shard stays in host memory,
+    and only the fetch engine moves it."""
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+
+    spec = DTensorSpec(like.device_mesh, tuple(placements),
+                       tensor_meta=TensorMeta(like.shape, like.stride(),
+                                              local.dtype))
+    return DTensor(local, spec, requires_grad=False)
 
 
 def _mesh_of(tree: Any):
@@ -251,8 +267,11 @@ def leaf_sharding(mesh, placements: tuple, *, tier: Tier,
 def supports_host_offload_spmd(mesh) -> bool:
     """Whether each rank's local shard of a REMOTE leaf can live in pinned
     host memory behind the copy stream: True on a CUDA mesh with a card,
-    False on the CPU (whose shards stay ordinary host tensors)."""
-    return mesh.device_type == "cuda" and torch.cuda.is_available()
+    False on the CPU (whose shards stay ordinary host tensors) and on an
+    abstract mesh (no devices), as the reference's probe answers on
+    XLA-CPU."""
+    return (getattr(mesh, "device_type", None) == "cuda"
+            and torch.cuda.is_available())
 
 
 def _placer(plan: PlacementPlan, prefix: str, dev: torch.device,

@@ -17,6 +17,10 @@ their strides (the last dim contiguous), so the (B,S,H,D) tensors of
 tensor-core kernel reads them through TMA maps, which need every stride a
 whole number of 16-byte units and 16-byte aligned tensors (checked here).
 
+A traced tensor (a fake tensor, or one on the ``meta`` device) takes the
+card's route on any device, up to the launch, where
+:mod:`repro_torch.kernels.traced`'s op stands in for the C entry point.
+
 The backward is the reference's ``_flash_vjp``: :class:`_B2Function`
 launches the kernel, which then also writes each row's log-sum-exp, and
 its backward is the blocked plain backward
@@ -34,6 +38,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_ref
 from repro_torch.kernels.streaming_matmul import _validate_tiles
+from repro_torch.kernels.traced import is_traced
 
 #: Launches of the CUDA kernels in this process (the CPU path never counts).
 LAUNCHES = 0
@@ -104,9 +109,11 @@ def _launch(q, k, v, *, causal, window, scale, variant: str | None = None,
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
     variant = variant or _variant(q.dtype, D, Dv)
+    traced = is_traced(q, k, v)
     if variant == "wgmma":
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(t.stride(d) % 8 for d in range(3)):
+            if (not traced and t.data_ptr() % 16) or any(
+                    t.stride(d) % 8 for d in range(3)):
                 raise ValueError(
                     f"flash_attention: TMA needs {name} 16-byte aligned with "
                     f"strides that are multiples of 8 elements; got strides "
@@ -117,6 +124,10 @@ def _launch(q, k, v, *, causal, window, scale, variant: str | None = None,
                     device=q.device).transpose(1, 2)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if traced:  # shapes only: the op in the kernel's place
+        torch.ops.repro_torch.b2_flash(q, k, v, o, lse, bool(causal), window,
+                                       float(scale))
+        return (o, lse) if with_lse else o
     lib = _build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = [t.stride(d) for t in (q, k, v, o) for d in range(3)]
@@ -231,9 +242,10 @@ def flash_attention_gpu(
     if not (q.device == k.device == v.device):
         raise ValueError(
             f"flash_attention: q, k, v on {q.device}, {k.device}, {v.device}")
-    if q.device.type == "cpu":
+    traced = is_traced(q, k, v)
+    if q.device.type == "cpu" and not traced:
         return flash_ref(q, k, v, causal=causal, window=window, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not traced:
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _B2Function.apply(q, k, v, causal, window, scale)

@@ -10,6 +10,9 @@ point; on CPU tensors it composes the stages' plain versions. Which one runs
 is decided by the tensors' device alone. :func:`ssd_chunk_scan_plain`, the
 one-loop version of what the TPU kernel computes, is the oracle of both. The
 chunking and cumsum prep lives in :func:`repro_torch.kernels.ops.ssd_prep`.
+A traced tensor (a fake tensor, or one on the ``meta`` device) takes the
+card's route on any device, up to the launch, where
+:mod:`repro_torch.kernels.traced`'s op stands in for the C entry point.
 On a card the scan is differentiable through :class:`_B3Function`: the
 kernels forward, the plain staged scan's VJP backward.
 """
@@ -20,6 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.traced import is_traced
 
 #: Scans run through the CUDA kernels in this process, one per call (the
 #: CPU path never counts).
@@ -266,6 +270,9 @@ def _launch(xc, bc, cc, dtc, cum) -> torch.Tensor:
     # the kernels' scratch: each chunk's state, then the state entering it
     states = xc.new_empty((*xc.shape[:3], dims[3], dims[4]))
     y = torch.empty_like(xc)
+    if is_traced(xc):  # shapes only: the op in the kernels' place
+        torch.ops.repro_torch.b3_scan(xc, bc, cc, dtc, cum, states, y)
+        return y
     _call("ssd_chunk_scan_staged", (xc, bc, cc, dtc, cum, states, y), dims,
           xc.device)
     LAUNCHES += 1
@@ -313,6 +320,6 @@ def ssd_chunk_scan_gpu(
     :class:`_B3Function`: a grad-requiring input gives a ``y`` whose
     backward is the plain staged scan's VJP."""
     _validate(xc, bc, cc, dtc, cum)
-    if not _on_cuda("ssd_chunk_scan", xc):
+    if not is_traced(xc) and not _on_cuda("ssd_chunk_scan", xc):
         return ssd_staged_plain(xc, bc, cc, dtc, cum)
     return _B3Function.apply(xc, bc, cc, dtc, cum)

@@ -15,6 +15,10 @@ The block arguments keep the reference's contract: each is clamped to its
 dim, and a dim that its block does not divide raises a :class:`ValueError`
 naming it. The CUDA kernels tile internally at their own sizes.
 
+A traced tensor (a fake tensor, or one on the ``meta`` device) takes the
+card's route on any device, up to the launch, where
+:mod:`repro_torch.kernels.traced`'s op stands in for the C entry point.
+
 The backward pass mirrors the reference's custom VJP (``_matmul_bwd``):
 ``dx = g @ wᵀ`` and ``dw = xᵀ @ g`` through the same kernel (or, on the CPU,
 the same plain version), cast to x's and w's types. The transposed operands
@@ -29,6 +33,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import matmul_ref
+from repro_torch.kernels.traced import is_traced
 
 #: Launches of the CUDA kernels in this process (the CPU path never counts).
 LAUNCHES = 0
@@ -108,6 +113,14 @@ def _launch(x: torch.Tensor, w: torch.Tensor,
     if Np != N:  # zero columns, dropped from the result below
         w = torch.nn.functional.pad(w, (0, Np - N))
     variant = variant or _variant(x.dtype, K, Np)
+    if is_traced(x, w):  # shapes only: the op in the kernel's place
+        out = torch.empty((M, Np), dtype=x.dtype, device=x.device)
+        torch.ops.repro_torch.b1_matmul(x, w, out)
+        # the copy below, through aten: a CPU build's Python indexing
+        # refuses a fake CUDA tensor
+        return out if Np == N else torch.ops.aten.clone(
+            torch.ops.aten.slice(out, 1, 0, N),
+            memory_format=torch.contiguous_format)
     if w.data_ptr() % 16:
         raise ValueError("streaming_matmul: the CUDA kernel streams w in "
                          "16-byte vectors; w must be 16-byte aligned")
@@ -134,6 +147,8 @@ def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     on a card, an error anywhere else."""
     if w.device != x.device:
         raise ValueError(f"streaming_matmul: x on {x.device}, w on {w.device}")
+    if is_traced(x, w):
+        return _launch(x, w)
     if x.device.type == "cpu":
         return matmul_ref(x, w)
     if x.device.type != "cuda":
@@ -191,6 +206,6 @@ def streaming_matmul(
                     N=(N, min(block_n, N)), K=(K, min(block_k, K)))
     if w.device != x.device:
         raise ValueError(f"streaming_matmul: x on {x.device}, w on {w.device}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda") and not is_traced(x, w):
         raise ValueError(f"streaming_matmul: no kernel for device {x.device}")
     return _StreamingMatmul.apply(x, w)

@@ -1,4 +1,4 @@
-"""Launchers: serving (``python -m repro_torch.launch.serve``) and training
-(``python -m repro_torch.launch.train``), and the production mesh
-(``mesh``). The dry-run and its compiled-graph analysis wait for ROADMAP
-A11b."""
+"""Launchers: serving (``python -m repro_torch.launch.serve``), training
+(``python -m repro_torch.launch.train``) and the dry-run
+(``python -m repro_torch.launch.dryrun``, its per-device trace analysis in
+``hlo_analysis``), and the production mesh (``mesh``)."""

@@ -17,15 +17,16 @@ from __future__ import annotations
 import torch
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's production meshes over CUDA devices: (16, 16) with
-    axes ``data, model`` (256 cards), or (2, 16, 16) with ``pod`` first.
-    Needs a process group of that many ranks."""
+def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
+    """The reference's production meshes over ``device``'s type: (16, 16)
+    with axes ``data, model`` (256 cards), or (2, 16, 16) with ``pod``
+    first. Needs a process group of that many ranks (the dry-run's is a
+    fake one)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+    return init_device_mesh(device, shape, mesh_dim_names=axes)
 
 
 def make_smoke_mesh(shape=(1, 1), axes=("data", "model"), *,

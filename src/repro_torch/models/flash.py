@@ -14,6 +14,9 @@ Which computation runs is decided by the tensors' device alone:
   :func:`~repro_torch.models.sharding.local_call` on each rank's local
   shards, batch on ``data`` and heads on ``model``, and takes one of the
   two routes here on those shards (:func:`_local_flash`).
+* A traced tensor (fake, or on the ``meta`` device) takes the card's
+  route on any device (:mod:`repro_torch.kernels.traced`): a trace counts
+  what the card runs.
 * On a CPU tensor it computes :func:`blocked_flash`, the reference's jnp
   flash in plain torch: queries in up to ``n_strips`` strips, each scanning
   only the KV blocks between its sliding-window edge and its diagonal, with
@@ -43,6 +46,7 @@ from torch.distributed.tensor import Replicate, Shard
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF, reference_attention
+from repro_torch.kernels.traced import is_traced
 from repro_torch.models.sharding import is_dtensor, local_call
 
 DEFAULT_BLOCK_Q = 1024
@@ -292,7 +296,7 @@ def flash_attention(
         return _local_flash(q, k, v, causal=causal, window=window,
                             q_offset=q_offset, scale=scale, block_k=block_k,
                             n_strips=n_strips)
-    if q.device.type == "cuda":
+    if q.device.type == "cuda" or is_traced(q, k, v):
         return _b2(q, k, v, causal=causal, window=window, q_offset=q_offset,
                    scale=scale)
     if q.device.type != "cpu":

@@ -14,12 +14,19 @@ import math
 from typing import Any
 
 import torch
-from torch.distributed.tensor import Replicate
+import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.flash import flash_attention
-from repro_torch.models.sharding import constrain, is_dtensor, replicate_like
+from repro_torch.models.sharding import (
+    constrain,
+    is_dtensor,
+    local_call,
+    local_shape_and_offset,
+    replicate_like,
+)
 
 Params = dict[str, Any]
 
@@ -96,24 +103,58 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig, *,
     }
 
 
-def _split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+def _whole_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    """A DTensor whose last dim (n heads, flattened) is split finer than
+    its heads, gathered along it; anything else as it is."""
     if is_dtensor(x):
-        # a projection split finer than its n heads is gathered first
         last = [i for i, pl in enumerate(x.placements)
                 if pl.is_shard(x.ndim - 1)]
         if n % math.prod(x.device_mesh.shape[i] for i in last):
             x = x.redistribute(x.device_mesh, [
                 Replicate() if i in last else pl
                 for i, pl in enumerate(x.placements)])
+    return x
+
+
+def _split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    # a projection split finer than its n heads is gathered first
+    x = _whole_heads(x, n)
     return x.reshape(*x.shape[:-1], n, d)
 
 
-def _sdpa(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
+class _GradHeads(torch.autograd.Function):
+    """The identity; its backward gathers a gradient split along its last
+    dim finer than ``n`` heads (:func:`_whole_heads`), which the view back
+    to heads could not take (36 heads over 16 ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_heads(g, ctx.n), None
+
+
+def _merge_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(..., n, d) -> (..., n·d), the inverse of :func:`_split_heads`."""
+    x = x.reshape(*x.shape[:-2], n * d)
+    return _GradHeads.apply(x, n) if is_dtensor(x) else x
+
+
+def _sdpa(q, k, v, mask, cfg: ModelConfig, groups=()) -> torch.Tensor:
     """q: (B,Sq,H,Dh)  k,v: (B,Sk,KV,Dh)  mask: broadcastable (B,1,Sq,Sk).
 
     Dense attention as the reference computes it: the raw scores rounded
     to q's type (the einsum's output type) before they are scaled, softmax
-    in float32, the probabilities cast to q's type."""
+    in float32, the probabilities cast to q's type.
+
+    With ``groups`` (process groups) each rank of them holds its own slice
+    of the keys: the softmax's row max and sum of exponentials, then the
+    probabilities' products with v, are all-reduced over them."""
+    if is_dtensor(q):
+        return _local_sdpa(q, k, v, mask, cfg)
     B, Sq, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -122,9 +163,44 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     scores = scores.to(q.dtype).float() / math.sqrt(Dh)
     scores = torch.where(mask[:, :, None] if mask.ndim == 4 else mask,
                          scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if groups:
+        top = scores.amax(dim=-1, keepdim=True)
+        for g in groups:
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g)
+        e = torch.exp(scores - top)
+        total = e.sum(dim=-1, keepdim=True)
+        for g in groups:
+            dist.all_reduce(total, group=g)
+        probs = (e / total).to(q.dtype)
+    else:
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.float(), v.float())
+    for g in groups:
+        dist.all_reduce(out, group=g)
     return out.to(q.dtype).reshape(B, Sq, H, Dh)
+
+
+def _local_sdpa(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`_sdpa` of DTensors on each rank's local shards (the decode
+    steps'). A mesh dim that splits q and k alike on the batch or on the
+    heads stays split (each rank's query heads then read its own KV
+    heads). A mesh dim that splits the keys (a cache's length) keeps them
+    split, the softmax reduced over that dim's ranks. Any other split is
+    gathered."""
+    keep = (Shard(0), Shard(2))
+    qp = tuple(a if a == b and a in keep else Replicate()
+               for a, b in zip(q.placements, k.placements))
+    kp = tuple(Shard(1) if b == Shard(1) else a
+               for a, b in zip(qp, k.placements))
+    mask = replicate_like(mask, q)
+    per_row = mask.shape[0] == q.shape[0] > 1
+    mp = tuple(Shard(3) if b == Shard(1) else
+               a if a == Shard(0) and per_row else Replicate()
+               for a, b in zip(qp, kp))
+    mesh = q.device_mesh
+    groups = [mesh.get_group(i) for i, b in enumerate(kp) if b == Shard(1)]
+    return local_call("sdpa", lambda *ts: _sdpa(*ts, cfg, groups),
+                      (q, k, v, mask), (qp, kp, kp, mp), qp, mesh)
 
 
 def causal_mask(Sq: int, Sk: int, *, window: int | None = None,
@@ -172,7 +248,7 @@ def gqa_attention(
     else:
         out = _sdpa(q, k, v, mask, cfg)
     out = constrain(out, "batch", None, "heads", None)
-    return out.reshape(B, S, H * Dh) @ p["wo"]
+    return _merge_heads(out, H, Dh) @ p["wo"]
 
 
 def write_slot(cache: torch.Tensor, new: torch.Tensor,
@@ -184,6 +260,9 @@ def write_slot(cache: torch.Tensor, new: torch.Tensor,
     the cache keeps what it has, as the reference's scatter drops an
     out-of-range write (it rewrites the value already in its clamped slot:
     a mask, not boolean indexing, so the host never waits)."""
+    if is_dtensor(cache):
+        _write_slot_sharded(cache, new, slot)
+        return
     S = cache.shape[1]
     row = slot.clamp(max=S - 1)
     if slot.ndim == 0:
@@ -192,6 +271,32 @@ def write_slot(cache: torch.Tensor, new: torch.Tensor,
     lanes = torch.arange(cache.shape[0], device=cache.device)
     keep = (slot >= S).reshape(-1, *([1] * (new.ndim - 2)))
     cache[lanes, row] = torch.where(keep, cache[lanes, row], new[:, 0])
+
+
+def _write_slot_sharded(cache, new, slot) -> None:
+    """:func:`write_slot` on a DTensor cache, in place on each rank's local
+    shard: the rank whose shard of the slot dim holds the (clamped) slot
+    writes ``new`` there, every other rank rewrites the value it has (a
+    mask, so no rank waits on the slot's value). A 0-d slot only: a
+    per-lane write under a mesh has no caller."""
+    if slot.ndim != 0:
+        raise NotImplementedError(
+            "write_slot: a per-lane slot into a cache under a device mesh")
+    mesh = cache.device_mesh
+    whole = [Replicate() if pl.is_shard(1) else pl for pl in cache.placements]
+    if not is_dtensor(new):
+        new = replicate_like(new, cache)
+    if tuple(new.placements) != tuple(whole):
+        new = new.redistribute(mesh, whole)
+    local, offset = local_shape_and_offset(cache.shape, mesh,
+                                           cache.placements)
+    c = cache.to_local()
+    row = (slot.to_local() if is_dtensor(slot) else slot).clamp(
+        max=cache.shape[1] - 1) - offset[1]
+    owned = (row >= 0) & (row < local[1])
+    r = row.clamp(0, local[1] - 1).reshape(1)
+    c.index_copy_(1, r, torch.where(owned, new.to_local(),
+                                    c.index_select(1, r)))
 
 
 def gqa_decode_step(
@@ -230,7 +335,7 @@ def gqa_decode_step(
     k_new = rope(_split_heads(x @ p["wk"], KV, Dh), positions, cfg.rope_theta)
     v_new = _split_heads(x @ p["wv"], KV, Dh)
 
-    idx = torch.arange(S_cache, device=x.device)
+    idx = replicate_like(torch.arange(S_cache, device=x.device), x)
     lane_pos = positions[:, 0].long() if per_lane else pos.long()
     slot = lane_pos % S_cache if cfg.sliding_window else lane_pos
     write_slot(cache_k, k_new, slot)
@@ -251,7 +356,7 @@ def gqa_decode_step(
             valid = idx <= lane_pos
         mask = valid[None, None, None, :]
     out = _sdpa(q, cache_k, cache_v, mask, cfg)
-    return out.reshape(B, 1, H * Dh) @ p["wo"], cache_k, cache_v
+    return _merge_heads(out, H, Dh) @ p["wo"], cache_k, cache_v
 
 
 # -- SwiGLU MLP -----------------------------------------------------------
@@ -285,7 +390,37 @@ def embed_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     e = constrain(p["embedding"], "vocab", None)
+    if is_dtensor(e):
+        return constrain(_local_embed(e, tokens), "batch", None, None)
     return constrain(e[tokens.long()], "batch", None, None)
+
+
+def _local_embed(e: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup on each rank's shards (a vocabulary-parallel embedding):
+    each rank looks the tokens up in its rows of the vocabulary and gives
+    zeros for the others, so the output is ``Partial()`` (one rank's row,
+    zeros elsewhere: an exact sum) on the mesh dims that split the
+    vocabulary. DTensor's own strategy for the lookup's backward (an
+    index_put) is refused by the card's torch 2.11 once the vocabulary is
+    split."""
+    from torch.distributed.tensor import Partial
+
+    mesh = e.device_mesh
+    tokens = replicate_like(tokens, e)
+    local, offset = local_shape_and_offset(e.shape, mesh, e.placements)
+    tp = tuple(Shard(0) if t == Shard(0) else Replicate()
+               for t in tokens.placements)
+    ep = tuple(Shard(0) if a == Shard(0) else Replicate()
+               for a in e.placements)
+    out = tuple(Partial() if a == Shard(0) else t for a, t in zip(ep, tp))
+
+    def lookup(e_loc, tok):
+        idx = tok.long() - offset[0]
+        inside = (idx >= 0) & (idx < local[0])
+        rows = e_loc[idx.clamp(0, local[0] - 1)]
+        return torch.where(inside[..., None], rows, rows.new_zeros(()))
+
+    return local_call("embed", lookup, (e, tokens), (ep, tp), out, mesh)
 
 
 def logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -304,11 +439,26 @@ def logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return out
 
 
+def _pick(logit: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return logit.gather(-1, labels.long()[..., None])[..., 0]
+
+
+def label_logits(logit: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logit (B,S,V) at labels (B,S) -> (B,S). A DTensor's vocabulary must
+    be whole; the pick runs on each rank's rows (``local_call``), since
+    DTensor's ``gather`` backward makes its zeros at the global shape on
+    every rank."""
+    if not is_dtensor(logit):
+        return _pick(logit, labels)
+    pl = tuple(logit.placements)
+    return local_call("pick", _pick, (logit, labels), (pl, pl), pl,
+                      logit.device_mesh)
+
+
 def cross_entropy(logit: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token NLL; logit (B,S,V) float32, labels (B,S) int. Under a
     mesh the vocabulary is gathered first (the pick of each label's logit
     has no vocabulary-split form)."""
     logit = constrain(logit, "batch", None, None)
     lse = torch.logsumexp(logit, dim=-1)
-    picked = logit.gather(-1, labels.long()[..., None])[..., 0]
-    return torch.mean(lse - picked)
+    return torch.mean(lse - label_logits(logit, labels))

@@ -23,7 +23,7 @@ from repro_torch.models.layers import (
     rope,
     write_slot,
 )
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import constrain, replicate_like
 
 Params = dict[str, Any]
 
@@ -129,7 +129,7 @@ def mla_decode_step(
     scores = (torch.einsum("bqhl,bsl->bhqs", q_c, cache_c)
               + torch.einsum("bqhr,bsr->bhqs", q_rope, cache_kr)
               ).float() * scale
-    idx = torch.arange(S_max, device=x.device)
+    idx = replicate_like(torch.arange(S_max, device=x.device), x)
     valid = (idx <= lane_pos[..., None]).reshape(-1, 1, 1, S_max)
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)

@@ -162,7 +162,7 @@ def _moe_ffn_dense(
     # sum is exact in any order
     me = probs.mean(dim=(0, 1))  # (E,)
     n_tok = G * T
-    ce = torch.bincount(top_i.reshape(-1), minlength=E).float() / n_tok
+    ce = expert_counts(top_i.reshape(-1), E).float() / n_tok
     aux = E * torch.sum(me * ce) / k
 
     cap = max(math.ceil(T * k / E * cf), 1)
@@ -304,12 +304,20 @@ def _route(x: torch.Tensor, router: torch.Tensor, *, k: int):
     return probs, top_p / top_p.sum(dim=-1, keepdim=True), top_i
 
 
+def expert_counts(idx: torch.Tensor, E: int) -> torch.Tensor:
+    """How often each of ``E`` experts appears in ``idx`` (int64):
+    ``torch.bincount(idx, minlength=E)`` with its length fixed by ``E``
+    and not by the data, so that a trace on fake tensors can take it."""
+    return torch.zeros(E, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx.long(), torch.ones_like(idx, dtype=torch.int64))
+
+
 def _count(top_i: torch.Tensor, E: int) -> torch.Tensor:
     """How many slots each expert was picked for, over every rank's tokens
     (the dense path's ``bincount``): each rank counts its own, summed."""
     out = [Partial() if pl.is_shard() else pl for pl in top_i.placements]
-    return local_call("moe_count", lambda t: torch.bincount(
-        t.reshape(-1), minlength=E), (top_i,), (top_i.placements,), out,
+    return local_call("moe_count", lambda t: expert_counts(
+        t.reshape(-1), E), (top_i,), (top_i.placements,), out,
         top_i.device_mesh)
 
 

@@ -197,6 +197,21 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def local_shape_and_offset(shape: Sequence[int], mesh,
+                           placements: Sequence) -> tuple[tuple, tuple]:
+    """This rank's shard of a tensor of ``shape`` laid out by
+    ``placements``: (its shape, its offset in the whole). Host arithmetic
+    on the rank's mesh coordinate, kept out of a trace's fake mode (which
+    would take its integers for data)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    with unset_fake_temporarily():
+        return compute_local_shape_and_global_offset(shape, mesh, placements)
+
+
 def constrain(x: torch.Tensor, *names: str | None) -> torch.Tensor:
     """``x`` redistributed to its logical spec under the current mesh and
     rules; the identity with no mesh."""

@@ -22,7 +22,12 @@ from torch.distributed.tensor import Replicate, Shard
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, _init, rmsnorm
-from repro_torch.models.sharding import constrain, is_dtensor, local_call
+from repro_torch.models.sharding import (
+    constrain,
+    is_dtensor,
+    local_call,
+    replicate_like,
+)
 
 
 def ssm_init(gen: torch.Generator, cfg: ModelConfig, *, stack: int) -> Params:
@@ -213,6 +218,30 @@ def ssm_decode_init(cfg: ModelConfig, batch: int, *,
     }
 
 
+def _state_update_local(state, dt, Bh, Ch, xs, A, D):
+    decay = torch.exp(dt * A)  # (B,H)
+    S = state * decay[:, :, None, None] + torch.einsum(
+        "bh,bhn,bhp->bhpn", dt, Bh, xs.float())
+    y = torch.einsum("bhn,bhpn->bhp", Ch, S) + D[:, None] * xs.float()
+    return S, y
+
+
+def _state_update(state, dt, Bh, Ch, xs, A, D):
+    """One step of the recurrence: the new state (B,H,P,N) and y (B,H,P).
+    On DTensors on each rank's local shards, the batch and the heads split
+    as the state is (every (b, h) is independent)."""
+    if not is_dtensor(state):
+        return _state_update_local(state, dt, Bh, Ch, xs, A, D)
+    sp = tuple(a if a in (Shard(0), Shard(1)) else Replicate()
+               for a in state.placements)
+    heads = tuple(Shard(0) if a == Shard(1) else Replicate() for a in sp)
+    args = [state, dt, Bh, Ch, xs, A, D]
+    args[5:] = [replicate_like(t, state) for t in args[5:]]
+    return local_call("ssm_state", _state_update_local, args,
+                      (sp, sp, sp, sp, sp, heads, heads), (sp, sp),
+                      state.device_mesh)
+
+
 def ssm_decode_step(
     p: Params, x: torch.Tensor, cache: dict, cfg: ModelConfig
 ) -> tuple[torch.Tensor, dict]:
@@ -236,10 +265,7 @@ def ssm_decode_step(
     Bh = Bm.repeat_interleave(rep, dim=1).float()  # (B,H,N)
     Ch = Cm.repeat_interleave(rep, dim=1).float()
 
-    decay = torch.exp(dt * A)  # (B,H)
-    S = cache["state"] * decay[:, :, None, None] + torch.einsum(
-        "bh,bhn,bhp->bhpn", dt, Bh, xs.float())
-    y = torch.einsum("bhn,bhpn->bhp", Ch, S) + p["D"][:, None] * xs.float()
+    S, y = _state_update(cache["state"], dt, Bh, Ch, xs, A, p["D"])
     y = y.reshape(Bsz, 1, di).to(x.dtype)
     y = rmsnorm(p["norm"], y * F.silu(z))
     out = y @ p["out_proj"]

@@ -53,6 +53,7 @@ import functools
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import Replicate
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     create_selective_checkpoint_contexts,
@@ -81,6 +82,7 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models.sharding import (
     constrain,
     current_mesh,
+    is_dtensor,
     replicate_like,
     resolve_spec,
 )
@@ -512,11 +514,21 @@ def loss_fn(
         metrics = {"nll": nll, "aux": aux}
         if want_hidden:
             mtp_nll = _mtp_nll(fetch, hidden, batch, cfg)
-            loss = loss + mtp_weight * mtp_nll
+            # whole on every rank first: the card's torch 2.11 adds no
+            # Partial(sum) to a Partial(avg)
+            loss = _replicated(loss) + mtp_weight * _replicated(mtp_nll)
             metrics["mtp_nll"] = mtp_nll
     finally:
         fetch.close(loss)
     return loss, metrics
+
+
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated on every mesh dim; a plain tensor itself."""
+    if not is_dtensor(t):
+        return t
+    mesh = t.device_mesh
+    return t.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 def _roll_seq(t: torch.Tensor, shift: int) -> torch.Tensor:
@@ -541,7 +553,7 @@ def _mtp_nll(fetch: _Fetcher, hidden, batch, cfg: ModelConfig):
     tgt = _roll_seq(batch["labels"], -2)
     valid = replicate_like(torch.arange(S, device=h.device) < S - 2, h)
     lse = torch.logsumexp(mtp_logits, dim=-1)
-    picked = mtp_logits.gather(-1, tgt.long()[..., None])[..., 0]
+    picked = L.label_logits(mtp_logits, tgt)
     return torch.sum((lse - picked) * valid) / torch.clamp(
         valid.sum() * B, min=1)
 

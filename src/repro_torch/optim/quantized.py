@@ -49,6 +49,12 @@ def quantizable(shape, dtype=None) -> bool:
 def quantize(x: torch.Tensor) -> QTensor | torch.Tensor:
     if not quantizable(tuple(x.shape)):
         return x.float()
+    return quantize_blocks(x)
+
+
+def quantize_blocks(x: torch.Tensor) -> QTensor:
+    """``x`` as int8 codes and a scale per block of its last dim, whatever
+    its size (a rank's shard of a leaf :func:`quantizable` as a whole)."""
     lead = x.shape[:-1]
     xb = x.float().reshape(*lead, x.shape[-1] // BLOCK, BLOCK)
     scale = xb.abs().amax(dim=-1) / 127.0

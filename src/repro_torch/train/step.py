@@ -18,8 +18,15 @@ dry-run lays them out with its spec trees. Each gradient comes back with
 its parameter's placements (a share summed over the ranks that computed
 it), the global norm sums each shard once (:func:`~repro_torch.optim.adamw.
 global_norm`), and AdamW runs on each rank's local shards: parameter,
-gradient and moments are split alike. Gradient compression and int8
-moments are not ported under a mesh and raise there.
+gradient and moments are split alike. An int8 moment's codes are split as
+its parameter; its scales (one per block of 256 along the last dim) keep
+the leading splits and are whole along the last dim
+(:func:`~repro_torch.models.sharding.opt_pspec_tree`): each rank updates
+its codes with its own slice of the scales, and the updated slices are
+gathered (:func:`_int8_update`). Gradient compression's error-feedback
+buffer is replicated, as the reference's: each gradient is gathered whole,
+passed through the error feedback as without a mesh, and laid out again as
+it was.
 
 ``jax.value_and_grad`` becomes ``torch.autograd.grad`` over the parameters
 kept on the device, and the gradients of REMOTE parameters gather on the
@@ -43,8 +50,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
+
 import torch
-from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor import (
+    DTensor,
+    Replicate,
+    Shard,
+    distribute_tensor,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exec import HostFetchEngine, resolve_device
@@ -58,7 +72,7 @@ from repro_torch.core.tiering import (
     remote_keys,
 )
 from repro_torch.models import get_model
-from repro_torch.models.sharding import is_dtensor
+from repro_torch.models.sharding import is_dtensor, local_shape_and_offset
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import leaves, unflatten
 from repro_torch.optim.compression import (
@@ -66,7 +80,7 @@ from repro_torch.optim.compression import (
     error_feedback_leaf,
     init_error_feedback,
 )
-from repro_torch.optim.quantized import QTensor
+from repro_torch.optim.quantized import BLOCK, QTensor, quantize_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,6 +224,96 @@ def _grad_like(g: torch.Tensor | None, t: torch.Tensor,
     return g
 
 
+def _update_layout(p: DTensor) -> tuple:
+    """The placements an int8 leaf is updated in: ``p``'s, unless a split
+    of its last dim cuts a quantization block, which is then undone (each
+    mesh dim splitting that dim made ``Replicate()``)."""
+    d = p.ndim - 1
+    split = math.prod(n for pl, n in zip(p.placements, p.device_mesh.shape)
+                      if pl == Shard(d))
+    if (p.shape[d] // split) % BLOCK == 0:
+        return tuple(p.placements)
+    return tuple(Replicate() if pl == Shard(d) else pl for pl in p.placements)
+
+
+def _int8_update(opt_cfg, names, olds, g, s, store: "_Store") -> list:
+    """One leaf's AdamW step under a mesh when its moments are int8
+    (:class:`QTensor` of DTensors): the codes split as the parameter, each
+    scale whole along the last dim.
+
+    Each rank updates its local codes with the slice of the scales that
+    covers them (its last-dim range over whole blocks, in the layout of
+    :func:`_update_layout`), then the updated slices are gathered along
+    the last dim, since every rank holds the scales whole there. Blocks
+    and values are the unsharded step's; the math is elementwise but for
+    each block's max, which a rank computes over a whole block."""
+    p, m, v = olds
+    mesh, d = p.device_mesh, p.ndim - 1
+    lay = _update_layout(p)
+
+    def laid(name: str, t: DTensor) -> DTensor:
+        """``t`` fetched to the device (through ``store``) in ``lay``."""
+        t = like_global(store.get(name, local_part(t)), t)
+        return t if tuple(t.placements) == lay else t.redistribute(mesh, lay)
+
+    shape, offset = local_shape_and_offset(p.shape, mesh, lay)
+    b0, nb = offset[d] // BLOCK, shape[d] // BLOCK
+    cur = [local_part(laid(names[0], p))]
+    for name, q in zip(names[1:], (m, v)):
+        scale = store.get(name + ".scale", local_part(q.scale))
+        cur.append(QTensor(local_part(laid(name + ".codes", q.codes)),
+                           scale[..., b0:b0 + nb]))
+    # float32 moments out, quantized here: the shard may be smaller than
+    # the size quantize() asks of a whole leaf
+    p_new, m32, v32 = adamw.leaf_update(
+        dataclasses.replace(opt_cfg, moment_style="f32"), cur[0],
+        local_part(g if tuple(g.placements) == lay
+                   else g.redistribute(mesh, lay)), cur[1], cur[2], s)
+    new = [p_new, quantize_blocks(m32), quantize_blocks(v32)]
+
+    def back(x: torch.Tensor, like: DTensor, name: str, old: torch.Tensor):
+        """``x`` (a local shard in ``lay``) laid out as ``like`` and put
+        through ``store`` over ``old``."""
+        t = like_global(x, like, lay)
+        if tuple(t.placements) != tuple(like.placements):
+            t = t.redistribute(mesh, like.placements)
+        return like_global(store.put(name, old, local_part(t)), like)
+
+    out = [back(new[0], p, names[0], local_part(p))]
+    for name, q, nq in zip(names[1:], (m, v), new[1:]):
+        codes = back(nq.codes, q.codes, name + ".codes",
+                     local_part(q.codes))
+        # this rank's slice of the scales, split along the last dim where
+        # lay splits it, gathered whole there as q.scale is laid out
+        sl = tuple(pl if pl == Shard(d) else sp for pl, sp in
+                   zip(lay, q.scale.placements))
+        whole = DTensor.from_local(nq.scale, mesh, sl, run_check=False,
+                                   shape=q.scale.shape,
+                                   stride=q.scale.stride()).redistribute(
+            mesh, q.scale.placements)
+        scale = like_global(store.put(name + ".scale", local_part(q.scale),
+                                      local_part(whole)), q.scale)
+        out.append(QTensor(codes, scale))
+    return out
+
+
+def _error_feedback(g: torch.Tensor, r: torch.Tensor, block: int, store,
+                    name: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The error feedback of one gradient against its residual ``r``
+    (fetched and written back through ``store``): on a DTensor gradient,
+    over the gradient gathered whole, as the replicated buffer holds it,
+    the compressed gradient then laid out as ``g`` was."""
+    if not is_dtensor(g):
+        q, e = error_feedback_leaf(g, store.get(name, r), block)
+        return q, store.put(name, r, e)
+    mesh = g.device_mesh
+    whole = g.redistribute(mesh, [Replicate()] * mesh.ndim)
+    q, e = error_feedback_leaf(local_part(whole), store.get(
+        name, local_part(r)), block)
+    q = like_global(q, whole).redistribute(mesh, g.placements)
+    return q, like_global(store.put(name, local_part(r), e), r)
+
+
 def make_value_and_grad(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
                         *, plan: PlacementPlan | None = None):
     """Returns ``value_and_grad(params, batch, engine=None) -> (loss,
@@ -312,9 +416,7 @@ def make_train_step(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
         tensors."""
         if is_dtensor(olds[0]):
             if any(isinstance(t, QTensor) for t in olds):
-                raise NotImplementedError(
-                    "train step: int8 moments under a device mesh are not "
-                    "ported; use moment_style 'f32' or 'bf16'")
+                return _int8_update(opt_cfg, names, olds, g, s, store)
             news = update_leaf(names, [local_part(t) for t in olds],
                                local_part(g), s, store)
             return [like_global(x, t) for x, t in zip(news, olds)]
@@ -341,17 +443,12 @@ def make_train_step(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
         device: :func:`adamw.update`'s math through ``store``. Each leaf's
         gradient is dropped once the leaf is updated."""
         new_opt = {}
-        if step_cfg.compression.enabled and is_dtensor(opt_state["step"]):
-            raise NotImplementedError(
-                "train step: gradient compression under a device mesh is not "
-                "ported")
         if step_cfg.compression.enabled:
             ef = {}
             for k, r in leaves(opt_state["ef"]):
-                name = "opt['ef']" + k
-                grads[k], e = error_feedback_leaf(
-                    grads[k], store.get(name, r), step_cfg.compression.block)
-                ef[k] = store.put(name, r, e)
+                grads[k], ef[k] = _error_feedback(
+                    grads[k], r, step_cfg.compression.block, store,
+                    "opt['ef']" + k)
             new_opt["ef"] = unflatten(params, ef)
         step = store.get("opt['step']", local_part(opt_state["step"])) + 1
         gnorm = adamw.global_norm(unflatten(params, grads))

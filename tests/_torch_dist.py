@@ -11,7 +11,9 @@ fails the call with its traceback, and the world is closed: its other
 ranks may be blocked in a collective.
 
 :func:`one_rank_group` starts a process group of this process alone, for
-a (1, 1) mesh inside an ordinary test.
+a (1, 1) mesh inside an ordinary test; :func:`fake_group` one of torch's
+``fake`` backend, in which this process is rank 0 of many and collectives
+move nothing (meshes of production size over fake tensors).
 """
 from __future__ import annotations
 
@@ -104,6 +106,23 @@ def one_rank_group(directory: str):
 
     dist.init_process_group("gloo", store=dist.FileStore(
         os.path.join(directory, "store1"), 1), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int):
+    """A process group of ``world_size`` ranks of torch's ``fake`` backend,
+    this process rank 0; destroyed on the way out, so that the test worker
+    is left with no default group."""
+    import torch.distributed as dist
+    # registers the "fake" backend's constructor
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=world_size)
     try:
         yield
     finally:

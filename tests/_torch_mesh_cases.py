@@ -128,6 +128,21 @@ def step_case(cfg, params, batch, shape, microbatches: int = 1):
     return answer(out)
 
 
+def memory_case(cfg, params, batch, shape):
+    """The trace analysis's memory tracker over rank 0's real train step
+    on ``shape`` (float32 moments, remat full), its state laid out by the
+    spec trees: ``measure_memory``'s dict."""
+    from repro_torch.launch.hlo_analysis import measure_memory
+
+    opt = adamw_init(OPT, params)
+    mesh = mesh_of(shape)
+    with use_mesh(mesh):
+        dp, do, db, _ = laid_out(cfg, params, opt, batch, mesh)
+        step = step_mod.make_train_step(cfg, TrainStepConfig(remat="full"),
+                                        OPT)
+        return answer(measure_memory(step, dp, do, db))
+
+
 def _planted_scatters():
     """The fault planted in fsdp_stream's backward: a broadcast layer's
     gradient given to the ranks that do not own it, an all-gathered one's
@@ -314,3 +329,95 @@ def launcher_case(argv: list[str]):
 
     res = launch.main(argv)
     return answer(res.losses)
+
+
+def moments_case(cfg, params, batch, shape, grads: dict):
+    """Two train steps with int8 moments and gradient compression on, each
+    given the whole gradients ``grads``: unsharded and on ``shape`` from
+    the same state. Returns each run's parameters, moments (an int8 leaf
+    as its ``.codes`` and ``.scale``) and error-feedback buffer after each
+    step, and, for each int8 leaf, the mesh dims that split its codes'
+    last dim."""
+    from repro_torch.optim.compression import (
+        CompressionConfig,
+        init_error_feedback,
+    )
+
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0, moment_style="int8")
+    step_cfg = TrainStepConfig(remat="full",
+                               compression=CompressionConfig(enabled=True))
+    loss = torch.zeros(())
+    given = (loss, {}, grads)
+
+    def init():
+        opt = adamw_init(opt_cfg, params)
+        opt["ef"] = init_error_feedback(params)
+        return opt
+
+    def two_steps(p, o, b):
+        rows = []
+        for _ in range(2):
+            p, o, _ = _step_given(
+                lambda: step_mod.make_train_step(cfg, step_cfg, opt_cfg),
+                given, p, o, b)
+            rows.append({"params": flat(p), "m": flat(o["m"]),
+                         "v": flat(o["v"]), "ef": flat(o["ef"])})
+        return rows, o
+
+    want, _ = two_steps(params, init(), batch)
+    mesh = mesh_of(shape)
+    with use_mesh(mesh):
+        dp, do, db, _ = laid_out(cfg, params, init(), batch, mesh)
+        got, o = two_steps(dp, do, db)
+        split = {k: [i for i, pl in enumerate(q.codes.placements)
+                     if pl.is_shard(q.codes.ndim - 1)]
+                 for k, q in _qtensors(o["m"])}
+    return answer({"want": want, "got": got, "split": split,
+                   "quantized": sorted(k for k, _ in _qtensors(init()["m"]))})
+
+
+def _qtensors(tree, key: str = ""):
+    """(keystr, QTensor) of every int8 leaf of ``tree``."""
+    from repro_torch.optim.quantized import QTensor
+
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _qtensors(v, f"{key}[{k!r}]")
+    elif isinstance(tree, QTensor):
+        yield key, tree
+
+
+def decode_case(cfg, params, tokens, shape, moe_groups=None):
+    """Decode steps over ``tokens`` (B, n) one token at a time from an
+    empty cache of ``tokens.shape[1]`` slots, unsharded and on ``shape``
+    (parameters, cache and tokens laid out by the spec trees): each
+    step's logits, and the caches after the last step."""
+    from repro_torch.models import get_model
+    from repro_torch.models.sharding import cache_pspec_tree
+
+    model = get_model(cfg)
+    B, n = tokens.shape
+
+    def run(p, cache, lay):
+        logits = []
+        for i in range(n):
+            tok = lay({"t": tokens[:, i:i + 1]})["t"]
+            out, cache = model.decode_step(p, cache, tok, cfg,
+                                           moe_groups=moe_groups)
+            logits.append(whole(out))
+        return logits, flat(cache)
+
+    want = run(params, model.init_decode_cache(cfg, B, n, device="cpu"),
+               lambda t: t)
+    mesh = mesh_of(shape)
+    with use_mesh(mesh):
+        specs = params_pspec_tree(params, expert_sharding=cfg.expert_sharding,
+                                  mesh=mesh)
+        dp = distribute_tree(params, specs, mesh)
+        cache = model.init_decode_cache(cfg, B, n, device="cpu")
+        dc = distribute_tree(cache, cache_pspec_tree(cache, mesh), mesh)
+        split = {k: split_dims(t) for k, t in _leaves_with_keys(dc)
+                 if hasattr(t, "placements")}
+        got = run(dp, dc, lambda b: distribute_tree(
+            b, batch_pspec_tree(b, mesh), mesh))
+    return answer({"want": want, "got": got, "split": split})

@@ -145,9 +145,15 @@ def test_flash_on_a_card_never_runs_the_plain_version(monkeypatch):
 
 
 def test_flash_refuses_other_devices():
-    q = torch.zeros((1, 4, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
+    """A device with no kernel raises (a stand-in on ``xpu``); a traced
+    tensor (on the meta device) takes the card's route, B2's registered
+    op standing in for the launch."""
+    q = types.SimpleNamespace(device=torch.device("xpu"),
+                              shape=(1, 4, 2, 16))
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
         pt_flash.flash_attention(q, q, q)
+    q = torch.zeros((1, 4, 2, 16), device="meta")
+    assert pt_flash.flash_attention(q, q, q).shape == q.shape
 
 
 def test_cpu_flash_launches_nothing():

@@ -49,6 +49,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.models.encdec\n"
         "import repro_torch.models.sharding, repro_torch.launch.mesh\n"
         "import _torch_dist, _torch_mesh_cases\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hlo_analysis\n"
+        "import repro_torch.kernels.work, repro_torch.kernels.traced\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))))\n"
@@ -89,3 +91,21 @@ def test_scan_reaches_every_port_package():
     assert ROOT / "src" / "repro_torch" / "launch" in packages
     for new in ("train", "optim", "data", "checkpoint"):
         assert ROOT / "src" / "repro_torch" / new in packages
+
+
+def test_dryrun_import_sets_no_environment():
+    """The reference's dry-run sets XLA_FLAGS when it is imported; the
+    port's sets nothing (and loads no JAX)."""
+    code = (
+        "import json, os, sys\n"
+        "before = dict(os.environ)\n"
+        "import repro_torch.launch.dryrun\n"
+        "changed = sorted(k for k in set(before) | set(os.environ)\n"
+        "                 if before.get(k) != os.environ.get(k))\n"
+        "print(json.dumps([changed, 'jax' in sys.modules]))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], False]

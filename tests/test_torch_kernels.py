@@ -10,6 +10,8 @@ JAX it runs alone:
     PYTHONPATH=src python -m pytest --noconftest -m cuda \
         tests/test_torch_kernels.py
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -373,17 +375,35 @@ class TestShapeValidation:
 
     def test_no_kernel_for_other_devices(self):
         """Only a CPU tensor takes the plain version; any other device
-        launches a kernel or raises."""
+        launches a kernel or raises. A traced tensor (here on the meta
+        device: shapes, no data) takes the card's route, the kernel's
+        registered op standing in for the launch (``kernels/traced.py``);
+        a device with no kernel (stand-ins on ``xpu``) raises."""
+        counts = (pt_sm.LAUNCHES, pt_fa.LAUNCHES, pt_ssd.LAUNCHES)
         x = torch.ones((128, 128), device="meta")
-        with pytest.raises(ValueError, match="no kernel for device meta"):
-            pt_sm.streaming_matmul(x, x)
+        assert pt_sm.streaming_matmul(x, x).shape == (128, 128)
         q = torch.ones((1, 2, 64, 32), device="meta")
-        with pytest.raises(ValueError, match="no kernel for device meta"):
-            pt_fa.flash_attention_gpu(q, q, q)
+        assert pt_fa.flash_attention_gpu(q, q, q).shape == q.shape
         x, b = (torch.ones(s, device="meta") for s in ((1, 2, 1, 16, 8),
                                                        (1, 2, 1, 16, 4)))
         d = torch.ones((1, 2, 1, 16), device="meta")
-        with pytest.raises(ValueError, match="no kernel for device meta"):
+        y = pt_ssd.ssd_chunk_scan_gpu(x, b, b, d, d)
+        assert y.shape == x.shape and y.device.type == "meta"
+        assert (pt_sm.LAUNCHES, pt_fa.LAUNCHES, pt_ssd.LAUNCHES) == counts
+
+        def on_xpu(*shape):
+            return types.SimpleNamespace(
+                device=torch.device("xpu"), shape=torch.Size(shape),
+                ndim=len(shape), dtype=torch.float32, requires_grad=False)
+
+        with pytest.raises(ValueError, match="no kernel for device xpu"):
+            pt_sm.streaming_matmul(on_xpu(128, 128), on_xpu(128, 128))
+        q = on_xpu(1, 2, 64, 32)
+        with pytest.raises(ValueError, match="no kernel for device xpu"):
+            pt_fa.flash_attention_gpu(q, q, q)
+        x, b, d = on_xpu(1, 2, 1, 16, 8), on_xpu(1, 2, 1, 16, 4), on_xpu(
+            1, 2, 1, 16)
+        with pytest.raises(ValueError, match="no kernel for device xpu"):
             pt_ssd.ssd_chunk_scan_gpu(x, b, b, d, d)
 
     def test_mixed_devices_raise(self):

@@ -24,6 +24,21 @@ over ``data`` and ``model``, and the ranks' side in
 * The reference's EP cases of ``tests/test_expert_paging.py`` (bit for
   bit, on (4, 1): a ``model`` axis of one, the reference's (1, 1)) and
   both of ``tests/test_moe_ep.py``.
+* Int8 moments and gradient compression under the mesh: two steps given
+  the same gradients on (2, 2), (4, 1) and (1, 4) (where the ``model``
+  split cuts a quantization block of ``w_up``) against the unsharded
+  steps: parameters within the update's tolerance above, int8 codes
+  within 1, scales, float32 moments and the error-feedback buffer within
+  1e-5 of their leaf's max.
+* Decode under the mesh (granite-8b, its KV cache's length split over
+  ``model``: the slot written on its owner's shard, the softmax reduced
+  over the ranks; mamba2-130m's state update on local shards;
+  deepseek-v3's latent cache): 4 steps' logits within 1e-5 of their max
+  and the caches within 1e-5 of the unsharded decode's.
+* The dry-run's memory tracker on a mesh: rank 0's train step traced on
+  fake tensors over a fake process group of 4 (the dry-run's
+  ``laid_out`` state) has the tracker's memory dict of rank 0's real step
+  on (2, 2) and (4, 1), peak included, ``==``.
 * A checkpoint saved on (2, 2) restored on (1, 4) ``==``;
   ``device_put_fn``; the launcher with ``--mesh 2,2``.
 """
@@ -38,11 +53,13 @@ from repro.configs import reduced_config as ref_reduced_config
 from repro.models import moe as REF_MOE
 
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.core.objects import _leaves_with_keys
 from repro_torch.core.tiering import TieringConfig
+from repro_torch.models import get_model
 from repro_torch.models import moe as MOE
 
 import _torch_mesh_cases as C
-from _torch_dist import World
+from _torch_dist import World, fake_group
 from _torch_train_parity import Ref, check_f32
 
 
@@ -388,3 +405,119 @@ def test_launcher_trains_on_a_mesh(world):
         "--steps", "4", "--batch", "4", "--seq", "32", "--lr", "3e-3"])[0]
     assert len(losses) == 4 and all(np.isfinite(losses))
     assert losses[-1] < losses[0]
+
+
+# -- int8 moments and gradient compression under the mesh ---------------------
+
+def _int8_inputs():
+    """Reduced granite-8b (float32) wide enough that its MLP weights and
+    the embedding are int8 moments (1 MiB and more, last dim a multiple of
+    256), its parameters, a batch and fixed gradients, all drawn from
+    seed 0."""
+    cfg = reduced_config(get_config("granite-8b"), dtype=torch.float32,
+                         d_model=256, d_ff=512, vocab_size=1024)
+    gen = torch.Generator().manual_seed(0)
+    params = get_model(cfg).init_params(gen, cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                           dtype=torch.int32)
+    grads = {k: torch.randn(t.shape, generator=gen) * 1e-2
+             for k, t in _leaves_with_keys(params)}
+    return cfg, params, {"tokens": tokens, "labels": tokens}, grads
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4)])
+def test_int8_moments_and_compression_under_a_mesh(world, shape):
+    cfg, params, batch, grads = _int8_inputs()
+    out = world.run(C.moments_case, cfg, params, batch, shape, grads)[0]
+    assert "['layers']['mlp']['w_up']" in out["quantized"]
+    assert "['embed']['embedding']" in out["quantized"]
+    w_up = out["split"]["['layers']['mlp']['w_up']"]
+    assert w_up == ([] if shape == (4, 1) else [1])  # 512 over model
+    old = {k: t.numpy() for k, t in _leaves_with_keys(params)}
+    for step, (got, want) in enumerate(zip(out["got"], out["want"])):
+        for k, o in old.items():  # held_update's bound on the parameters
+            w = want["params"][k]
+            assert _close(got["params"][k], w, w - o, 1e-5,
+                          2 * np.spacing(np.abs(o))), (step, k)
+        for part in ("m", "v", "ef"):
+            assert got[part].keys() == want[part].keys()
+            for k, w in want[part].items():
+                if k.endswith(".codes"):
+                    assert np.abs(got[part][k] - w).max() <= 1, (step, k)
+                else:
+                    assert _close(got[part][k], w, w, 1e-5), (step, part, k)
+        old = want["params"]
+
+
+# -- the dry-run's predicted peak against a real mesh step --------------------
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_traced_peak_equals_the_real_mesh_step(world, shape, monkeypatch):
+    """Reduced granite-8b (float32): what ``launch.dryrun`` predicts for
+    rank 0 (the step traced over a fake group of 4 on its laid-out fake
+    state) is what the same tracker counts over rank 0's real step."""
+    import repro_torch.core.exec as ex
+    import repro_torch.models.flash as mflash
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import streaming_matmul as sm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.models import sharding as shd
+    from repro_torch.optim import init as adamw_init
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    cfg = reduced_config(get_config("granite-8b"), dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    params = get_model(cfg).init_params(gen, cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+    real = world.run(C.memory_case, cfg, params, batch, shape)[0]
+
+    # the kernels' CPU routes on fake tensors too, as the ranks ran them
+    for mod in (sm, fa, ssd, mflash, ex):
+        monkeypatch.setattr(mod, "is_traced", lambda *_t: False)
+    tr = H.Tracer()
+    params, batch = torch.utils._pytree.tree_map_only(
+        torch.Tensor, tr.from_tensor, (params, batch))
+    with tr:
+        opt = adamw_init(C.OPT, params)
+    with fake_group(4):
+        mesh = C.mesh_of(shape)
+        with shd.use_mesh(mesh):
+            specs = shd.params_pspec_tree(
+                params, expert_sharding=cfg.expert_sharding, mesh=mesh)
+            args = (dryrun.laid_out(params, specs, mesh, tr),
+                    dryrun.laid_out(opt, shd.opt_pspec_tree(opt, specs, mesh),
+                                    mesh, tr),
+                    dryrun.laid_out(batch, shd.batch_pspec_tree(batch, mesh),
+                                    mesh, tr))
+            step = make_train_step(cfg, TrainStepConfig(remat="full"), C.OPT)
+            traced = H.analyze(step, *args).memory
+    assert traced == real
+    assert real["temp_bytes"] > 0 and real["peak_bytes_est"] > (
+        real["argument_bytes"] + real["output_bytes"])
+
+
+# -- decode under the mesh ----------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["granite-8b", "mamba2-130m",
+                                  "deepseek-v3-671b"])
+def test_decode_under_a_mesh_matches_unsharded(world, arch):
+    cfg = reduced_config(get_config(arch), dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    params = get_model(cfg).init_params(gen, cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 4), generator=gen,
+                           dtype=torch.int32)
+    out = world.run(C.decode_case, cfg, params, tokens, (2, 2),
+                    2 if cfg.is_moe else None)[0]
+    (want_logits, want_cache), (got_logits, got_cache) = (out["want"],
+                                                          out["got"])
+    for w, g in zip(want_logits, got_logits):
+        assert _close(g, w, w, 1e-5)
+    assert got_cache.keys() == want_cache.keys()
+    for k, w in want_cache.items():
+        assert _close(got_cache[k], w, w, 1e-5), k
+    if arch == "granite-8b":  # the cache's length split over model
+        assert out["split"]["['k']"][1] == 2
