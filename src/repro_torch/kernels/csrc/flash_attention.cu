@@ -20,8 +20,8 @@
 // Given a non-null `lse`, both entry points also write each row's
 // log-sum-exp of its scaled scores, lse = m + log(l_safe) in natural-log
 // units, (B, H, Sq)
-// float32 contiguous: what the backward (models/flash.py::_flash_bwd)
-// starts from. One thread per row writes it, after the last tile, from the
+// float32 contiguous: what the backward (flash_attention_bwd.cu, and its
+// plain version models/flash.py::_flash_bwd) starts from. One thread per row writes it, after the last tile, from the
 // row's final m and l; the output o is computed exactly as without it.
 //
 // Two variants; the wrapper picks one by a plain rule on dtype and shape

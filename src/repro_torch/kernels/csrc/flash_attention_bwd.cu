@@ -1,0 +1,987 @@
+// Backward of flash attention (kernel B2) for Hopper (sm_90a): dq, dk and dv
+// from the forward's saved (q, k, v, o, lse) and dO.
+//
+// Replaces no TPU kernel: the reference's `_flash_vjp`
+// (src/repro/kernels/flash_attention.py) recomputes its backward through
+// jnp, and the port's plain version of this kernel is that backward in
+// torch (kernels/flash_attention.py::_plain_bwd, which runs
+// models/flash.py::_flash_bwd). This file computes the same blocked
+// backward on the card:
+//
+//   delta_i = sum_d dO_id o_id                       (float32, a pre-pass)
+//   p_ij    = exp(s_ij scale - lse_i), s = q k^T     (float32 scores, C2)
+//   dv_j   += sum_i p_ij dO_i
+//   dp_ij   = dO_i . v_j
+//   ds_ij   = p_ij (dp_ij - delta_i) scale
+//   dq_i   += sum_j ds_ij k_j
+//   dk_j   += sum_i ds_ij q_i
+//
+// over the live (query, key) pairs of the forward's masks (GQA, causal,
+// sliding window, full, cross attention with Sq != Sk, Dv != D); a masked
+// pair has p = 0 exactly, so a row or key that meets no live pair gets zero
+// gradients.
+//
+// Bound on the H100: at granite-8b's train shape (B 2, H 32, KV 8, S 2048,
+// D = Dv = 128, causal, bf16) the five products over the live half of the
+// score matrix (the recomputed q k^T, dO v^T, p^T dO, ds k, ds^T q: 2.5x the
+// forward's two) are 2.5 x 4 x 2 x 32 x 128 x 2048 x 2049 / 2 = 171.9 GFLOP
+// on 168 MB of q, k, v, o, dO, lse, dq, dk and dv: bound by operations,
+// 0.174 ms at the bf16 tensor-core peak (989 TFLOP/s).
+//
+// Two variants, picked by the wrapper's plain rule on dtype and shape
+// (kernels/flash_attention.py::_bwd_variant):
+//
+// (1) "wgmma", bf16 with D and Dv multiples of 16 and at most 128, three
+//   kernels launched back to back:
+//   * delta, one warp per query row (dO . o in float32);
+//   * dk and dv: one CTA per (b, KV head, 128 keys); warpgroup 0 is the
+//     producer (one thread issues TMA), warpgroups 1 and 2 own 64 keys each.
+//     The CTA's K and V tiles are loaded once; the query tiles (64 rows of
+//     q and dO) of the G query heads of its group stream through a
+//     TWO-STAGE ring with a "full" and an "empty" mbarrier per slot, in a
+//     fixed order (head, then query tile). Each warpgroup works on the
+//     transposed tiles, keys as rows, so that every product is a wgmma:
+//       S^T  = K Q^T    wgmma.m64n64k16, both operands K-major in shared
+//                       memory (128-byte swizzle, as the forward's Q K^T);
+//       dP^T = V dO^T   the same, over Dv;
+//       dV  += P^T dO   register A (the S^T accumulator layout is the A
+//                       fragment layout of a 16-bit operand: P^T is packed
+//                       to bf16 in place) and B = dO MN-major (the transpose
+//                       bit), as the forward's P V;
+//       dK  += dS^T Q   the same with dS^T and Q.
+//     dk and dv are summed in registers over every query tile and head and
+//     written once;
+//   * dq: one CTA per (b, head, 128 query rows), the forward's layout: the
+//     Q and dO tiles loaded once, 64-key K and V tiles streamed through a
+//     two-stage ring; S = Q K^T and dP = dO V^T (wgmma.m64n64k16, both
+//     K-major), then dQ += dS K (register A, K MN-major). Its rows' lse and
+//     delta are read once.
+//   p and ds are float32 until they are packed to bf16 as wgmma's A operand
+//   (the plain version multiplies them in float32: a rounding of 2^-9 per
+//   element, averaged over the keys). The masks are applied element by
+//   element only where the tile crosses an edge; whole tiles the masks kill
+//   are never loaded.
+//   What holds it back: the dk/dv kernel issues its four products one after
+//   another with the exp and the masks between them (no ping-pong of the
+//   two warpgroups, no overlap of a tile's softmax with the next tile's
+//   products), and the dq kernel recomputes S and dP, 2 of the 5 products
+//   a second time (7 products in all, 1.4x the bound's count).
+//
+// (2) "ffma", float32 and the shapes the first variant does not take (D up
+//   to 192), on the CUDA cores, in the forward's "ffma" layout: dq with one
+//   256-thread block per (b, head, 64 query rows), each warp owning 8 rows
+//   and lane j computing key j of a 32-key tile; dk and dv with one block
+//   per (b, KV head, 64 keys), each warp owning 8 keys and lane i computing
+//   query i of a 32-row tile, over the group's heads. float32 scores and
+//   exp as the plain version; its sums run in another order.
+//
+// Deterministic: every output element is summed by one thread in one fixed
+// order (the query tiles and heads of a key tile, or the key tiles of a
+// query tile, each walked in increasing order); no atomics, no split of a
+// sum over CTAs.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "hopper.cuh"
+
+namespace {
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+struct Strides {  // element strides of the batch, head and sequence dims
+  long long b, h, s;
+};
+
+struct Mask {
+  int Sq, Sk, causal, has_window, window;
+  __device__ __forceinline__ bool live(int qi, int ki) const {
+    return qi < Sq && ki < Sk && !(causal && ki > qi) &&
+           !(has_window && ki <= qi - window);
+  }
+};
+
+// ---- delta = rowsum(dO o), one warp per (b, h, row) -------------------------
+
+constexpr int DELTA_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(DELTA_THREADS)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int H, int Sq, int Dv,
+                       Strides os, Strides ds, long long rows) {
+  const long long row = (long long)blockIdx.x * (DELTA_THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int i = static_cast<int>(row % Sq);
+  const int h = static_cast<int>((row / Sq) % H);
+  const long long b = row / ((long long)Sq * H);
+  const T* op = o + b * os.b + h * os.h + i * os.s;
+  const T* dp = dout + b * ds.b + h * ds.h + i * ds.s;
+  float acc = 0.f;
+  for (int c = lane; c < Dv; c += 32) acc = fmaf(to_f32(dp[c]), to_f32(op[c]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// ---- (2) ffma: dq -------------------------------------------------------------
+
+constexpr int FB_THREADS = 256;
+constexpr int FB_WARPS = FB_THREADS / 32;
+constexpr int FQ_ROWS = 64;               // query rows of a dq block
+constexpr int FQ_KT = 32;                 // keys of a tile (one per lane)
+constexpr int FQ_PER_WARP = FQ_ROWS / FB_WARPS;
+constexpr int FK_KEYS = 64;               // keys of a dk/dv block
+constexpr int FK_QT = 32;                 // query rows of a tile (one per lane)
+constexpr int FK_PER_WARP = FK_KEYS / FB_WARPS;
+constexpr int MAX_D = 192;
+constexpr int MAX_DV = 128;
+constexpr int D_PER_LANE = MAX_D / 32;
+constexpr int DV_PER_LANE = MAX_DV / 32;
+
+struct Args {
+  int H, KV, Sq, Sk, D, Dv;
+  Strides qs, ks, vs, dos, dqs, dks, dvs;
+  const float* lse;    // (B, H, Sq)
+  const float* delta;  // (B, H, Sq)
+  float scale;
+  Mask mask;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(FB_THREADS)
+flash_bwd_dq_ffma(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  T* __restrict__ dq, Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int D = a.D, Dv = a.Dv;
+  float* qsm = smem;                        // [64][D]
+  float* dosm = qsm + FQ_ROWS * D;          // [64][Dv]
+  float* ksm = dosm + FQ_ROWS * Dv;         // [32][D + 1]
+  float* vsm = ksm + FQ_KT * (D + 1);       // [32][Dv + 1]
+  float* dss = vsm + FQ_KT * (Dv + 1);      // [64][32]
+
+  const int q_lo = blockIdx.x * FQ_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int row0 = warp * FQ_PER_WARP;
+  const T* qp = q + b * a.qs.b + h * a.qs.h;
+  const T* dop = dout + b * a.dos.b + h * a.dos.h;
+  const T* kp = k + b * a.ks.b + kvh * a.ks.h;
+  const T* vp = v + b * a.vs.b + kvh * a.vs.h;
+  const float* lse = a.lse + ((long long)b * a.H + h) * a.Sq;
+  const float* delta = a.delta + ((long long)b * a.H + h) * a.Sq;
+
+  for (int e = tid; e < FQ_ROWS * D; e += FB_THREADS) {
+    const int qi = q_lo + e / D;
+    qsm[e] = qi < a.Sq ? to_f32(qp[qi * a.qs.s + e % D]) : 0.f;
+  }
+  for (int e = tid; e < FQ_ROWS * Dv; e += FB_THREADS) {
+    const int qi = q_lo + e / Dv;
+    dosm[e] = qi < a.Sq ? to_f32(dop[qi * a.dos.s + e % Dv]) : 0.f;
+  }
+  float lse_r[FQ_PER_WARP], delta_r[FQ_PER_WARP];
+  float acc[FQ_PER_WARP][D_PER_LANE];
+#pragma unroll
+  for (int i = 0; i < FQ_PER_WARP; ++i) {
+    const int qi = min(q_lo + row0 + i, a.Sq - 1);
+    lse_r[i] = lse[qi];
+    delta_r[i] = delta[qi];
+#pragma unroll
+    for (int j = 0; j < D_PER_LANE; ++j) acc[i][j] = 0.f;
+  }
+
+  const int n_kt = (a.Sk + FQ_KT - 1) / FQ_KT;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k_lo = kt * FQ_KT;
+    if (a.mask.causal && k_lo > q_lo + FQ_ROWS - 1) break;
+    if (a.mask.has_window && k_lo + FQ_KT <= q_lo - a.mask.window + 1) continue;
+    __syncthreads();  // the previous tile's reads are done
+    for (int e = tid; e < FQ_KT * D; e += FB_THREADS) {
+      const int r = e / D, key = k_lo + r;
+      ksm[r * (D + 1) + e % D] = key < a.Sk ? to_f32(kp[key * a.ks.s + e % D]) : 0.f;
+    }
+    for (int e = tid; e < FQ_KT * Dv; e += FB_THREADS) {
+      const int r = e / Dv, key = k_lo + r;
+      vsm[r * (Dv + 1) + e % Dv] = key < a.Sk ? to_f32(vp[key * a.vs.s + e % Dv]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[FQ_PER_WARP], dp[FQ_PER_WARP];
+#pragma unroll
+    for (int i = 0; i < FQ_PER_WARP; ++i) s[i] = dp[i] = 0.f;
+    const float* krow = ksm + lane * (D + 1);
+    for (int d = 0; d < D; d += 4) {
+      const float k0 = krow[d], k1 = krow[d + 1], k2 = krow[d + 2], k3 = krow[d + 3];
+#pragma unroll
+      for (int i = 0; i < FQ_PER_WARP; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(qsm + (row0 + i) * D + d);
+        s[i] = fmaf(qv.x, k0, s[i]);
+        s[i] = fmaf(qv.y, k1, s[i]);
+        s[i] = fmaf(qv.z, k2, s[i]);
+        s[i] = fmaf(qv.w, k3, s[i]);
+      }
+    }
+    const float* vrow = vsm + lane * (Dv + 1);
+    for (int d = 0; d < Dv; ++d) {
+      const float vv = vrow[d];
+#pragma unroll
+      for (int i = 0; i < FQ_PER_WARP; ++i)
+        dp[i] = fmaf(dosm[(row0 + i) * Dv + d], vv, dp[i]);
+    }
+    const int ki = k_lo + lane;
+#pragma unroll
+    for (int i = 0; i < FQ_PER_WARP; ++i) {
+      const int qi = q_lo + row0 + i;
+      const float p = a.mask.live(qi, ki) ? expf(s[i] * a.scale - lse_r[i]) : 0.f;
+      dss[(row0 + i) * FQ_KT + lane] = p * (dp[i] - delta_r[i]) * a.scale;
+    }
+    __syncwarp();
+    for (int kk = 0; kk < FQ_KT; ++kk) {
+#pragma unroll
+      for (int j = 0; j < D_PER_LANE; ++j) {
+        const int c = lane + 32 * j;
+        const float kv = c < D ? ksm[kk * (D + 1) + c] : 0.f;
+#pragma unroll
+        for (int i = 0; i < FQ_PER_WARP; ++i)
+          acc[i][j] = fmaf(dss[(row0 + i) * FQ_KT + kk], kv, acc[i][j]);
+      }
+    }
+  }
+
+  T* dqp = dq + b * a.dqs.b + h * a.dqs.h;
+#pragma unroll
+  for (int i = 0; i < FQ_PER_WARP; ++i) {
+    const int qi = q_lo + row0 + i;
+    if (qi >= a.Sq) continue;
+#pragma unroll
+    for (int j = 0; j < D_PER_LANE; ++j) {
+      const int c = lane + 32 * j;
+      if (c < D) store_out(dqp + qi * a.dqs.s + c, acc[i][j]);
+    }
+  }
+}
+
+// ---- (2) ffma: dk and dv ----------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(FB_THREADS)
+flash_bwd_dkdv_ffma(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    T* __restrict__ dk, T* __restrict__ dv, Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int D = a.D, Dv = a.Dv;
+  float* ksm = smem;                        // [64][D]
+  float* vsm = ksm + FK_KEYS * D;           // [64][Dv]
+  float* qsm = vsm + FK_KEYS * Dv;          // [32][D + 1]
+  float* dosm = qsm + FK_QT * (D + 1);      // [32][Dv + 1]
+  float* ps = dosm + FK_QT * (Dv + 1);      // [64][32]
+  float* dss = ps + FK_KEYS * FK_QT;        // [64][32]
+
+  const int k_lo = blockIdx.x * FK_KEYS, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.KV;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int row0 = warp * FK_PER_WARP;
+  const T* kp = k + b * a.ks.b + kvh * a.ks.h;
+  const T* vp = v + b * a.vs.b + kvh * a.vs.h;
+  for (int e = tid; e < FK_KEYS * D; e += FB_THREADS) {
+    const int key = k_lo + e / D;
+    ksm[e] = key < a.Sk ? to_f32(kp[key * a.ks.s + e % D]) : 0.f;
+  }
+  for (int e = tid; e < FK_KEYS * Dv; e += FB_THREADS) {
+    const int key = k_lo + e / Dv;
+    vsm[e] = key < a.Sk ? to_f32(vp[key * a.vs.s + e % Dv]) : 0.f;
+  }
+  float dk_acc[FK_PER_WARP][D_PER_LANE], dv_acc[FK_PER_WARP][DV_PER_LANE];
+#pragma unroll
+  for (int i = 0; i < FK_PER_WARP; ++i) {
+#pragma unroll
+    for (int j = 0; j < D_PER_LANE; ++j) dk_acc[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DV_PER_LANE; ++j) dv_acc[i][j] = 0.f;
+  }
+
+  // the query tiles that meet these keys
+  const int k_max = min(k_lo + FK_KEYS, a.Sk) - 1;
+  int qt_lo = 0, qt_hi = (a.Sq + FK_QT - 1) / FK_QT;
+  if (a.mask.causal) qt_lo = k_lo / FK_QT;
+  if (a.mask.has_window) qt_hi = min(qt_hi, (k_max + a.mask.window - 1) / FK_QT + 1);
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const T* qp = q + b * a.qs.b + h * a.qs.h;
+    const T* dop = dout + b * a.dos.b + h * a.dos.h;
+    const float* lse = a.lse + ((long long)b * a.H + h) * a.Sq;
+    const float* delta = a.delta + ((long long)b * a.H + h) * a.Sq;
+    for (int qt = qt_lo; qt < qt_hi; ++qt) {
+      const int q_lo = qt * FK_QT;
+      __syncthreads();  // the previous tile's reads are done (and k, v loaded)
+      for (int e = tid; e < FK_QT * D; e += FB_THREADS) {
+        const int r = e / D, qi = q_lo + r;
+        qsm[r * (D + 1) + e % D] = qi < a.Sq ? to_f32(qp[qi * a.qs.s + e % D]) : 0.f;
+      }
+      for (int e = tid; e < FK_QT * Dv; e += FB_THREADS) {
+        const int r = e / Dv, qi = q_lo + r;
+        dosm[r * (Dv + 1) + e % Dv] = qi < a.Sq ? to_f32(dop[qi * a.dos.s + e % Dv]) : 0.f;
+      }
+      __syncthreads();
+
+      float s[FK_PER_WARP], dp[FK_PER_WARP];
+#pragma unroll
+      for (int i = 0; i < FK_PER_WARP; ++i) s[i] = dp[i] = 0.f;
+      const float* qrow = qsm + lane * (D + 1);
+      for (int d = 0; d < D; d += 4) {
+        const float q0 = qrow[d], q1 = qrow[d + 1], q2 = qrow[d + 2], q3 = qrow[d + 3];
+#pragma unroll
+        for (int i = 0; i < FK_PER_WARP; ++i) {
+          const float4 kv = *reinterpret_cast<const float4*>(ksm + (row0 + i) * D + d);
+          s[i] = fmaf(q0, kv.x, s[i]);
+          s[i] = fmaf(q1, kv.y, s[i]);
+          s[i] = fmaf(q2, kv.z, s[i]);
+          s[i] = fmaf(q3, kv.w, s[i]);
+        }
+      }
+      const float* dorow = dosm + lane * (Dv + 1);
+      for (int d = 0; d < Dv; ++d) {
+        const float dv_ = dorow[d];
+#pragma unroll
+        for (int i = 0; i < FK_PER_WARP; ++i)
+          dp[i] = fmaf(dv_, vsm[(row0 + i) * Dv + d], dp[i]);
+      }
+      const int qi = q_lo + lane;
+      const int qc = min(qi, a.Sq - 1);
+      const float lse_q = lse[qc], delta_q = delta[qc];
+#pragma unroll
+      for (int i = 0; i < FK_PER_WARP; ++i) {
+        const int ki = k_lo + row0 + i;
+        const float p = a.mask.live(qi, ki) ? expf(s[i] * a.scale - lse_q) : 0.f;
+        ps[(row0 + i) * FK_QT + lane] = p;
+        dss[(row0 + i) * FK_QT + lane] = p * (dp[i] - delta_q) * a.scale;
+      }
+      __syncwarp();
+      for (int qq = 0; qq < FK_QT; ++qq) {
+#pragma unroll
+        for (int j = 0; j < DV_PER_LANE; ++j) {
+          const int c = lane + 32 * j;
+          const float dov = c < Dv ? dosm[qq * (Dv + 1) + c] : 0.f;
+#pragma unroll
+          for (int i = 0; i < FK_PER_WARP; ++i)
+            dv_acc[i][j] = fmaf(ps[(row0 + i) * FK_QT + qq], dov, dv_acc[i][j]);
+        }
+#pragma unroll
+        for (int j = 0; j < D_PER_LANE; ++j) {
+          const int c = lane + 32 * j;
+          const float qv = c < D ? qsm[qq * (D + 1) + c] : 0.f;
+#pragma unroll
+          for (int i = 0; i < FK_PER_WARP; ++i)
+            dk_acc[i][j] = fmaf(dss[(row0 + i) * FK_QT + qq], qv, dk_acc[i][j]);
+        }
+      }
+    }
+  }
+
+  T* dkp = dk + b * a.dks.b + kvh * a.dks.h;
+  T* dvp = dv + b * a.dvs.b + kvh * a.dvs.h;
+#pragma unroll
+  for (int i = 0; i < FK_PER_WARP; ++i) {
+    const int ki = k_lo + row0 + i;
+    if (ki >= a.Sk) continue;
+#pragma unroll
+    for (int j = 0; j < D_PER_LANE; ++j) {
+      const int c = lane + 32 * j;
+      if (c < D) store_out(dkp + ki * a.dks.s + c, dk_acc[i][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < DV_PER_LANE; ++j) {
+      const int c = lane + 32 * j;
+      if (c < Dv) store_out(dvp + ki * a.dvs.s + c, dv_acc[i][j]);
+    }
+  }
+}
+
+cudaError_t set_smem(const void* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T>
+int launch_delta(const void* o, const void* dout, float* delta, int B, int H,
+                 int Sq, int Dv, Strides os, Strides ds, cudaStream_t stream) {
+  const long long rows = (long long)B * H * Sq;
+  const int per = DELTA_THREADS / 32;
+  flash_bwd_delta_kernel<T><<<(unsigned)((rows + per - 1) / per), DELTA_THREADS, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, H, Sq, Dv, os, ds, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_ffma(const void* q, const void* k, const void* v, const void* dout,
+                void* dq, void* dk, void* dv, int B, const Args& a,
+                cudaStream_t stream) {
+  const int D = a.D, Dv = a.Dv;
+  const size_t dq_smem = sizeof(float) *
+      (size_t)(FQ_ROWS * D + FQ_ROWS * Dv + FQ_KT * (D + 1) + FQ_KT * (Dv + 1) + FQ_ROWS * FQ_KT);
+  const size_t kv_smem = sizeof(float) *
+      (size_t)(FK_KEYS * D + FK_KEYS * Dv + FK_QT * (D + 1) + FK_QT * (Dv + 1) +
+               2 * FK_KEYS * FK_QT);
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_ffma<T>), kv_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = set_smem(reinterpret_cast<const void*>(flash_bwd_dq_ffma<T>), dq_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_ffma<T><<<dim3((a.Sk + FK_KEYS - 1) / FK_KEYS, a.KV, B), FB_THREADS, kv_smem,
+                           stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<T*>(dk), static_cast<T*>(dv), a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_ffma<T><<<dim3((a.Sq + FQ_ROWS - 1) / FQ_ROWS, a.H, B), FB_THREADS, dq_smem,
+                         stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<T*>(dq), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// ---- (1) the tensor-core variant ---------------------------------------------
+
+namespace tcb {
+
+constexpr int THREADS = 384;
+constexpr int STAGES = 2;
+constexpr int BIG = 128;             // keys of a dk/dv CTA, query rows of a dq CTA
+constexpr int SMALL = 64;            // query rows of a dk/dv tile, keys of a dq tile
+constexpr int BIG_BOX = BIG * 128;   // one (128 rows x 64 cols) bf16 box
+constexpr int SMALL_BOX = SMALL * 128;  // one (64 rows x 64 cols) bf16 box
+
+// D(64x64, f32) += A(64x16, bf16, shared) * B(16x64, bf16, shared)
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// acc += A (registers, 4 k-steps of 16) * B (MN-major tile in shared memory,
+// 64 rows of K; N = 64 or 128 in boxes of SMALL_BOX bytes)
+template <int NP>
+__device__ __forceinline__ void rs_product(float (&acc)[NP / 2], const uint32_t (&a)[4][4],
+                                           const unsigned char* tile) {
+#pragma unroll
+  for (int kk = 0; kk < SMALL / 16; ++kk) {
+    const uint64_t db = hopper::smem_desc(tile + kk * 16 * 128, SMALL_BOX, 1024);
+    if constexpr (NP == 128)
+      hopper::wgmma_rs_m64n128k16<1>(acc, a[kk], db, 1);
+    else
+      hopper::wgmma_rs_m64n64k16<1>(acc, a[kk], db, 1);
+  }
+}
+
+// acc (64 x 64) = A (64 rows of a tile of BOX-byte boxes, from row a_row) *
+// B^T (64 rows of SMALL_BOX boxes), both K-major over KP columns
+template <int KP>
+__device__ __forceinline__ void ss_product(float (&acc)[32], const unsigned char* a_tile,
+                                           int a_box, int a_row, const unsigned char* b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < KP / 16; ++kk) {
+    const int sub = (kk % 4) * 32;
+    const uint64_t da = hopper::smem_desc(a_tile + (kk / 4) * a_box + a_row * 128 + sub, 16, 1024);
+    const uint64_t db = hopper::smem_desc(b_tile + (kk / 4) * SMALL_BOX + sub, 16, 1024);
+    wgmma_ss_m64n64k16(acc, da, db);
+  }
+}
+
+__device__ __forceinline__ void pack(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = hopper::pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = hopper::pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = hopper::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = hopper::pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+
+struct TcArgs {
+  int H, KV, Sq, Sk, D, Dv;
+  Strides dqs, dks, dvs;
+  const float* lse;
+  const float* delta;
+  float scale, scale_log2;
+  Mask mask;
+};
+
+template <int DP, int DVP>
+struct KvLayout {
+  static constexpr int K_BYTES = BIG * DP * 2;
+  static constexpr int V_BYTES = BIG * DVP * 2;
+  static constexpr int Q_BYTES = SMALL * DP * 2;
+  static constexpr int O_BYTES = SMALL * DVP * 2;
+  static constexpr int STAGE_BYTES = Q_BYTES + O_BYTES;
+  static constexpr int BARRIERS = 1 + 2 * STAGES;
+  static constexpr int SMEM_BYTES = 1024 + K_BYTES + V_BYTES + STAGES * STAGE_BYTES + BARRIERS * 8;
+};
+
+// dk, dv: grid (KV, key tiles of 128, B)
+template <int DP, int DVP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap domap,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                     TcArgs a) {
+  using L = KvLayout<DP, DVP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  unsigned char* k_tile = smem;
+  unsigned char* v_tile = smem + L::K_BYTES;
+  auto q_tile = [&](int s) { return smem + L::K_BYTES + L::V_BYTES + s * L::STAGE_BYTES; };
+  auto do_tile = [&](int s) { return q_tile(s) + L::Q_BYTES; };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::K_BYTES + L::V_BYTES +
+                                               STAGES * L::STAGE_BYTES);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int kvh = blockIdx.x, kb = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.KV;
+  const int k_lo = kb * BIG;
+  const int k_max = min(k_lo + BIG, a.Sk) - 1;
+  int qt_lo = 0, qt_hi = (a.Sq + SMALL - 1) / SMALL;
+  if (a.mask.causal) qt_lo = k_lo / SMALL;
+  if (a.mask.has_window) qt_hi = min(qt_hi, (k_max + a.mask.window - 1) / SMALL + 1);
+  const int nq = max(qt_hi - qt_lo, 0);
+  const int n_tiles = G * nq;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      hopper::mbar_expect_tx(kv_full, L::K_BYTES + L::V_BYTES);
+#pragma unroll
+      for (int c = 0; c < DP / 64; ++c)
+        hopper::tma_load_4d(k_tile + c * BIG_BOX, &kmap, kv_full, c * 64, k_lo, kvh, b);
+#pragma unroll
+      for (int c = 0; c < DVP / 64; ++c)
+        hopper::tma_load_4d(v_tile + c * BIG_BOX, &vmap, kv_full, c * 64, k_lo, kvh, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        const int h = kvh * G + it / nq;
+        const int q_lo = (qt_lo + it % nq) * SMALL;
+        hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], L::STAGE_BYTES);
+#pragma unroll
+        for (int c = 0; c < DP / 64; ++c)
+          hopper::tma_load_4d(q_tile(s) + c * SMALL_BOX, &qmap, &full[s], c * 64, q_lo, h, b);
+#pragma unroll
+        for (int c = 0; c < DVP / 64; ++c)
+          hopper::tma_load_4d(do_tile(s) + c * SMALL_BOX, &domap, &full[s], c * 64, q_lo, h, b);
+      }
+    }
+  } else {  // consumers: 64 keys each, keys as the rows of every tile
+    hopper::regs_alloc<240>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int row_lo = k_lo + cw * 64;                 // this warpgroup's keys
+    const int k0 = row_lo + (t / 32) * 16 + lane / 4;  // this thread's keys
+    const int k1 = k0 + 8;
+    const int col = 2 * (lane % 4);                    // + 8 j (+ 1): its queries
+
+    float dk_acc[DP / 2], dv_acc[DVP / 2];
+    zero(dk_acc);
+    zero(dv_acc);
+    if (n_tiles > 0) hopper::mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES;
+      const int h = kvh * G + it / nq;
+      const int q_lo = (qt_lo + it % nq) * SMALL;
+      const float* lse = a.lse + ((long long)b * a.H + h) * a.Sq;
+      const float* delta = a.delta + ((long long)b * a.H + h) * a.Sq;
+      // does the tile cross an edge of a mask (else every pair is live)?
+      const bool edge = q_lo + SMALL > a.Sq || row_lo + 64 > a.Sk ||
+                        (a.mask.causal && row_lo + 63 > q_lo) ||
+                        (a.mask.has_window && row_lo <= q_lo + SMALL - 1 - a.mask.window);
+
+      float st[32], dpt[32];
+      zero(st);
+      zero(dpt);
+      hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+      hopper::wgmma_fence();
+      ss_product<DP>(st, k_tile, BIG_BOX, cw * 64, q_tile(s));     // S^T = K Q^T
+      ss_product<DVP>(dpt, v_tile, BIG_BOX, cw * 64, do_tile(s));  // dP^T = V dO^T
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = q_lo + 8 * j + col + e;
+          const int qc = min(qi, a.Sq - 1);
+          const float l2 = lse[qc] * LOG2E, dl = delta[qc];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int x = 4 * j + 2 * r + e;
+            const int ki = r == 0 ? k0 : k1;
+            float p = exp2f(st[x] * a.scale_log2 - l2);
+            if (edge && !a.mask.live(qi, ki)) p = 0.f;
+            st[x] = p;
+            dpt[x] = p * (dpt[x] - dl) * a.scale;
+          }
+        }
+      }
+      uint32_t pa[4][4], da[4][4];
+      pack(pa, st);
+      pack(da, dpt);
+      hopper::wgmma_fence();
+      rs_product<DVP>(dv_acc, pa, do_tile(s));  // dV += P^T dO
+      rs_product<DP>(dk_acc, da, q_tile(s));    // dK += dS^T Q
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(da);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    __nv_bfloat16* dkp = dk + b * a.dks.b + kvh * a.dks.h;
+    __nv_bfloat16* dvp = dv + b * a.dvs.b + kvh * a.dvs.h;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + col;
+      if (c >= a.D) continue;  // D is a multiple of 16
+      if (k0 < a.Sk)
+        *reinterpret_cast<__nv_bfloat162*>(dkp + k0 * a.dks.s + c) =
+            __floats2bfloat162_rn(dk_acc[4 * j], dk_acc[4 * j + 1]);
+      if (k1 < a.Sk)
+        *reinterpret_cast<__nv_bfloat162*>(dkp + k1 * a.dks.s + c) =
+            __floats2bfloat162_rn(dk_acc[4 * j + 2], dk_acc[4 * j + 3]);
+    }
+#pragma unroll
+    for (int j = 0; j < DVP / 8; ++j) {
+      const int c = 8 * j + col;
+      if (c >= a.Dv) continue;
+      if (k0 < a.Sk)
+        *reinterpret_cast<__nv_bfloat162*>(dvp + k0 * a.dvs.s + c) =
+            __floats2bfloat162_rn(dv_acc[4 * j], dv_acc[4 * j + 1]);
+      if (k1 < a.Sk)
+        *reinterpret_cast<__nv_bfloat162*>(dvp + k1 * a.dvs.s + c) =
+            __floats2bfloat162_rn(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+    }
+  }
+}
+
+template <int DP, int DVP>
+struct QLayout {
+  static constexpr int Q_BYTES = BIG * DP * 2;
+  static constexpr int O_BYTES = BIG * DVP * 2;
+  static constexpr int K_BYTES = SMALL * DP * 2;
+  static constexpr int V_BYTES = SMALL * DVP * 2;
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+  static constexpr int BARRIERS = 1 + 4 * STAGES;
+  static constexpr int SMEM_BYTES = 1024 + Q_BYTES + O_BYTES + STAGES * STAGE_BYTES + BARRIERS * 8;
+};
+
+// dq: grid (H, query tiles of 128, B), the longest rows first
+template <int DP, int DVP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap domap,
+                   __nv_bfloat16* __restrict__ dq, TcArgs a) {
+  using L = QLayout<DP, DVP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  unsigned char* q_tile = smem;
+  unsigned char* do_tile = smem + L::Q_BYTES;
+  auto k_tile = [&](int s) { return smem + L::Q_BYTES + L::O_BYTES + s * L::STAGE_BYTES; };
+  auto v_tile = [&](int s) { return k_tile(s) + L::K_BYTES; };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::Q_BYTES + L::O_BYTES +
+                                               STAGES * L::STAGE_BYTES);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
+
+  const int h = blockIdx.x;
+  const int qb = gridDim.y - 1 - blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  const int q_lo = qb * BIG;
+  int kb_lo = 0, kb_hi = (a.Sk + SMALL - 1) / SMALL;
+  if (a.mask.causal) kb_hi = min(kb_hi, (q_lo + BIG - 1) / SMALL + 1);
+  if (a.mask.has_window) {
+    const int x = q_lo - a.mask.window - (SMALL - 1);  // live iff kb * SMALL > x
+    if (x >= 0) kb_lo = x / SMALL + 1;
+  }
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 8);
+      hopper::mbar_init(&v_empty[s], 8);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x == 0 && kb_lo < kb_hi) {
+      hopper::mbar_expect_tx(q_full, L::Q_BYTES + L::O_BYTES);
+#pragma unroll
+      for (int c = 0; c < DP / 64; ++c)
+        hopper::tma_load_4d(q_tile + c * BIG_BOX, &qmap, q_full, c * 64, q_lo, h, b);
+#pragma unroll
+      for (int c = 0; c < DVP / 64; ++c)
+        hopper::tma_load_4d(do_tile + c * BIG_BOX, &domap, q_full, c * 64, q_lo, h, b);
+      for (int kb = kb_lo, i = 0; kb < kb_hi; ++kb, ++i) {
+        const int s = i % STAGES;
+        const uint32_t ph = ((i / STAGES) & 1) ^ 1;
+        hopper::mbar_wait(&k_empty[s], ph);
+        hopper::mbar_expect_tx(&k_full[s], L::K_BYTES);
+#pragma unroll
+        for (int c = 0; c < DP / 64; ++c)
+          hopper::tma_load_4d(k_tile(s) + c * SMALL_BOX, &kmap, &k_full[s], c * 64,
+                              kb * SMALL, kvh, b);
+        hopper::mbar_wait(&v_empty[s], ph);
+        hopper::mbar_expect_tx(&v_full[s], L::V_BYTES);
+#pragma unroll
+        for (int c = 0; c < DVP / 64; ++c)
+          hopper::tma_load_4d(v_tile(s) + c * SMALL_BOX, &vmap, &v_full[s], c * 64,
+                              kb * SMALL, kvh, b);
+      }
+    }
+  } else {  // consumers: 64 query rows each
+    hopper::regs_alloc<240>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int row_lo = q_lo + cw * 64;
+    const int r0 = row_lo + (t / 32) * 16 + lane / 4;
+    const int r1 = r0 + 8;
+    const int col = 2 * (lane % 4);
+    const float* lse = a.lse + ((long long)b * a.H + h) * a.Sq;
+    const float* delta = a.delta + ((long long)b * a.H + h) * a.Sq;
+    const float l2_0 = lse[min(r0, a.Sq - 1)] * LOG2E, l2_1 = lse[min(r1, a.Sq - 1)] * LOG2E;
+    const float d0 = delta[min(r0, a.Sq - 1)], d1 = delta[min(r1, a.Sq - 1)];
+
+    float dq_acc[DP / 2];
+    zero(dq_acc);
+    if (kb_lo < kb_hi) hopper::mbar_wait(q_full, 0);
+    for (int kb = kb_lo, i = 0; kb < kb_hi; ++kb, ++i) {
+      const int s = i % STAGES;
+      const uint32_t ph = (i / STAGES) & 1;
+      const int k_lo = kb * SMALL;
+      const bool edge = k_lo + SMALL > a.Sk || row_lo + 64 > a.Sq ||
+                        (a.mask.causal && k_lo + SMALL - 1 > row_lo) ||
+                        (a.mask.has_window && k_lo <= row_lo + 63 - a.mask.window);
+      float sc[32], dp[32];
+      zero(sc);
+      zero(dp);
+      hopper::mbar_wait(&k_full[s], ph);
+      hopper::mbar_wait(&v_full[s], ph);
+      hopper::wgmma_fence();
+      ss_product<DP>(sc, q_tile, BIG_BOX, cw * 64, k_tile(s));    // S = Q K^T
+      ss_product<DVP>(dp, do_tile, BIG_BOX, cw * 64, v_tile(s));  // dP = dO V^T
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&v_empty[s]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * j + e;
+          const int ki = k_lo + 8 * j + col + (e & 1);
+          const int qi = e < 2 ? r0 : r1;
+          float p = exp2f(sc[x] * a.scale_log2 - (e < 2 ? l2_0 : l2_1));
+          if (edge && !a.mask.live(qi, ki)) p = 0.f;
+          sc[x] = p * (dp[x] - (e < 2 ? d0 : d1)) * a.scale;
+        }
+      }
+      uint32_t da[4][4];
+      pack(da, sc);
+      hopper::wgmma_fence();
+      rs_product<DP>(dq_acc, da, k_tile(s));  // dQ += dS K
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq_acc);
+      hopper::fence_regs(da);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&k_empty[s]);
+    }
+
+    __nv_bfloat16* dqp = dq + b * a.dqs.b + h * a.dqs.h;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + col;
+      if (c >= a.D) continue;
+      if (r0 < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(dqp + r0 * a.dqs.s + c) =
+            __floats2bfloat162_rn(dq_acc[4 * j], dq_acc[4 * j + 1]);
+      if (r1 < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(dqp + r1 * a.dqs.s + c) =
+            __floats2bfloat162_rn(dq_acc[4 * j + 2], dq_acc[4 * j + 3]);
+    }
+  }
+}
+
+// a rank-4 map over (B, heads, S, width) by element strides, `rows` rows a box
+int head_map(CUtensorMap* map, const void* base, int B, int heads, int S, int width,
+             Strides st, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)S, (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  return hopper::make_map(map, base, 4, dims, strides, box);
+}
+
+template <int DP, int DVP>
+int launch(const void* q, const void* k, const void* v, const void* dout, void* dq,
+           void* dk, void* dv, int B, Strides qs, Strides ks, Strides vs, Strides dos,
+           const TcArgs& a, cudaStream_t stream) {
+  CUtensorMap qm_s, km_b, vm_b, dom_s, qm_b, km_s, vm_s, dom_b;
+  int err = head_map(&qm_s, q, B, a.H, a.Sq, a.D, qs, SMALL);
+  if (err == 0) err = head_map(&dom_s, dout, B, a.H, a.Sq, a.Dv, dos, SMALL);
+  if (err == 0) err = head_map(&km_b, k, B, a.KV, a.Sk, a.D, ks, BIG);
+  if (err == 0) err = head_map(&vm_b, v, B, a.KV, a.Sk, a.Dv, vs, BIG);
+  if (err == 0) err = head_map(&qm_b, q, B, a.H, a.Sq, a.D, qs, BIG);
+  if (err == 0) err = head_map(&dom_b, dout, B, a.H, a.Sq, a.Dv, dos, BIG);
+  if (err == 0) err = head_map(&km_s, k, B, a.KV, a.Sk, a.D, ks, SMALL);
+  if (err == 0) err = head_map(&vm_s, v, B, a.KV, a.Sk, a.Dv, vs, SMALL);
+  if (err != 0) return err;
+  const int kv_smem = KvLayout<DP, DVP>::SMEM_BYTES;
+  const int q_smem = QLayout<DP, DVP>::SMEM_BYTES;
+  cudaError_t e = set_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_wgmma<DP, DVP>), kv_smem);
+  if (e == cudaSuccess)
+    e = set_smem(reinterpret_cast<const void*>(flash_bwd_dq_wgmma<DP, DVP>), q_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkdv_wgmma<DP, DVP><<<dim3(a.KV, (a.Sk + BIG - 1) / BIG, B), THREADS, kv_smem,
+                                  stream>>>(qm_s, km_b, vm_b, dom_s,
+                                            static_cast<__nv_bfloat16*>(dk),
+                                            static_cast<__nv_bfloat16*>(dv), a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_wgmma<DP, DVP><<<dim3(a.H, (a.Sq + BIG - 1) / BIG, B), THREADS, q_smem,
+                                stream>>>(qm_b, km_s, vm_s, dom_b,
+                                          static_cast<__nv_bfloat16*>(dq), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tcb
+
+namespace {
+
+int bwd_entry(int variant, int dtype, const void* q, const void* k, const void* v,
+              const void* o, const void* dout, const float* lse, float* delta, void* dq,
+              void* dk, void* dv, int B, int H, int KV, int Sq, int Sk, int D, int Dv,
+              const long long* st, float scale, int causal, int has_window, int window,
+              cudaStream_t stream) {
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]},
+      os{st[9], st[10], st[11]}, dos{st[12], st[13], st[14]}, dqs{st[15], st[16], st[17]},
+      dks{st[18], st[19], st[20]}, dvs{st[21], st[22], st[23]};
+  if (D % 4 || D > MAX_D || Dv > MAX_DV || dtype < 0 || dtype > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Mask mask{Sq, Sk, causal, has_window, window};
+  int err = dtype == 0
+      ? launch_delta<float>(o, dout, delta, B, H, Sq, Dv, os, dos, stream)
+      : launch_delta<__nv_bfloat16>(o, dout, delta, B, H, Sq, Dv, os, dos, stream);
+  if (err != 0) return err;
+  if (variant == 1) {
+    if (dtype != 1 || D % 16 || Dv % 16 || D > 128 || Dv > 128)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const tcb::TcArgs a{H, KV, Sq, Sk, D, Dv, dqs, dks, dvs, lse, delta,
+                        scale, scale * LOG2E, mask};
+    if (D <= 64 && Dv <= 64)
+      return tcb::launch<64, 64>(q, k, v, dout, dq, dk, dv, B, qs, ks, vs, dos, a, stream);
+    if (D <= 64)
+      return tcb::launch<64, 128>(q, k, v, dout, dq, dk, dv, B, qs, ks, vs, dos, a, stream);
+    if (Dv <= 64)
+      return tcb::launch<128, 64>(q, k, v, dout, dq, dk, dv, B, qs, ks, vs, dos, a, stream);
+    return tcb::launch<128, 128>(q, k, v, dout, dq, dk, dv, B, qs, ks, vs, dos, a, stream);
+  }
+  const Args a{H, KV, Sq, Sk, D, Dv, qs, ks, vs, dos, dqs, dks, dvs, lse, delta, scale, mask};
+  if (dtype == 0) return launch_ffma<float>(q, k, v, dout, dq, dk, dv, B, a, stream);
+  return launch_ffma<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, B, a, stream);
+}
+
+}  // namespace
+
+// variant: 0 = ffma, 1 = wgmma; dtype: 0 = float32, 1 = bfloat16.
+// q (B,H,Sq,D), k (B,KV,Sk,D), v (B,KV,Sk,Dv), o and dout (B,H,Sq,Dv) and
+// the gradients dq, dk, dv (the shapes of q, k, v), each given by its base
+// pointer and the element strides of its batch, head and sequence dims (the
+// last dim contiguous); lse (B,H,Sq) float32 contiguous, the forward's;
+// delta (B,H,Sq) float32 contiguous, scratch the launch writes. D % 4 == 0,
+// D <= 192, Dv <= 128; the wgmma variant takes bf16 with D and Dv multiples
+// of 16 and at most 128, every stride of q, k, v, dout a multiple of 8
+// elements and those tensors 16-byte aligned (TMA). Launches the delta
+// pre-pass, the dk/dv kernel and the dq kernel on `stream`; returns 0, a
+// CUDA error code, or one above hopper::kTensorMapError.
+extern "C" int flash_attention_bwd(
+    int variant, int dtype, const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk, void* dv,
+    int B, int H, int KV, int Sq, int Sk, int D, int Dv,
+    long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
+    long long kss, long long vsb, long long vsh, long long vss, long long osb,
+    long long osh, long long oss, long long dosb, long long dosh, long long doss,
+    long long dqsb, long long dqsh, long long dqss, long long dksb, long long dksh,
+    long long dkss, long long dvsb, long long dvsh, long long dvss, float scale,
+    int causal, int has_window, int window, void* stream) {
+  const long long st[24] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
+                            dosb, dosh, doss, dqsb, dqsh, dqss, dksb, dksh, dkss,
+                            dvsb, dvsh, dvss};
+  return bwd_entry(variant, dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq,
+                   Sk, D, Dv, st, scale, causal, has_window, window,
+                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* kernel_error_string(int code) {
+  return hopper::error_string(code);
+}

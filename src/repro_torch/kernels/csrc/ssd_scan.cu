@@ -82,6 +82,45 @@
 //     the chunk order of the state passing is fixed, and there are no
 //     atomics and no split over keys across blocks;
 //   * nothing is allocated here: the wrapper passes the state scratch in.
+//
+// The backward (`ssd_chunk_scan_bwd`), which the reference has no kernel
+// for (it trains through its plain chunked scan, src/repro/models/ssm.py::
+// _ssd_scan, and the port's plain version is the VJP of the staged scan,
+// kernels/ssd_scan.py::ssd_bwd_staged_plain stage by stage), runs the
+// stages in reverse, with g = dy, w_j = exp(total - cum_j) dt_j and
+// lambda_c = exp(total_c), in six launches:
+//   1, 2. the forward's kernels 1 and 2 recompute the states entering each
+//      chunk (scratch `states`);
+//   1'. kernel 1 with exp(cum) weights, g and C in the places of x and B:
+//      dS_in[c] = sum_i exp(cum_i) g_i (x) C_i (scratch `dstates`);
+//   4. the state passing in reverse, one thread per state element, in place:
+//      dS_loc[c] = R[c+1] (0 for the last chunk), R[c] = dS_in[c] +
+//      lambda_c R[c+1];
+//   5. the key side, one block per (64-key tile, chunk, b, h), four warps of
+//      16 keys, the query tiles from the diagonal on streamed through two
+//      cp.async slots: the scores B C^T and x g^T of a tile transposed (keys
+//      as rows), M = (C B^T) o L and G o L, dx += M^T g and dB += (G o L)^T C
+//      from the accumulators as kernel 3's P x takes them; ddt and the key
+//      side of dcum from the same tile; then the chunk state's backward with
+//      D = dS_loc[c]: dx += w D B, dB += (w o x) D, dw = x^T D B feeding ddt,
+//      dcum and the chunk total's term tw_j = dw_j w_j; the block of key
+//      tile 0 also writes lambda_c <D, S_in[c]>;
+//   6. the row side, one block per (64-row query tile, chunk, b, h), as
+//      kernel 3: dC = exp(cum) g S_in + sum_j (G o L)_ij B_j, and dcum's row
+//      side (g . y_inter, sum_j G_ij M_ij, and at the chunk's last position
+//      sum_j tw_j + lambda_c <D, S_in>) added to kernel 5's.
+// Only the causal triangle is computed, the mask selecting before the exp,
+// so the gradients are finite wherever the plain version's are (C7). Every
+// product is mma.sync in 3xTF32 as in the forward; every output element has
+// one owner and each sum a fixed order (no atomics), so the backward is
+// deterministic. Bound on the H100 at mamba2-130m's train scan (B 2, H 24,
+// L 2048, Q 256, P 64, N 128): kernels/work.py::ssd_bwd_work counts
+// 2 (3N + 2P) operations a live pair and 12 Q N P a chunk, 22.6 GFLOP; at
+// 3xTF32 (3 x 22.6 GFLOP at 495 TFLOP/s) 0.137 ms, against 0.083 ms for the
+// 278 MB of inputs, dy and gradients: bound by operations. What holds it
+// back: the recomputed states (two launches) and dS_in, the key and row
+// kernels each recompute both score tiles (C B^T and g x^T), and the
+// per-element exp and masks sit between the products.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -209,15 +248,16 @@ __device__ __forceinline__ void mma_3xtf32(float (*d)[4], const uint32_t (&ah)[4
 // which stand for k = q, q + 4 of one k-step and k = q, q + 4 of the next.
 // A and B share that order of K, so each sum is unchanged.
 
-// d[t] += sum over the MAX_N columns of A's rows a_row (+ g, + g + 8) times
-// B's row b_row + 8t + g, for T n-tiles (columns past N are zero in both)
-template <int T>
+// d[t] += sum over the KW columns of A's rows a_row (+ g, + g + 8) times
+// B's row b_row + 8t + g, for T n-tiles (columns past N or P are zero in
+// both); SA and SB are A's and B's row strides in shared memory
+template <int T, int KW = MAX_N, int SA = S_K, int SB = S_K>
 __device__ __forceinline__ void product_rows(float (*d)[4], const float* a, int a_row,
                                              const float* b, int b_row, int q) {
 #pragma unroll 2
-  for (int c0 = 0; c0 < MAX_N; c0 += 16) {
-    const float4 r0 = *reinterpret_cast<const float4*>(a + a_row * S_K + c0 + 4 * q);
-    const float4 r1 = *reinterpret_cast<const float4*>(a + (a_row + 8) * S_K + c0 + 4 * q);
+  for (int c0 = 0; c0 < KW; c0 += 16) {
+    const float4 r0 = *reinterpret_cast<const float4*>(a + a_row * SA + c0 + 4 * q);
+    const float4 r1 = *reinterpret_cast<const float4*>(a + (a_row + 8) * SA + c0 + 4 * q);
     uint32_t ah[2][4], al[2][4];
     split(r0.x, ah[0][0], al[0][0]);
     split(r1.x, ah[0][1], al[0][1]);
@@ -233,7 +273,7 @@ __device__ __forceinline__ void product_rows(float (*d)[4], const float* a, int 
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         const float4 r =
-            *reinterpret_cast<const float4*>(b + (b_row + 8 * (t0 + t)) * S_K + c0 + 4 * q);
+            *reinterpret_cast<const float4*>(b + (b_row + 8 * (t0 + t)) * SB + c0 + 4 * q);
         split(r.x, bh[0][t][0], bl[0][t][0]);
         split(r.y, bh[0][t][1], bl[0][t][1]);
         split(r.z, bh[1][t][0], bl[1][t][0]);
@@ -248,11 +288,13 @@ __device__ __forceinline__ void product_rows(float (*d)[4], const float* a, int 
 // ---- 1. chunk state --------------------------------------------------------
 
 // grid (nc, BH); warp w owns S rows p in [16 (w % 4), +16), columns n in
-// [64 (w / 4), +64).
+// [64 (w / 4), +64). `exp_cum` (the backward's dS_in = (exp(cum) o g)^T C,
+// with g and C in the places of x and B) weighs key j by exp(cum_j) instead.
 __global__ void __launch_bounds__(CS_THREADS)
 ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ b,
                        const float* __restrict__ dt, const float* __restrict__ cum,
-                       float* __restrict__ states, int nc, int Q, int P, int N, int vec) {
+                       float* __restrict__ states, int nc, int Q, int P, int N, int vec,
+                       int exp_cum) {
   extern __shared__ __align__(16) float smem[];
   float* Xs = smem;                   // [2][KT][S_COL_P]
   float* Bs = Xs + 2 * KT * S_COL_P;  // [2][KT][S_COL_N]
@@ -276,7 +318,7 @@ ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ b,
   load_tile(0);
   const float total = cg[Q - 1];
   for (int j = threadIdx.x; j < nkt * KT; j += CS_THREADS)
-    ws[j] = j < Q ? expf(total - cg[j]) * dg[j] : 0.f;
+    ws[j] = j >= Q ? 0.f : exp_cum ? expf(cg[j]) : expf(total - cg[j]) * dg[j];
 
   const int m0 = 16 * (warp & 3), n0 = 64 * (warp >> 2);
   const bool active = m0 < P && n0 < N;
@@ -497,6 +539,498 @@ ssd_chunk_output_kernel(const float* __restrict__ x, const float* __restrict__ b
     }
 }
 
+// ---- the backward -----------------------------------------------------------
+
+constexpr int S_C = MAX_N + 4;   // C (kernel 5) and B (kernel 6) tiles: 16-byte
+                                 // reads, and row pairs (2q, 2q+1) free of conflicts
+constexpr int S_P = MAX_P + 16;  // x and g rows read 16 bytes a lane over P
+
+__host__ __device__ inline int bwd_key_smem_floats(int Q) {
+  return RT * S_K + RT * S_P + 2 * KT * S_C + 2 * KT * S_PERM_P + 2 * Q;
+}
+
+__host__ __device__ inline int bwd_row_smem_floats(int Q) {
+  return RT * S_K + RT * S_P + 2 * KT * S_C + 2 * KT * S_P + 2 * Q;
+}
+
+// columns [width, full) of `rows` rows of stride `stride` set to zero: the
+// loads never write them, and the products run over every column
+__device__ __forceinline__ void zero_pad(float* base, int stride, int rows, int width,
+                                         int full) {
+  const int pad = full - width;
+  for (int e = threadIdx.x; e < rows * pad; e += blockDim.x)
+    base[(e / pad) * stride + width + e % pad] = 0.f;
+}
+
+// the sum over the 4 lanes of a fragment row (lanes 4g .. 4g + 3)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// d[0 .. 7] += A B over the k-steps of 8 in [0, KW): A (16 x KW) given by
+// `a(k)`, which returns this lane's fragment {(g, k+q), (g+8, k+q), (g, k+q+4),
+// (g+8, k+q+4)}; B read [k][n] from rows of stride SB, columns n0 + 8u + g
+template <int KW, int SB, typename AFrag>
+__device__ __forceinline__ void product_kn(float (*d)[4], AFrag a, const float* b, int n0,
+                                           int g, int q) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < KW; k0 += 8) {
+    float av[4];
+    a(k0, av);
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split(av[r], ah[r], al[r]);
+    const float* b0 = b + (k0 + q) * SB + n0 + g;
+    uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      split(b0[8 * u], bh[u][0], bl[u][0]);
+      split(b0[8 * u + 4 * SB], bh[u][1], bl[u][1]);
+    }
+    mma_3xtf32<8>(d, ah, al, bh, bl);
+  }
+}
+
+// d[0 .. 8 U) += A B, A the accumulator tile s (16 rows x 32 columns, the
+// columns permuted as kernel 3's P x takes them) and B's rows 8t + 2q, + 1 of
+// stride SB, columns 8u + g
+template <int U, int SB>
+__device__ __forceinline__ void product_perm(float (*d)[4], const float (&s)[4][4],
+                                             const float* b, int g, int q) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    uint32_t ah[4], al[4];
+    split(s[t][0], ah[0], al[0]);
+    split(s[t][2], ah[1], al[1]);
+    split(s[t][1], ah[2], al[2]);
+    split(s[t][3], ah[3], al[3]);
+    const float* b0 = b + (8 * t + 2 * q) * SB + g;
+#pragma unroll
+    for (int u0 = 0; u0 < U; u0 += 8) {
+      uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        split(b0[8 * (u0 + u)], bh[u][0], bl[u][0]);
+        split(b0[8 * (u0 + u) + SB], bh[u][1], bl[u][1]);
+      }
+      mma_3xtf32<8>(d + u0, ah, al, bh, bl);
+    }
+  }
+}
+
+// ---- 5. the key side of the chunk output's backward, and the chunk state's ----
+
+// grid (n_jt * nc * BH): block k takes key tile k / (nc BH), so the key tiles
+// with the most causal query tiles start first. Four warps own 16 keys each;
+// the query tiles (32 rows of C and g) stream through two slots. With
+// L = E o dt_j, E_ij = exp(cum_i - cum_j) for i >= j, M = (C B^T) o L,
+// G_ij = g_i . x_j, D = dS_loc[c], w_j = exp(total - cum_j) dt_j and
+// dw_j = x_j^T D B_j, it writes
+//   dx_j   = sum_i M_ij g_i + w_j D B_j
+//   dB_j   = sum_i G_ij L_ij C_i + w_j D^T x_j
+//   ddt_j  = sum_i G_ij (C_i . B_j) E_ij + dw_j exp(total - cum_j)
+//   dcum_j = -sum_i G_ij M_ij - dw_j w_j      (the key side; kernel 6 adds the rest)
+//   tw_j   = dw_j w_j
+// and the block of key tile 0 writes lam_dot[chunk] = exp(total) <D, S_in>.
+__global__ void __launch_bounds__(CO_THREADS, 2)
+ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
+                   const float* __restrict__ c, const float* __restrict__ dt,
+                   const float* __restrict__ cum, const float* __restrict__ dy,
+                   const float* __restrict__ entering, const float* __restrict__ dstates,
+                   float* __restrict__ dx, float* __restrict__ db, float* __restrict__ ddt,
+                   float* __restrict__ dcum, float* __restrict__ tw,
+                   float* __restrict__ lam_dot, int nc, int Q, int P, int N, int n_jt,
+                   int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* Bs = smem;                   // [RT][S_K]: B of the key tile
+  float* Xs = Bs + RT * S_K;          // [RT][S_P]: x of the key tile
+  float* Cs = Xs + RT * S_P;          // [2][KT][S_C]: C of a query tile; D after
+  float* Gs = Cs + 2 * KT * S_C;      // [2][KT][S_PERM_P]: g of a query tile
+  float* cum_s = Gs + 2 * KT * S_PERM_P;
+  float* dt_s = cum_s + Q;
+  __shared__ float red[CO_THREADS / 32];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int per_jt = gridDim.x / n_jt;
+  const size_t chunk = blockIdx.x % per_jt;
+  const int j0 = (blockIdx.x / per_jt) * RT;
+
+  zero_pad(Bs, S_K, RT, N, MAX_N);
+  zero_pad(Xs, S_P, RT, P, MAX_P);
+  zero_pad(Cs, S_C, 2 * KT, N, MAX_N);
+  zero_pad(Gs, S_PERM_P, 2 * KT, P, MAX_P);
+  for (int e = threadIdx.x; e < Q; e += CO_THREADS) {
+    cum_s[e] = cum[chunk * Q + e];
+    dt_s[e] = dt[chunk * Q + e];
+  }
+  load_rows(Bs, S_K, b + chunk * Q * N + (size_t)j0 * N, N, RT, Q - j0, vec);
+  load_rows(Xs, S_P, x + chunk * Q * P + (size_t)j0 * P, P, RT, Q - j0, vec);
+  cp_async_commit();
+
+  const int m0 = 16 * warp;
+  const int r0 = j0 + m0;
+  const bool rows_live = r0 < Q;
+  const int ja = r0 + g, jb = ja + 8;  // this thread's two keys
+  float dx_acc[8][4], db_acc[16][4];
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dx_acc[u][r] = 0.f;
+#pragma unroll
+  for (int u = 0; u < 16; ++u)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) db_acc[u][r] = 0.f;
+  float ddt_acc[2] = {0.f, 0.f}, dcum_acc[2] = {0.f, 0.f};
+
+  const int it0 = j0 / KT;                 // query tiles from the diagonal on
+  const int nit = (Q + KT - 1) / KT - it0;
+  auto load_tile = [&](int k) {
+    const int i0 = (it0 + k) * KT;
+    load_rows(Cs + (k & 1) * KT * S_C, S_C, c + chunk * Q * N + (size_t)i0 * N, N, KT,
+              Q - i0, vec);
+    load_rows(Gs + (k & 1) * KT * S_PERM_P, S_PERM_P, dy + chunk * Q * P + (size_t)i0 * P, P,
+              KT, Q - i0, vec);
+    cp_async_commit();
+  };
+  load_tile(0);
+
+  for (int k = 0; k < nit; ++k) {
+    if (k + 1 < nit) {
+      load_tile(k + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int i0 = (it0 + k) * KT;
+    if (rows_live && i0 + KT - 1 >= r0) {
+      const float* cs = Cs + (k & 1) * KT * S_C;
+      const float* gs = Gs + (k & 1) * KT * S_PERM_P;
+      float sct[4][4], gt[4][4];  // keys ja, jb x queries i0 + 8t + 2q, + 1
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sct[t][r] = gt[t][r] = 0.f;
+      product_rows<4, MAX_N, S_K, S_C>(sct, Bs, m0 + g, cs, g, q);          // B C^T
+      product_rows<4, MAX_P, S_P, S_PERM_P>(gt, Xs, m0 + g, gs, g, q);      // x g^T
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int j = r ? jb : ja;
+          const int jc = min(j, Q - 1);
+          const float cj = cum_s[jc], dj = dt_s[jc];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = i0 + 8 * t + 2 * q + h;
+            const bool live = j <= i && i < Q && j < Q;  // selects: E overflows above
+            const float E = live ? expf(cum_s[min(i, Q - 1)] - cj) : 0.f;
+            const float L = E * dj;
+            const float sc = sct[t][2 * r + h], gv = gt[t][2 * r + h];
+            const float M = sc * L;
+            ddt_acc[r] += gv * sc * E;
+            dcum_acc[r] -= gv * M;
+            sct[t][2 * r + h] = M;
+            gt[t][2 * r + h] = gv * L;
+          }
+        }
+      product_perm<8, S_PERM_P>(dx_acc, sct, gs, g, q);  // dx += M^T g
+      product_perm<16, S_C>(db_acc, gt, cs, g, q);       // dB += (G o L)^T C
+    }
+    __syncthreads();  // slot k & 1 is free for tile k + 2
+  }
+
+  // the chunk state's backward: D = dS_loc[c] over the two slots of C
+  float* Ds = Cs;
+  load_rows(Ds, S_C, dstates + chunk * P * N, N, MAX_P, P, vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const float total = cum_s[Q - 1];
+  if (rows_live) {
+    float dbt[8][4];  // (B D^T): keys ja, jb x p = 8u + 2q, + 1
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dbt[u][r] = 0.f;
+    product_rows<8, MAX_N, S_K, S_C>(dbt, Bs, m0 + g, Ds, g, q);
+    float w[2], dw[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = r ? jb : ja;
+      const int jc = min(j, Q - 1);
+      w[r] = j < Q ? expf(total - cum_s[jc]) * dt_s[jc] : 0.f;
+      const float* xr = Xs + (m0 + g + 8 * r) * S_P;
+      float s = 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) s += xr[8 * u + 2 * q + h] * dbt[u][2 * r + h];
+      dw[r] = quad_sum(s);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dx_acc[u][e] += w[e >> 1] * dbt[u][e];
+    // dB += (w o x) D, A read [j][p] from x, B [p][n] from D
+    const float* xa = Xs + (m0 + g) * S_P;
+    const float* xb = xa + 8 * S_P;
+    auto afrag = [&](int k0, float (&av)[4]) {
+      av[0] = w[0] * xa[k0 + q];
+      av[1] = w[1] * xb[k0 + q];
+      av[2] = w[0] * xa[k0 + q + 4];
+      av[3] = w[1] * xb[k0 + q + 4];
+    };
+    product_kn<MAX_P, S_C>(db_acc, afrag, Ds, 0, g, q);
+    product_kn<MAX_P, S_C>(db_acc + 8, afrag, Ds, 64, g, q);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = r ? jb : ja;
+      const float ddt_j = quad_sum(ddt_acc[r]);
+      const float dcum_j = quad_sum(dcum_acc[r]);
+      if (q == 0 && j < Q) {
+        const size_t o = chunk * Q + j;
+        ddt[o] = ddt_j + dw[r] * expf(total - cum_s[j]);
+        dcum[o] = dcum_j - dw[r] * w[r];
+        tw[o] = dw[r] * w[r];
+      }
+    }
+    float* dxg = dx + chunk * Q * P;
+    float* dbg = db + chunk * Q * N;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = r ? jb : ja;
+      if (j >= Q) continue;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (8 * u + 2 * q + h < P) dxg[(size_t)j * P + 8 * u + 2 * q + h] = dx_acc[u][2 * r + h];
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (8 * u + 2 * q + h < N) dbg[(size_t)j * N + 8 * u + 2 * q + h] = db_acc[u][2 * r + h];
+    }
+  }
+
+  if (j0 == 0) {  // exp(total) <D, S_in>, summed in a fixed order
+    const float* sg = entering + chunk * P * N;
+    float s = 0.f;
+    for (int e = threadIdx.x; e < P * N; e += CO_THREADS)
+      s += Ds[(e / N) * S_C + e % N] * sg[e];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) red[warp] = s;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float t = 0.f;
+      for (int w_ = 0; w_ < CO_THREADS / 32; ++w_) t += red[w_];
+      lam_dot[chunk] = expf(total) * t;
+    }
+  }
+}
+
+// ---- 6. the row side of the chunk output's backward -------------------------------
+
+// grid (n_rt * nc * BH), the heaviest row tiles first, as kernel 3: four warps
+// own 16 query rows each; the key tiles (32 rows of B and x) stream through
+// two slots, S_in over both first. It writes
+//   dC_i   = exp(cum_i) g_i S_in + sum_{j <= i} G_ij L_ij B_j
+//   dcum_i = dcum_key_i + exp(cum_i) g_i . (C_i S_in^T) + sum_j G_ij M_ij
+//            (+ sum_j tw_j + lam_dot at the chunk's last position)
+// over kernel 5's dcum, which holds the key side.
+__global__ void __launch_bounds__(CO_THREADS, 2)
+ssd_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ b,
+                   const float* __restrict__ c, const float* __restrict__ dt,
+                   const float* __restrict__ cum, const float* __restrict__ dy,
+                   const float* __restrict__ entering, const float* __restrict__ tw,
+                   const float* __restrict__ lam_dot, float* __restrict__ dc,
+                   float* __restrict__ dcum, int nc, int Q, int P, int N, int n_rt, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* Cs = smem;                  // [RT][S_K]: C of the row tile
+  float* Gs = Cs + RT * S_K;         // [RT][S_P]: g of the row tile
+  float* Bs = Gs + RT * S_P;         // [2][KT][S_C]: B of a key tile; S_in first
+  float* Xs = Bs + 2 * KT * S_C;     // [2][KT][S_P]: x of a key tile
+  float* cum_s = Xs + 2 * KT * S_P;
+  float* dt_s = cum_s + Q;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int per_rt = gridDim.x / n_rt;
+  const size_t chunk = blockIdx.x % per_rt;
+  const int i0 = (n_rt - 1 - blockIdx.x / per_rt) * RT;
+  const bool has_state = chunk % nc != 0;
+
+  zero_pad(Cs, S_K, RT, N, MAX_N);
+  zero_pad(Gs, S_P, RT, P, MAX_P);
+  zero_pad(Bs, S_C, 2 * KT, N, MAX_N);
+  zero_pad(Xs, S_P, 2 * KT, P, MAX_P);
+  for (int e = threadIdx.x; e < Q; e += CO_THREADS) {
+    cum_s[e] = cum[chunk * Q + e];
+    dt_s[e] = dt[chunk * Q + e];
+  }
+  load_rows(Cs, S_K, c + chunk * Q * N + (size_t)i0 * N, N, RT, Q - i0, vec);
+  load_rows(Gs, S_P, dy + chunk * Q * P + (size_t)i0 * P, P, RT, Q - i0, vec);
+  if (has_state) load_rows(Bs, S_C, entering + chunk * P * N, N, MAX_P, P, vec);
+  cp_async_commit();
+
+  const int m0 = 16 * warp;
+  const int r0 = i0 + m0;
+  const bool rows_live = r0 < Q;
+  const int ia = r0 + g, ib = ia + 8;
+  float dc_acc[16][4];
+#pragma unroll
+  for (int u = 0; u < 16; ++u)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dc_acc[u][r] = 0.f;
+  float dcum_acc[2] = {0.f, 0.f};
+
+  if (has_state) {  // the inter-chunk term first
+    cp_async_wait<0>();
+    __syncthreads();
+    if (rows_live) {
+      float yi[8][4];  // C S_in^T: rows ia, ib x p = 8u + 2q, + 1
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) yi[u][r] = 0.f;
+      product_rows<8, MAX_N, S_K, S_C>(yi, Cs, m0 + g, Bs, g, q);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float* gr = Gs + (m0 + g + 8 * r) * S_P;
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) dcum_acc[r] += gr[8 * u + 2 * q + h] * yi[u][2 * r + h];
+      }
+      const float* ga = Gs + (m0 + g) * S_P;
+      const float* gb = ga + 8 * S_P;
+      auto afrag = [&](int k0, float (&av)[4]) {
+        av[0] = ga[k0 + q];
+        av[1] = gb[k0 + q];
+        av[2] = ga[k0 + q + 4];
+        av[3] = gb[k0 + q + 4];
+      };
+      product_kn<MAX_P, S_C>(dc_acc, afrag, Bs, 0, g, q);       // g S_in
+      product_kn<MAX_P, S_C>(dc_acc + 8, afrag, Bs, 64, g, q);
+      const float ea = expf(cum_s[min(ia, Q - 1)]), eb = expf(cum_s[min(ib, Q - 1)]);
+      dcum_acc[0] *= ea;
+      dcum_acc[1] *= eb;
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        dc_acc[u][0] *= ea;
+        dc_acc[u][1] *= ea;
+        dc_acc[u][2] *= eb;
+        dc_acc[u][3] *= eb;
+      }
+    }
+    __syncthreads();  // every read of S_in precedes key tile 0's load
+  }
+
+  const int k_end = min(Q, i0 + RT);
+  const int nkt = (k_end + KT - 1) / KT;
+  auto load_tile = [&](int kt) {
+    const int j0 = kt * KT;
+    load_rows(Bs + (kt & 1) * KT * S_C, S_C, b + chunk * Q * N + (size_t)j0 * N, N, KT,
+              Q - j0, vec);
+    load_rows(Xs + (kt & 1) * KT * S_P, S_P, x + chunk * Q * P + (size_t)j0 * P, P, KT,
+              Q - j0, vec);
+    cp_async_commit();
+  };
+  load_tile(0);
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {
+      load_tile(kt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int j0 = kt * KT;
+    if (rows_live && j0 <= r0 + 15) {
+      const float* bs = Bs + (kt & 1) * KT * S_C;
+      const float* xs = Xs + (kt & 1) * KT * S_P;
+      float sc[4][4], gg[4][4];  // rows ia, ib x keys j0 + 8t + 2q, + 1
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sc[t][r] = gg[t][r] = 0.f;
+      product_rows<4, MAX_N, S_K, S_C>(sc, Cs, m0 + g, bs, g, q);  // C B^T
+      product_rows<4, MAX_P, S_P, S_P>(gg, Gs, m0 + g, xs, g, q);  // g x^T
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = r ? ib : ia;
+          const float ci = cum_s[min(i, Q - 1)];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = j0 + 8 * t + 2 * q + h;
+            const int jc = min(j, Q - 1);
+            const bool live = j <= i && i < Q;
+            const float L = live ? expf(ci - cum_s[jc]) * dt_s[jc] : 0.f;
+            const float gl = gg[t][2 * r + h] * L;
+            dcum_acc[r] += gl * sc[t][2 * r + h];
+            gg[t][2 * r + h] = gl;
+          }
+        }
+      product_perm<16, S_C>(dc_acc, gg, bs, g, q);  // dC += (G o L) B
+    }
+    __syncthreads();
+  }
+
+  if (!rows_live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r ? ib : ia;
+    const float s = quad_sum(dcum_acc[r]);
+    if (q == 0 && i < Q) {
+      const size_t o = chunk * Q + i;
+      float v = dcum[o] + s;
+      if (i == Q - 1) {  // the chunk total's gradient through the carry
+        float t = 0.f;
+        for (int j = 0; j < Q; ++j) t += tw[chunk * Q + j];
+        v += t + lam_dot[chunk];
+      }
+      dcum[o] = v;
+    }
+  }
+  float* dcg = dc + chunk * Q * N;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r ? ib : ia;
+    if (i >= Q) continue;
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (8 * u + 2 * q + h < N) dcg[(size_t)i * N + 8 * u + 2 * q + h] = dc_acc[u][2 * r + h];
+  }
+}
+
+// ---- 4. the state passing in reverse ------------------------------------------
+
+// grid (ceil(P N / SP_THREADS), BH): in place over dS_in, from the last chunk:
+// dS_loc[c] = R[c+1] (0 for the last), R[c] = dS_in[c] + exp(total_c) R[c+1]
+__global__ void __launch_bounds__(SP_THREADS)
+ssd_state_passing_bwd_kernel(float* __restrict__ dstates, const float* __restrict__ cum,
+                             int nc, int Q, int PN) {
+  const int e = blockIdx.x * SP_THREADS + threadIdx.x;
+  if (e >= PN) return;
+  const size_t bh = blockIdx.y;
+  float* s = dstates + bh * nc * PN + e;
+  const float* total = cum + bh * nc * Q + (Q - 1);
+  float R = 0.f;
+  for (int c = nc - 1; c >= 0; --c) {
+    const float d_in = s[(size_t)c * PN];
+    s[(size_t)c * PN] = R;
+    R = d_in + expf(total[(size_t)c * Q]) * R;
+  }
+}
+
 // ---- host ------------------------------------------------------------------
 
 bool bad_shape(int BH, int nc, int Q, int P, int N) {
@@ -541,7 +1075,7 @@ extern "C" int ssd_chunk_state(const void* x, const void* b, const void* dt,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(b),
       static_cast<const float*>(dt), static_cast<const float*>(cum),
-      static_cast<float*>(states), nc, Q, P, N, vector_loads(P, N, x, b, x));
+      static_cast<float*>(states), nc, Q, P, N, vector_loads(P, N, x, b, x), 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -589,6 +1123,65 @@ extern "C" int ssd_chunk_scan_staged(const void* x, const void* b, const void* c
   if (err == 0) err = ssd_state_passing(states, cum, nullptr, BH, nc, Q, P, N, stream);
   if (err == 0) err = ssd_chunk_output(x, b, c, dt, cum, states, y, BH, nc, Q, P, N, stream);
   return err;
+}
+
+// The backward of the scan, from its five inputs and dy (the shape of y):
+// dx, dy-shaped; db, dc (BH, nc, Q, N); ddt, dcum (BH, nc, Q). Scratch:
+// states and dstates (BH, nc, P, N), tw (BH, nc, Q), lam_dot (BH, nc).
+// Kernels 1 and 2 recompute the states entering each chunk into `states`;
+// kernel 1 with exp(cum) weights writes dS_in = (exp(cum) o g)^T C into
+// `dstates`; kernel 4 passes it back over the chunks in place (dS_loc);
+// kernel 5 (per key tile) writes dx, db, ddt and dcum's key side, kernel 6
+// (per query tile) dc and the rest of dcum.
+extern "C" int ssd_chunk_scan_bwd(const void* x, const void* b, const void* c,
+                                  const void* dt, const void* cum, const void* dy,
+                                  void* states, void* dstates, void* tw, void* lam_dot,
+                                  void* dx, void* db, void* dc, void* ddt, void* dcum,
+                                  int BH, int nc, int Q, int P, int N, void* stream) {
+  if (bad_shape(BH, nc, Q, P, N)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = ssd_chunk_state(x, b, dt, cum, states, BH, nc, Q, P, N, stream);
+  if (err == 0) err = ssd_state_passing(states, cum, nullptr, BH, nc, Q, P, N, stream);
+  if (err != 0) return err;
+  const float* cm = static_cast<const float*>(cum);
+  const size_t cs_smem = sizeof(float) * static_cast<size_t>(chunk_state_smem_floats(Q));
+  cudaError_t e = set_smem(reinterpret_cast<const void*>(ssd_chunk_state_kernel), cs_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_chunk_state_kernel<<<dim3(nc, BH), CS_THREADS, cs_smem, st>>>(
+      static_cast<const float*>(dy), static_cast<const float*>(c), cm, cm,
+      static_cast<float*>(dstates), nc, Q, P, N, vector_loads(P, N, dy, c, dy), 1);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int PN = P * N;
+  ssd_state_passing_bwd_kernel<<<dim3((PN + SP_THREADS - 1) / SP_THREADS, BH), SP_THREADS, 0,
+                                 st>>>(static_cast<float*>(dstates), cm, nc, Q, PN);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_t = (Q + RT - 1) / RT;
+  if (static_cast<long long>(n_t) * nc * BH > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = vector_loads(P, N, x, b, c) && aligned16(dy) && aligned16(states) &&
+                  aligned16(dstates);
+  const size_t key_smem = sizeof(float) * static_cast<size_t>(bwd_key_smem_floats(Q));
+  const size_t row_smem = sizeof(float) * static_cast<size_t>(bwd_row_smem_floats(Q));
+  e = set_smem(reinterpret_cast<const void*>(ssd_bwd_key_kernel), key_smem);
+  if (e == cudaSuccess) e = set_smem(reinterpret_cast<const void*>(ssd_bwd_row_kernel), row_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const float* f[6] = {static_cast<const float*>(x), static_cast<const float*>(b),
+                       static_cast<const float*>(c), static_cast<const float*>(dt), cm,
+                       static_cast<const float*>(dy)};
+  ssd_bwd_key_kernel<<<n_t * nc * BH, CO_THREADS, key_smem, st>>>(
+      f[0], f[1], f[2], f[3], f[4], f[5], static_cast<const float*>(states),
+      static_cast<const float*>(dstates), static_cast<float*>(dx), static_cast<float*>(db),
+      static_cast<float*>(ddt), static_cast<float*>(dcum), static_cast<float*>(tw),
+      static_cast<float*>(lam_dot), nc, Q, P, N, n_t, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_bwd_row_kernel<<<n_t * nc * BH, CO_THREADS, row_smem, st>>>(
+      f[0], f[1], f[2], f[3], f[4], f[5], static_cast<const float*>(states),
+      static_cast<const float*>(tw), static_cast<const float*>(lam_dot),
+      static_cast<float*>(dc), static_cast<float*>(dcum), nc, Q, P, N, n_t, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* kernel_error_string(int code) {

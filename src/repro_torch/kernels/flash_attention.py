@@ -23,10 +23,12 @@ card's route on any device, up to the launch, where
 
 The backward is the reference's ``_flash_vjp``: :class:`_B2Function`
 launches the kernel, which then also writes each row's log-sum-exp, and
-its backward is the blocked plain backward
-(:func:`repro_torch.models.flash._flash_bwd`) from the saved (q, k, v, o,
-lse), as the reference's is its blocked jnp flash's VJP. There is no
-backward kernel (ROADMAP B2's speed items).
+its backward launches the backward kernels of
+``csrc/flash_attention_bwd.cu`` (:func:`_launch_bwd`, its variant by
+:func:`_bwd_variant`) from the saved (q, k, v, o, lse). Their plain
+version is :func:`_plain_bwd`, the blocked backward
+(:func:`repro_torch.models.flash._flash_bwd`), as the reference's is its
+blocked jnp flash's VJP: the backward of CPU tensors.
 """
 from __future__ import annotations
 
@@ -44,6 +46,10 @@ from repro_torch.kernels.traced import is_traced
 LAUNCHES = 0
 #: The same launches by variant (see :func:`_variant`).
 VARIANT_LAUNCHES = {"wgmma": 0, "ffma": 0}
+#: Launches of the backward kernels, one per backward (its delta pre-pass,
+#: dk/dv and dq kernels together), and by variant (:func:`_bwd_variant`).
+BWD_LAUNCHES = 0
+BWD_VARIANT_LAUNCHES = {"wgmma": 0, "ffma": 0}
 
 #: Largest q/k head dim D the CUDA kernels hold in their tiles: three
 #: 64-column boxes (MLA's 128 + 64), and q staged whole for the FFMA kernel.
@@ -55,10 +61,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    """Set :data:`LAUNCHES` and every :data:`VARIANT_LAUNCHES` count to 0."""
-    global LAUNCHES
-    LAUNCHES = 0
+    """Set :data:`LAUNCHES`, :data:`BWD_LAUNCHES` and every count by
+    variant to 0."""
+    global LAUNCHES, BWD_LAUNCHES
+    LAUNCHES = BWD_LAUNCHES = 0
     VARIANT_LAUNCHES.update(dict.fromkeys(VARIANT_LAUNCHES, 0))
+    BWD_VARIANT_LAUNCHES.update(dict.fromkeys(BWD_VARIANT_LAUNCHES, 0))
 
 
 def _variant(dtype: torch.dtype, D: int, Dv: int) -> str:
@@ -75,6 +83,18 @@ def _variant(dtype: torch.dtype, D: int, Dv: int) -> str:
     return "ffma"
 
 
+def _bwd_variant(dtype: torch.dtype, D: int, Dv: int) -> str:
+    """Which backward kernels compute the gradients: ``"wgmma"`` (tensor
+    cores, TMA) for bf16 with D and Dv multiples of 16 and at most 128 (the
+    dk/dv and dq accumulators held in registers beside the score tiles);
+    ``"ffma"`` (CUDA cores) for the rest, float32 and MLA's D 192
+    included."""
+    if (dtype == torch.bfloat16 and D % 16 == 0 and Dv % 16 == 0
+            and D <= 128 and Dv <= 128):
+        return "wgmma"
+    return "ffma"
+
+
 def _signature(lib: ctypes.CDLL, variant: str):
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     # q, k, v, o and the lse (None passes NULL: no lse written)
@@ -87,6 +107,17 @@ def _signature(lib: ctypes.CDLL, variant: str):
         fn.argtypes = [i] + args
     fn.restype = ctypes.c_int
     return fn
+
+
+def _tma_ready(name: str, t: torch.Tensor, traced: bool) -> None:
+    """Raise unless TMA can read ``t``: 16-byte aligned, the last dim
+    contiguous and the other strides multiples of 8 elements."""
+    if (t.stride(3) != 1 or (not traced and t.data_ptr() % 16)
+            or any(t.stride(d) % 8 for d in range(3))):
+        raise ValueError(
+            f"flash_attention: TMA needs {name} 16-byte aligned with the "
+            f"head dim contiguous and strides that are multiples of 8 "
+            f"elements; got strides {tuple(t.stride())}")
 
 
 def _launch(q, k, v, *, causal, window, scale, variant: str | None = None,
@@ -112,12 +143,7 @@ def _launch(q, k, v, *, causal, window, scale, variant: str | None = None,
     traced = is_traced(q, k, v)
     if variant == "wgmma":
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if (not traced and t.data_ptr() % 16) or any(
-                    t.stride(d) % 8 for d in range(3)):
-                raise ValueError(
-                    f"flash_attention: TMA needs {name} 16-byte aligned with "
-                    f"strides that are multiples of 8 elements; got strides "
-                    f"{tuple(t.stride())}")
+            _tma_ready(name, t, traced)
     # the (B,H,Sq,Dv) result is laid out as (B,Sq,H,Dv) in memory, so the
     # layout wrapper's transpose back is contiguous
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype,
@@ -142,6 +168,90 @@ def _launch(q, k, v, *, causal, window, scale, variant: str | None = None,
     LAUNCHES += 1
     VARIANT_LAUNCHES[variant] += 1
     return (o, lse) if with_lse else o
+
+
+def _launch_bwd(q, k, v, o, lse, do, *, causal, window, scale):
+    """Launch the backward kernels on the forward's saved (q, k, v, o,
+    lse) and the output's gradient ``do``, the variant
+    :func:`_bwd_variant` picks. Returns (dq, dk, dv) in the inputs' type
+    and layout. ``do`` is
+    copied to a contiguous tensor first where its layout does not suit the
+    kernels (autograd may hand over an expanded gradient)."""
+    global BWD_LAUNCHES
+    B, H, Sq, D = q.shape
+    KV, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if not (q.dtype == k.dtype == v.dtype == o.dtype == do.dtype) or (
+            q.dtype not in _DTYPE_CODE):
+        raise TypeError(
+            f"flash_attention backward: the kernels take float32 or bfloat16 "
+            f"with one dtype for q, k, v, o and do; got {q.dtype}, {k.dtype}, "
+            f"{v.dtype}, {o.dtype}, {do.dtype}")
+    if D % 4 or D > MAX_D or Dv > MAX_DV:
+        raise ValueError(
+            f"flash_attention backward: the kernels need D % 4 == 0, D <= "
+            f"{MAX_D} and Dv <= {MAX_DV}; got D={D}, Dv={Dv}")
+    if tuple(do.shape) != tuple(o.shape) or tuple(lse.shape) != (B, H, Sq) \
+            or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(
+            f"flash_attention backward: do must be o's shape "
+            f"{tuple(o.shape)} and lse (B, H, Sq) float32 contiguous; got "
+            f"{tuple(do.shape)} and {tuple(lse.shape)} {lse.dtype}")
+    traced = is_traced(q, k, v, o, do)
+    variant = _bwd_variant(q.dtype, D, Dv)
+    if do.stride(3) != 1 or variant == "wgmma" and (
+            any(do.stride(d) % 8 for d in range(3))
+            or not traced and do.data_ptr() % 16):
+        do = do.contiguous()
+    if any(t.stride(3) != 1 for t in (q, k, v, o)):
+        raise ValueError("flash_attention backward: the head dim must be "
+                         "contiguous")
+    if variant == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            _tma_ready(name, t, traced)
+    # each gradient laid out as (B, S, heads, ·) in memory, as o is
+    dq, dk, dv = (torch.empty((t.shape[0], t.shape[2], t.shape[1],
+                               t.shape[3]), dtype=t.dtype,
+                              device=t.device).transpose(1, 2)
+                  for t in (q, k, v))
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if traced:  # shapes only: the op in the kernels' place
+        torch.ops.repro_torch.b2_flash_bwd(q, k, v, o, lse, do, delta, dq,
+                                           dk, dv, bool(causal), window,
+                                           float(scale))
+        return dq, dk, dv
+    _call_bwd(variant, (q, k, v, o, do, lse, delta, dq, dk, dv), B, H, KV,
+              Sq, Sk, D, Dv, causal=causal, window=window, scale=scale)
+    BWD_LAUNCHES += 1
+    BWD_VARIANT_LAUNCHES[variant] += 1
+    return dq, dk, dv
+
+
+def _call_bwd(variant: str, tensors, B, H, KV, Sq, Sk, D, Dv, *, causal,
+              window, scale) -> None:
+    """The C entry point ``flash_attention_bwd`` on (q, k, v, o, do, lse,
+    delta, dq, dk, dv); raises on a CUDA error."""
+    q, k, v, o, do, lse, delta, dq, dk, dv = tensors
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    fn.argtypes = [i, i] + [p] * 10 + [i] * 7 + [ll] * 24 + [
+        ctypes.c_float, i, i, i, p]
+    fn.restype = ctypes.c_int
+    strides = [t.stride(d) for t in (q, k, v, o, do, dq, dk, dv)
+               for d in range(3)]
+    code = fn(int(variant == "wgmma"), _DTYPE_CODE[q.dtype],
+              *(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk,
+                                       dv)),
+              B, H, KV, Sq, Sk, D, Dv, *strides, float(scale), int(causal),
+              int(window is not None), int(window or 0),
+              torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, code, f"flash_attention backward ({variant})")
+
+
+def _kernel_route(t: torch.Tensor) -> bool:
+    """Whether a backward on ``t`` takes the kernels' route: a CUDA or a
+    traced tensor; a CPU tensor takes the plain version."""
+    return is_traced(t) or t.device.type == "cuda"
 
 
 def _plain_bwd(q, k, v, o, lse, do, *, causal, window, scale):
@@ -174,10 +284,11 @@ def _plain_bwd(q, k, v, o, lse, do, *, causal, window, scale):
 
 class _B2Function(torch.autograd.Function):
     """The counterpart of the reference's ``_flash_vjp``: the forward
-    launches B2 (writing the lse too), the backward is :func:`_plain_bwd`
-    from the saved (q, k, v, o, lse), in plain torch on the card as the
-    reference's is plain jnp. The backward launches no kernel of its own,
-    so :data:`LAUNCHES` counts one launch per forward."""
+    launches B2 (writing the lse too), the backward launches the backward
+    kernels (:func:`_launch_bwd`) from the saved (q, k, v, o, lse), or on
+    CPU tensors computes their plain version :func:`_plain_bwd`.
+    :data:`LAUNCHES` counts one launch per forward, :data:`BWD_LAUNCHES`
+    one per backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
@@ -191,8 +302,9 @@ class _B2Function(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         causal, window, scale = ctx.mask
-        dq, dk, dv = _plain_bwd(q, k, v, o, lse, do, causal=causal,
-                                window=window, scale=scale)
+        bwd = _launch_bwd if _kernel_route(q) else _plain_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                         scale=scale)
         return dq, dk, dv, None, None, None
 
 

@@ -14,7 +14,10 @@ A traced tensor (a fake tensor, or one on the ``meta`` device) takes the
 card's route on any device, up to the launch, where
 :mod:`repro_torch.kernels.traced`'s op stands in for the C entry point.
 On a card the scan is differentiable through :class:`_B3Function`: the
-kernels forward, the plain staged scan's VJP backward.
+kernels forward, and backward the chunk-parallel kernels of the same file
+(:func:`_launch_bwd`), whose stage-by-stage plain version is
+:func:`ssd_bwd_staged_plain`; on CPU tensors the backward is the plain
+staged scan's VJP.
 """
 from __future__ import annotations
 
@@ -30,6 +33,9 @@ from repro_torch.kernels.traced import is_traced
 LAUNCHES = 0
 #: Launches of each of the three CUDA kernels.
 STAGE_LAUNCHES = {"chunk_state": 0, "state_passing": 0, "chunk_output": 0}
+#: Backward passes run through the CUDA kernels, one per call of
+#: ``ssd_chunk_scan_bwd`` (its six kernels together).
+BWD_LAUNCHES = 0
 
 #: Largest head dim and state dim the CUDA kernels' tiles cover
 #: (mamba2-130m: 64 and 128).
@@ -38,8 +44,8 @@ MAX_STATE = 128
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, BWD_LAUNCHES
+    LAUNCHES = BWD_LAUNCHES = 0
     for stage in STAGE_LAUNCHES:
         STAGE_LAUNCHES[stage] = 0
 
@@ -120,6 +126,105 @@ def ssd_staged_plain(xc, bc, cc, dtc, cum) -> torch.Tensor:
     entering, _ = ssd_state_passing_plain(
         ssd_chunk_state_plain(xc, bc, dtc, cum), cum)
     return ssd_chunk_output_plain(xc, bc, cc, dtc, cum, entering)
+
+
+def ssd_state_passing_bwd_plain(ds_in, cum) -> torch.Tensor:
+    """Backward stage (b): the state passing in reverse over the chunks.
+    From ``ds_in[c]``, the gradient of the state entering chunk c through
+    chunk c's own output, ``R[c] = ds_in[c] + exp(total_c) R[c+1]``, and
+    the gradient of chunk c's own state ``S_loc[c]`` is ``R[c+1]`` (zero
+    for the last chunk). Returns those (B, H, nc, P, N)."""
+    lam = torch.exp(cum[..., -1])                                # (B,H,nc)
+    R = torch.zeros_like(ds_in[:, :, 0])
+    ds_loc = torch.empty_like(ds_in)
+    for c in reversed(range(ds_in.shape[2])):
+        ds_loc[:, :, c] = R
+        R = ds_in[:, :, c] + lam[:, :, c, None, None] * R
+    return ds_loc
+
+
+def _intra_terms(xc, bc, cc, dtc, cum, dy):
+    """The causal (i >= j) tiles of a chunk both backward kernels
+    recompute: the decay E = exp(cum_i - cum_j) (0 above the diagonal,
+    selected before the exp), L = E dt_j, the scores C_i . B_j and
+    G = g_i . x_j, as (B, H, nc, Q, Q) (i, j)."""
+    Q = xc.shape[3]
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=xc.device).tril()
+    E = torch.exp(torch.where(causal, cum[..., :, None] - cum[..., None, :],
+                              -torch.inf))
+    L = E * dtc[..., None, :]
+    Sc = torch.einsum("bhcin,bhcjn->bhcij", cc, bc)
+    G = torch.einsum("bhcip,bhcjp->bhcij", dy, xc)
+    return E, L, Sc, G
+
+
+def ssd_key_bwd_plain(xc, bc, cc, dtc, cum, dy, entering, ds_loc):
+    """Backward stage (c) and the key side of stage (a), per key j of a
+    chunk (one kernel): with M = (C B^T) o L and D = ``ds_loc[c]``,
+    w_j = exp(total - cum_j) dt_j and dw_j = x_j^T D B_j,
+
+      dx_j   = sum_{i>=j} M_ij g_i + w_j D B_j
+      dB_j   = sum_{i>=j} G_ij L_ij C_i + w_j D^T x_j
+      ddt_j  = sum_i G_ij Sc_ij E_ij + dw_j exp(total - cum_j)
+      dcum_j = -sum_i G_ij M_ij - dw_j w_j            (its key side)
+
+    and, for the chunk's last position, ``tail`` = sum_j dw_j w_j +
+    exp(total) <D, S_in[c]> (the chunk total's gradient through the chunk
+    state and the state passing). Returns (dx, dB, ddt, dcum, tail)."""
+    E, L, Sc, G = _intra_terms(xc, bc, cc, dtc, cum, dy)
+    M = Sc * L
+    total = cum[..., -1:]
+    w = torch.exp(total - cum) * dtc                             # (B,H,nc,Q)
+    DB = torch.einsum("bhcjn,bhcpn->bhcjp", bc, ds_loc)
+    dw = (xc * DB).sum(-1)
+    dx = torch.einsum("bhcij,bhcip->bhcjp", M, dy) + w[..., None] * DB
+    dB = (torch.einsum("bhcij,bhcin->bhcjn", G * L, cc)
+          + w[..., None] * torch.einsum("bhcjp,bhcpn->bhcjn", xc, ds_loc))
+    ddt = (G * Sc * E).sum(-2) + dw * torch.exp(total - cum)
+    dcum = -(G * M).sum(-2) - dw * w
+    tail = (dw * w).sum(-1) + torch.exp(total[..., 0]) * (
+        ds_loc * entering).sum((-2, -1))
+    return dx, dB, ddt, dcum, tail
+
+
+def ssd_row_bwd_plain(xc, bc, cc, dtc, cum, dy, entering, dcum_key, tail):
+    """The row side of backward stage (a), per query row i of a chunk
+    (one kernel, after the key side): with y_inter_i = exp(cum_i) C_i
+    S_in^T,
+
+      dC_i   = exp(cum_i) g_i S_in + sum_{j<=i} G_ij L_ij B_j
+      dcum_i = dcum_key_i + g_i . y_inter_i + sum_j G_ij M_ij
+               (+ ``tail`` at the chunk's last position).
+
+    Returns (dC, dcum)."""
+    E, L, Sc, G = _intra_terms(xc, bc, cc, dtc, cum, dy)
+    ec = torch.exp(cum)[..., None]
+    dC = (ec * torch.einsum("bhcip,bhcpn->bhcin", dy, entering)
+          + torch.einsum("bhcij,bhcjn->bhcin", G * L, bc))
+    y_inter = ec * torch.einsum("bhcin,bhcpn->bhcip", cc, entering)
+    dcum = dcum_key + (dy * y_inter).sum(-1) + (G * Sc * L).sum(-1)
+    dcum[..., -1] += tail
+    return dC, dcum
+
+
+def ssd_bwd_staged_plain(xc, bc, cc, dtc, cum, dy):
+    """The backward of :func:`ssd_staged_plain`, stage by stage as the
+    backward kernels split it: the forward's chunk states and states
+    entering each chunk recomputed (kernels 1 and 2); (a) the gradient of
+    each entering state, ``sum_i exp(cum_i) g_i (x) C_i`` (kernel 1's
+    product); (b) the state passing in reverse; the key side of (a) with
+    (c); the row side of (a). Returns (dx, dB, dC, ddt, dcum), the
+    gradients of the five inputs."""
+    entering, _ = ssd_state_passing_plain(
+        ssd_chunk_state_plain(xc, bc, dtc, cum), cum)
+    ds_in = torch.einsum("bhcip,bhcin->bhcpn", dy * torch.exp(cum)[..., None],
+                         cc)
+    ds_loc = ssd_state_passing_bwd_plain(ds_in, cum)
+    dx, dB, ddt, dcum_key, tail = ssd_key_bwd_plain(
+        xc, bc, cc, dtc, cum, dy, entering, ds_loc)
+    dC, dcum = ssd_row_bwd_plain(xc, bc, cc, dtc, cum, dy, entering,
+                                 dcum_key, tail)
+    return dx, dB, dC, ddt, dcum
 
 
 def _validate(xc, bc, cc, dtc, cum) -> None:
@@ -281,15 +386,50 @@ def _launch(xc, bc, cc, dtc, cum) -> torch.Tensor:
     return y
 
 
+def _launch_bwd(xc, bc, cc, dtc, cum, dy):
+    """Launch the backward kernels (``ssd_chunk_scan_bwd``) on the scan's
+    five inputs and ``dy``: (dx, dB, dC, ddt, dcum), the five inputs'
+    gradients. The wrapper allocates the kernels' scratch: the states
+    entering each chunk and their gradients (B, H, nc, P, N), and per
+    position and per chunk the chunk total's terms."""
+    global BWD_LAUNCHES
+    dims = _checked(xc, bc, cc, dtc, cum)
+    if tuple(dy.shape) != tuple(xc.shape) or dy.dtype != torch.float32:
+        raise ValueError(f"ssd_chunk_scan backward: dy must be float32 "
+                         f"{tuple(xc.shape)}, got {dy.dtype} "
+                         f"{tuple(dy.shape)}")
+    dy = dy.contiguous()
+    states = xc.new_empty((*xc.shape[:3], dims[3], dims[4]))
+    dstates = torch.empty_like(states)
+    tw = torch.empty_like(cum)
+    lam_dot = cum.new_empty(cum.shape[:3])
+    grads = tuple(torch.empty_like(t) for t in (xc, bc, cc, dtc, cum))
+    if is_traced(xc):  # shapes only: the op in the kernels' place
+        torch.ops.repro_torch.b3_scan_bwd(xc, bc, cc, dtc, cum, dy, states,
+                                          dstates, tw, lam_dot, *grads)
+        return grads
+    _call("ssd_chunk_scan_bwd", (xc, bc, cc, dtc, cum, dy, states, dstates,
+                                 tw, lam_dot, *grads), dims, xc.device)
+    BWD_LAUNCHES += 1
+    return grads
+
+
+def _kernel_route(t: torch.Tensor) -> bool:
+    """Whether the backward of a scan on ``t`` takes the kernels' route: a
+    CUDA or a traced tensor; a CPU tensor takes the plain VJP."""
+    return is_traced(t) or t.device.type == "cuda"
+
+
 class _B3Function(torch.autograd.Function):
     """The scan on the card with a backward: the forward launches the
     three kernels (:func:`_launch`) and saves only the five inputs; the
-    backward is the VJP of the plain staged scan (:func:`ssd_staged_plain`)
-    at those inputs, recomputed under autograd. The reference defines no
-    VJP for its Pallas kernel and trains through its plain chunked scan,
-    so this is its gradient. The backward launches no kernel, so
+    backward launches the backward kernels (:func:`_launch_bwd`) at those
+    inputs, or on CPU tensors takes the VJP of the plain staged scan
+    (:func:`ssd_staged_plain`), recomputed under autograd: the kernels'
+    plain version. The reference defines no VJP for its Pallas kernel and
+    trains through its plain chunked scan, so this is its gradient.
     :data:`LAUNCHES` counts one launch per forward (and one per recompute
-    under a checkpoint)."""
+    under a checkpoint), :data:`BWD_LAUNCHES` one per backward."""
 
     @staticmethod
     def forward(ctx, xc, bc, cc, dtc, cum):
@@ -299,9 +439,13 @@ class _B3Function(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         need = ctx.needs_input_grad
+        saved = ctx.saved_tensors  # once: a checkpoint unpacks them once
+        if _kernel_route(saved[0]):
+            grads = _launch_bwd(*saved, dy)
+            return tuple(g if n else None for g, n in zip(grads, need))
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
+                   for t, n in zip(saved, need)]
             y = ssd_staged_plain(*ins)
             got = iter(torch.autograd.grad(
                 y, [t for t, n in zip(ins, need) if n], dy))
@@ -318,7 +462,7 @@ def ssd_chunk_scan_gpu(
     """SSD chunk scan -> y (B, H, nc, Q, P), all float32, the state starting
     at zero in each (batch, head). On a card the scan goes through
     :class:`_B3Function`: a grad-requiring input gives a ``y`` whose
-    backward is the plain staged scan's VJP."""
+    backward launches the backward kernels (:func:`_launch_bwd`)."""
     _validate(xc, bc, cc, dtc, cum)
     if not is_traced(xc) and not _on_cuda("ssd_chunk_scan", xc):
         return ssd_staged_plain(xc, bc, cc, dtc, cum)

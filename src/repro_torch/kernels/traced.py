@@ -72,6 +72,34 @@ def _b2_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, causal, window,
                            window=window, itemsize=1)[0]
 
 
+@torch.library.custom_op("repro_torch::b2_flash_bwd",
+                         mutates_args=("delta", "dq", "dk", "dv"))
+def b2_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 delta: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
+                 dv: torch.Tensor, causal: bool, window: int | None,
+                 scale: float) -> None:
+    """B2's backward (``csrc/flash_attention_bwd.cu``): dq, dk, dv (and
+    the delta scratch) from the forward's (q, k, v, o, lse) and do."""
+    raise RuntimeError("b2_flash_bwd: a traced op; real tensors launch the "
+                       "kernels through flash_attention._launch_bwd")
+
+
+@b2_flash_bwd.register_fake
+def _(q, k, v, o, lse, do, delta, dq, dk, dv, causal, window, scale) -> None:
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.b2_flash_bwd)
+def _b2_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
+                  delta_shape, dq_shape, dk_shape, dv_shape, causal, window,
+                  scale, *, out_shape=None, **_kw) -> float:
+    B, H, Sq, D = q_shape
+    KV, Sk, Dv = k_shape[1], k_shape[2], v_shape[3]
+    return work.flash_bwd_work(B, H, Sq, Sk, KV, D, Dv, causal=causal,
+                               window=window, itemsize=1)[0]
+
+
 @torch.library.custom_op("repro_torch::b3_scan",
                          mutates_args=("states", "y"))
 def b3_scan(xc: torch.Tensor, bc: torch.Tensor, cc: torch.Tensor,
@@ -92,3 +120,30 @@ def _(xc, bc, cc, dtc, cum, states, y) -> None:
 def _b3_flops(xc_shape, bc_shape, *_shapes, out_shape=None,
               **_kw) -> float:
     return work.ssd_work(*xc_shape, bc_shape[-1])[0]
+
+
+@torch.library.custom_op("repro_torch::b3_scan_bwd",
+                         mutates_args=("states", "dstates", "tw", "lam_dot",
+                                       "dx", "db", "dc", "ddt", "dcum"))
+def b3_scan_bwd(xc: torch.Tensor, bc: torch.Tensor, cc: torch.Tensor,
+                dtc: torch.Tensor, cum: torch.Tensor, dy: torch.Tensor,
+                states: torch.Tensor, dstates: torch.Tensor, tw: torch.Tensor,
+                lam_dot: torch.Tensor, dx: torch.Tensor, db: torch.Tensor,
+                dc: torch.Tensor, ddt: torch.Tensor,
+                dcum: torch.Tensor) -> None:
+    """B3's backward (``csrc/ssd_scan.cu``'s ``ssd_chunk_scan_bwd``): the
+    five inputs' gradients from dy, with its scratch."""
+    raise RuntimeError("b3_scan_bwd: a traced op; real tensors launch the "
+                       "kernels through ssd_scan._launch_bwd")
+
+
+@b3_scan_bwd.register_fake
+def _(xc, bc, cc, dtc, cum, dy, states, dstates, tw, lam_dot, dx, db, dc,
+      ddt, dcum) -> None:
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.b3_scan_bwd)
+def _b3_bwd_flops(xc_shape, bc_shape, *_shapes, out_shape=None,
+                  **_kw) -> float:
+    return work.ssd_bwd_work(*xc_shape, bc_shape[-1])[0]

@@ -46,6 +46,19 @@ def flash_work(B: int, H: int, Sq: int, Sk: int, KV: int, D: int, Dv: int,
     return flops, nbytes * itemsize
 
 
+def flash_bwd_work(B: int, H: int, Sq: int, Sk: int, KV: int, D: int,
+                   Dv: int, *, causal: bool, window: int | None,
+                   itemsize: int) -> tuple[float, int]:
+    """B2's backward: five products over the live pairs (S and dP
+    recomputed, then dV, dQ and dK) against the forward's two, 2.5 x its
+    operations; q, k, v, o, do and the float32 lse read, dq, dk and dv
+    written."""
+    flops = 2.5 * flash_work(B, H, Sq, Sk, KV, D, Dv, causal=causal,
+                             window=window, itemsize=itemsize)[0]
+    elems = 2 * (B * H * Sq * D + B * KV * Sk * (D + Dv) + B * H * Sq * Dv)
+    return flops, elems * itemsize + B * H * Sq * 4
+
+
 def ssd_work(B: int, H: int, nc: int, Q: int, P: int,
              N: int) -> tuple[float, int]:
     """B3's scan over (B, H, nc, Q, ·) float32 chunks: per (b, h, chunk)
@@ -54,4 +67,17 @@ def ssd_work(B: int, H: int, nc: int, Q: int, P: int,
     live = Q * (Q + 1) / 2
     flops = B * H * nc * (2.0 * live * (N + P) + 4.0 * Q * N * P)
     elems = B * H * nc * Q * (2 * P + 2 * N + 2)
+    return flops, elems * 4
+
+
+def ssd_bwd_work(B: int, H: int, nc: int, Q: int, P: int,
+                 N: int) -> tuple[float, int]:
+    """B3's backward: per (b, h, chunk) over the causal half the scores C
+    Bᵀ and g xᵀ and the products giving dx, dB and dC, ``2·(3N + 2P)`` a
+    pair; six (P x N) products over the chunk (the carry recomputed,
+    dS_in, D Bᵀ, xᵀ D, C S_inᵀ and g S_in); the five inputs and dy read,
+    the five gradients written once."""
+    live = Q * (Q + 1) / 2
+    flops = B * H * nc * (2.0 * live * (3 * N + 2 * P) + 12.0 * Q * N * P)
+    elems = B * H * nc * Q * (3 * P + 4 * N + 4)
     return flops, elems * 4

@@ -7,9 +7,10 @@ Which computation runs is decided by the tensors' device alone:
   (``csrc/flash_attention.cu``) through :func:`repro_torch.kernels.ops.
   attention`, or raises where :func:`b2_route` says B2 does not cover the
   call. It never runs the plain version on the card. Under autograd the
-  kernel also writes each row's lse, and the backward is
-  :func:`_flash_bwd` from the saved (q, k, v, o, lse)
-  (:class:`repro_torch.kernels.flash_attention._B2Function`).
+  kernel also writes each row's lse, and the backward launches B2's
+  backward kernels (``csrc/flash_attention_bwd.cu``) from the saved (q, k,
+  v, o, lse) (:class:`repro_torch.kernels.flash_attention._B2Function`);
+  :func:`_flash_bwd` is their plain version.
 * On DTensors (under a device mesh) it runs inside
   :func:`~repro_torch.models.sharding.local_call` on each rank's local
   shards, batch on ``data`` and heads on ``model``, and takes one of the

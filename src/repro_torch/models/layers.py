@@ -439,26 +439,76 @@ def logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return out
 
 
-def _pick(logit: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return logit.gather(-1, labels.long()[..., None])[..., 0]
+class _VocabNLL(torch.autograd.Function):
+    """The rows' NLL summed and divided by ``denom``, from each rank's
+    slice of the vocabulary; ``groups`` are the process groups of the mesh
+    dims that split the vocabulary, ``batch_groups`` those that split the
+    rows.
 
+    Per row: the slice's max, MAX over ``groups``; the sum of
+    ``exp(logit - max)``, SUM; the picked logit (0 where the label lies
+    outside the slice), SUM; ``nll = max + log(sum) - picked``. The rows'
+    sum is then a SUM over ``batch_groups``, so every rank holds the whole
+    scalar. The backward is ``(softmax - onehot) / denom`` on the local
+    slice and posts no collective. With no groups it is the same
+    arithmetic with no collective, so a one-rank mesh gives the same bits
+    as no mesh."""
 
-def label_logits(logit: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """logit (B,S,V) at labels (B,S) -> (B,S). A DTensor's vocabulary must
-    be whole; the pick runs on each rank's rows (``local_call``), since
-    DTensor's ``gather`` backward makes its zeros at the global shape on
-    every rank."""
-    if not is_dtensor(logit):
-        return _pick(logit, labels)
-    pl = tuple(logit.placements)
-    return local_call("pick", _pick, (logit, labels), (pl, pl), pl,
-                      logit.device_mesh)
+    @staticmethod
+    def forward(ctx, logit, labels, denom: int, offset: int, groups,
+                batch_groups):
+        V = logit.shape[-1]
+        idx = labels.long() - offset
+        inside = (idx >= 0) & (idx < V)
+        idx = idx.clamp(0, V - 1)
+        top = logit.amax(dim=-1)
+        for g in groups:
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g)
+        total = torch.exp(logit - top[..., None]).sum(dim=-1)
+        picked = torch.where(inside, logit.gather(-1, idx[..., None])[..., 0],
+                             0.0)
+        for g in groups:
+            dist.all_reduce(total, group=g)
+            dist.all_reduce(picked, group=g)
+        lse = top + torch.log(total)
+        loss = (lse - picked).sum()
+        for g in batch_groups:
+            dist.all_reduce(loss, group=g)
+        ctx.save_for_backward(logit, lse, idx, inside)
+        ctx.denom = denom
+        return loss / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        logit, lse, idx, inside = ctx.saved_tensors
+        w = g / ctx.denom
+        grad = torch.exp(logit - lse[..., None]).mul_(w)
+        grad.scatter_add_(-1, idx[..., None],
+                          torch.where(inside, -w, 0.0)[..., None])
+        return grad, None, None, None, None, None
 
 
 def cross_entropy(logit: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token NLL; logit (B,S,V) float32, labels (B,S) int. Under a
-    mesh the vocabulary is gathered first (the pick of each label's logit
-    has no vocabulary-split form)."""
-    logit = constrain(logit, "batch", None, None)
-    lse = torch.logsumexp(logit, dim=-1)
-    return torch.mean(lse - label_logits(logit, labels))
+    """Mean token NLL; logit (B,S,V) float32, labels (B,S) int.
+
+    Under a mesh the logits stay split by vocabulary as :func:`logits`
+    leaves them: each rank reduces its own slice (:class:`_VocabNLL`, in
+    :func:`~repro_torch.models.sharding.local_call`) and all-reduces three
+    numbers a row over the mesh dims that split the vocabulary, so no rank
+    holds a row's whole vocabulary. The result is a replicated scalar."""
+    denom = max(labels.shape[0] * labels.shape[1], 1)
+    if not is_dtensor(logit):
+        return _VocabNLL.apply(logit, labels, denom, 0, (), ())
+    mesh = logit.device_mesh
+    lp = tuple(a if a in (Shard(0), Shard(2)) else Replicate()
+               for a in logit.placements)
+    rows = tuple(Shard(0) if a == Shard(0) else Replicate() for a in lp)
+    vocab = [mesh.get_group(i) for i, a in enumerate(lp) if a == Shard(2)]
+    batch = [mesh.get_group(i) for i, a in enumerate(lp) if a == Shard(0)]
+    offset = local_shape_and_offset(logit.shape, mesh, lp)[1][2]
+
+    def local(lg, y):
+        return _VocabNLL.apply(lg, y, denom, offset, vocab, batch)
+
+    return local_call("xent", local, (logit, replicate_like(labels, logit)),
+                      (lp, rows), (Replicate(),) * mesh.ndim, mesh)

@@ -547,15 +547,9 @@ def _mtp_nll(fetch: _Fetcher, hidden, batch, cfg: ModelConfig):
                                h)
     h = _dense_layer(mtp["layer"], h, cfg, positions)
     h = L.rmsnorm(mtp["ln"], h)
-    # the vocabulary gathered under a mesh, as for the main head's loss
-    mtp_logits = constrain(L.logits(fetch("embed"), h, cfg).float(),
-                           "batch", None, None)
+    mtp_logits = L.logits(fetch("embed"), h, cfg).float()
     tgt = _roll_seq(batch["labels"], -2)
-    valid = replicate_like(torch.arange(S, device=h.device) < S - 2, h)
-    lse = torch.logsumexp(mtp_logits, dim=-1)
-    picked = L.label_logits(mtp_logits, tgt)
-    return torch.sum((lse - picked) * valid) / torch.clamp(
-        valid.sum() * B, min=1)
+    return L.cross_entropy(mtp_logits[:, :S - 2], tgt[:, :S - 2])
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
 from repro_torch.core import tiering as T
 from repro_torch.core.objects import _leaves_with_keys
@@ -126,6 +126,54 @@ def step_case(cfg, params, batch, shape, microbatches: int = 1):
         "m0": flat(o1["m"]), "m": flat(o2["m"]), "v0": flat(o1["v"]),
         "v": flat(o2["v"]), "calls": calls}
     return answer(out)
+
+
+def xent_case(logit, labels, shape):
+    """``cross_entropy`` of (B, S, V) logits split by rows on ``data`` and
+    by vocabulary on ``model``, against the unsharded: loss, gradient, the
+    width of rank 0's vocabulary slice and of its gradient, and the calls
+    through the loss's ``local_map`` body."""
+    from repro_torch.models.layers import cross_entropy
+
+    lg0 = logit.clone().requires_grad_()
+    loss0 = cross_entropy(lg0, labels)
+    g0, = torch.autograd.grad(loss0, lg0)
+    mesh = mesh_of(shape)
+    with use_mesh(mesh):
+        lg = distribute_tensor(logit, mesh, [Shard(0), Shard(2)])
+        lg.requires_grad_()
+        y = distribute_tensor(labels, mesh, [Shard(0), Replicate()])
+        LOCAL_MAP_CALLS.clear()
+        loss = cross_entropy(lg, y)
+        g, = torch.autograd.grad(loss, lg)
+        calls = LOCAL_MAP_CALLS["xent"]
+    return answer({"loss0": float(loss0), "loss": float(loss.full_tensor()),
+                   "g0": whole(g0), "g": whole(g), "calls": calls,
+                   "width": lg.to_local().shape[-1],
+                   "grad_width": g.to_local().shape[-1]})
+
+
+def loss_case(cfg, params, batch, shape):
+    """``loss_fn``'s value, metrics and gradients sharded on ``shape``
+    against unsharded, and the calls through the loss's ``local_map``
+    body (the main head's and, with MTP, the MTP block's)."""
+    step_cfg = TrainStepConfig(remat="full")
+    loss0, metrics0, grads0 = step_mod.make_value_and_grad(cfg, step_cfg)(
+        params, batch)
+    mesh = mesh_of(shape)
+    with use_mesh(mesh):
+        dp, _, db, _ = laid_out(cfg, params, adamw_init(OPT, params), batch,
+                                mesh)
+        LOCAL_MAP_CALLS.clear()
+        loss, metrics, grads = step_mod.make_value_and_grad(cfg, step_cfg)(
+            dp, db)
+        calls = LOCAL_MAP_CALLS["xent"]
+    return answer({
+        "loss0": float(loss0), "loss": float(loss),
+        "metrics0": {k: float(v) for k, v in metrics0.items()},
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "grads0": {k: whole(g) for k, g in grads0.items()},
+        "grads": {k: whole(g) for k, g in grads.items()}, "calls": calls})
 
 
 def memory_case(cfg, params, batch, shape):

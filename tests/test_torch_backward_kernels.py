@@ -1,0 +1,328 @@
+"""The backward kernels of B2 (``csrc/flash_attention_bwd.cu``) and B3
+(``csrc/ssd_scan.cu``'s ``ssd_chunk_scan_bwd``) as far as the CPU reaches
+them: their wrappers' argument checks and route rules, the traced route on
+meta and fake tensors (shapes, the registered op, its operations; no
+launch), and ``BWD_LAUNCHES`` counting one launch per backward through a
+stand-in for the C entry point that computes the plain version. The kernels
+themselves run only on a card (``chip_smoke.py``'s ``[train]``).
+
+B3's backward is also checked as the kernels split it: the plain
+stage-by-stage :func:`ssd_bwd_staged_plain` against autograd of
+``ssd_staged_plain`` and, through ``ops.ssd_prep``, against ``jax.grad`` of
+the reference's chunked scan (``repro.models.ssm._ssd_scan``), in float32.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.configs import reduced_config as ref_reduced_config
+from repro.models import ssm as ref_ssm
+
+from repro_torch.kernels import _build, ops, work
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.launch import hlo_analysis as H
+from repro_torch.models import flash
+
+from _torch_model_parity import one_torch_thread  # noqa: F401
+
+
+@pytest.fixture
+def no_launch(monkeypatch):
+    """Loading a kernel library (the first step of every launch) fails."""
+    def refuse(*_a, **_k):
+        raise AssertionError("a call reached a kernel launch")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    counts = (fa.BWD_LAUNCHES, ssd.BWD_LAUNCHES)
+    yield
+    assert (fa.BWD_LAUNCHES, ssd.BWD_LAUNCHES) == counts
+
+
+# -- B2 ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,D,Dv,want", [
+    (torch.bfloat16, 128, 128, "wgmma"), (torch.bfloat16, 64, 64, "wgmma"),
+    (torch.bfloat16, 64, 128, "wgmma"), (torch.bfloat16, 192, 128, "ffma"),
+    (torch.bfloat16, 96, 64, "wgmma"), (torch.bfloat16, 72, 64, "ffma"),
+    (torch.float32, 128, 128, "ffma"), (torch.float32, 64, 64, "ffma")])
+def test_b2_bwd_variant_rule(dtype, D, Dv, want):
+    """bf16 with D and Dv multiples of 16 and at most 128 takes the tensor
+    cores; MLA's D 192, other widths and float32 the CUDA-core kernels."""
+    assert fa._bwd_variant(dtype, D, Dv) == want
+
+
+def _b2_tensors(B=1, H=4, KV=2, S=64, D=32, Dv=32, dtype=torch.bfloat16,
+                device="cpu"):
+    q = torch.zeros((B, S, H, D), dtype=dtype, device=device).transpose(1, 2)
+    k = torch.zeros((B, S, KV, D), dtype=dtype, device=device).transpose(1, 2)
+    v = torch.zeros((B, S, KV, Dv), dtype=dtype,
+                    device=device).transpose(1, 2)
+    o = torch.zeros((B, S, H, Dv), dtype=dtype, device=device).transpose(1, 2)
+    lse = torch.zeros((B, H, S), device=device)
+    return q, k, v, o, lse, torch.zeros_like(o)
+
+
+def test_b2_bwd_argument_checks(no_launch):
+    """The wrapper raises on what the kernels do not take, before any
+    launch: mixed dtypes, a head dim past 192, an lse of another shape,
+    and (tensor cores) a stride TMA cannot read."""
+    q, k, v, o, lse, do = _b2_tensors()
+    kw = dict(causal=True, window=None, scale=0.1)
+    with pytest.raises(TypeError, match="one dtype"):
+        fa._launch_bwd(q.float(), k, v, o, lse, do, **kw)
+    with pytest.raises(ValueError, match="D <= 192"):
+        big = torch.zeros((1, 4, 64, 200), dtype=torch.bfloat16)
+        fa._launch_bwd(big, big[:, :2], v, o, lse, do, **kw)
+    with pytest.raises(ValueError, match="lse"):
+        fa._launch_bwd(q, k, v, o, lse[:, :, :8], do, **kw)
+    wide = torch.zeros((1, 64, 4, 36), dtype=torch.bfloat16)[..., :32]
+    with pytest.raises(ValueError, match="TMA"):
+        fa._launch_bwd(wide.transpose(1, 2), k, v, o, lse, do, **kw)
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu", "cuda"])
+@pytest.mark.parametrize("dtype,D,Dv", [(torch.bfloat16, 32, 32),
+                                        (torch.float32, 36, 20)])
+def test_b2_bwd_traced_route(no_launch, device, dtype, D, Dv):
+    """On a meta tensor, and on fake CPU and CUDA tensors under the trace
+    analysis: dq, dk and dv of the inputs' shapes, types and devices in the
+    (B, S, heads, ·) memory layout the launch allocates, and one
+    registered backward op with the kernels' operation count."""
+    B, H_, KV, S = 2, 8, 2, 64
+    kw = dict(causal=True, window=24, scale=0.1)
+    if device == "meta":
+        ins = _b2_tensors(B, H_, KV, S, D, Dv, dtype, "meta")
+        grads = fa._launch_bwd(*ins, **kw)
+        a = None
+    else:
+        tr = H.Tracer()
+        with tr:
+            ins = _b2_tensors(B, H_, KV, S, D, Dv, dtype, device)
+        out = {}
+        a = H.analyze(lambda *t: out.setdefault(
+            "g", fa._launch_bwd(*t, **kw)), *ins)
+        grads = out["g"]
+    for g, t in zip(grads, ins[:3]):
+        assert tuple(g.shape) == tuple(t.shape) and g.dtype == t.dtype
+        assert g.device.type == device
+        assert g.stride(1) == t.shape[3]  # (B, S, heads, ·) in memory
+    if a is not None:
+        assert a.launches("repro_torch.b2_flash_bwd") == 1
+        assert a.flops == work.flash_bwd_work(B, H_, S, S, KV, D, Dv,
+                                              causal=True, window=24,
+                                              itemsize=2)[0]
+
+
+def test_b2_bwd_launches_count_one_per_backward(monkeypatch):
+    """``_B2Function`` on the kernels' route, the forward stood in for by
+    the plain forward's (o, lse) and the backward's C entry point by the
+    plain backward written into the kernels' outputs: each backward counts
+    one launch (and one of its variant), and its gradients are the plain
+    version's bits."""
+    def fake_launch(q, k, v, *, causal, window, scale, with_lse=False):
+        B_, H_, Sq, D = q.shape
+        KV = k.shape[1]
+        o, lse = flash._fwd_all(q.reshape(B_, KV, H_ // KV, Sq, D), k, v,
+                                flash.MaskSpec(causal=causal, window=window),
+                                scale, k.shape[2], 8)
+        o = o.reshape(B_, H_, Sq, v.shape[3])
+        return (o, lse.reshape(B_, H_, Sq)) if with_lse else o
+
+    def fake_call(variant, tensors, *_dims, causal, window, scale):
+        q, k, v, o, do, lse, _delta, dq, dk, dv = tensors
+        for out, g in zip((dq, dk, dv), fa._plain_bwd(
+                q, k, v, o, lse, do, causal=causal, window=window,
+                scale=scale)):
+            out.copy_(g)
+
+    monkeypatch.setattr(fa, "_launch", fake_launch)
+    monkeypatch.setattr(fa, "_call_bwd", fake_call)
+    monkeypatch.setattr(fa, "_kernel_route", lambda t: True)
+    rng = np.random.default_rng(0)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((1, 4, 32, 16), (1, 2, 32, 16),
+                               (1, 2, 32, 16), (1, 4, 32, 16)))
+    scale = 1.0 / math.sqrt(16)
+    fa.reset_launches()
+    for n in range(1, 4):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fa._B2Function.apply(*ins, True, None, scale)
+        got = torch.autograd.grad(o, ins, do)
+        assert fa.BWD_LAUNCHES == n and fa.BWD_VARIANT_LAUNCHES == {
+            "wgmma": 0, "ffma": n}
+    o_p, lse_p = fake_launch(q, k, v, causal=True, window=None, scale=scale,
+                             with_lse=True)
+    want = fa._plain_bwd(q, k, v, o_p, lse_p, do, causal=True, window=None,
+                         scale=scale)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    fa.reset_launches()
+    assert fa.BWD_LAUNCHES == 0
+
+
+# -- B3 ---------------------------------------------------------------------------
+
+def _b3_chunks(B=2, H=3, nc=3, Q=16, P=8, N=12, device="cpu"):
+    x = torch.zeros((B, H, nc, Q, P), device=device)
+    b = torch.zeros((B, H, nc, Q, N), device=device)
+    t = torch.zeros((B, H, nc, Q), device=device)
+    return x, b, b.clone(), t, t.clone()
+
+
+def test_b3_bwd_argument_checks(no_launch):
+    """dy of another shape or type, and P past the kernels' tiles, raise
+    before any launch."""
+    x, b, c, dt, cum = _b3_chunks()
+    with pytest.raises(ValueError, match="dy"):
+        ssd._launch_bwd(x, b, c, dt, cum, x[..., :4])
+    with pytest.raises(ValueError, match="dy"):
+        ssd._launch_bwd(x, b, c, dt, cum, x.double())
+    wide = torch.zeros((2, 3, 3, 16, 80))
+    with pytest.raises(ValueError, match="P <= 64"):
+        ssd._launch_bwd(wide, b, c, dt, cum, wide)
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu", "cuda"])
+def test_b3_bwd_traced_route(no_launch, device):
+    """On a meta tensor, and on fake CPU and CUDA tensors under the trace
+    analysis: the five gradients of their inputs' shapes on their device,
+    one registered backward op with its operation count, and the scratch
+    the launch allocates counted in the trace's memory."""
+    B, H_, nc, Q, P, N = 2, 3, 3, 16, 8, 12
+    if device == "meta":
+        ins = _b3_chunks(B, H_, nc, Q, P, N, "meta")
+        grads = ssd._launch_bwd(*ins, ins[0])
+        a = None
+    else:
+        tr = H.Tracer()
+        with tr:
+            ins = _b3_chunks(B, H_, nc, Q, P, N, device)
+        out = {}
+        a = H.analyze(lambda *t: out.setdefault(
+            "g", ssd._launch_bwd(*t, t[0])), *ins)
+        grads = out["g"]
+    for g, t in zip(grads, ins):
+        assert tuple(g.shape) == tuple(t.shape) and g.device.type == device
+    if a is not None:
+        assert a.launches("repro_torch.b3_scan_bwd") == 1
+        assert a.flops == work.ssd_bwd_work(B, H_, nc, Q, P, N)[0]
+        # the states and their gradients, (B, H, nc, P, N) float32 each
+        assert a.memory["temp_bytes"] >= 2 * B * H_ * nc * P * N * 4
+
+
+def _ssd_prepped(seed=0, Bn=2, L=64, H=4, P=8, G=2, N=8, chunk=16):
+    """``ops.ssd_prep``'s chunks of the reference test's distributions, and
+    a dy."""
+    rng = np.random.default_rng(seed)
+    xh, Bm, Cm = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  for s in ((Bn, L, H, P), (Bn, L, G, N), (Bn, L, G, N)))
+    dt = torch.from_numpy(np.logaddexp(rng.standard_normal((Bn, L, H)), 0.0)
+                          .astype(np.float32))
+    A = -torch.from_numpy(np.exp(rng.standard_normal(H) * 0.5)
+                          .astype(np.float32))
+    chunks = ops.ssd_prep(xh, Bm, Cm, dt, A, chunk=chunk)
+    dy = torch.from_numpy(rng.standard_normal(chunks[0].shape)
+                          .astype(np.float32))
+    return chunks, dy
+
+
+def test_b3_bwd_launches_count_one_per_backward(monkeypatch):
+    """``_B3Function`` on the kernels' route, its forward stood in for by
+    the plain staged scan and the backward's C entry point by the plain
+    stage-by-stage backward written into the kernels' outputs: each
+    backward counts one launch, and gives those gradients; the scratch is
+    handed to the entry point with the gradients after it."""
+    seen = []
+
+    def fake_call(entry, pointers, dims, device):
+        if entry == "ssd_chunk_scan_bwd":
+            ins, dy, grads = pointers[:5], pointers[5], pointers[10:]
+            seen.append(tuple(t.shape for t in pointers[6:10]))
+            for out, g in zip(grads, ssd.ssd_bwd_staged_plain(*ins, dy)):
+                out.copy_(g)
+        else:
+            raise AssertionError(entry)
+
+    monkeypatch.setattr(ssd, "_launch", lambda *a: ssd.ssd_staged_plain(*a))
+    monkeypatch.setattr(ssd, "_call", fake_call)
+    monkeypatch.setattr(ssd, "_kernel_route", lambda t: True)
+    chunks, dy = _ssd_prepped()
+    ssd.reset_launches()
+    for n in range(1, 3):
+        ins = [t.clone().requires_grad_(True) for t in chunks]
+        got = torch.autograd.grad(ssd._B3Function.apply(*ins), ins, dy)
+        assert ssd.BWD_LAUNCHES == n
+    want = ssd.ssd_bwd_staged_plain(*chunks, dy)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    B, H_, nc, Q, P = chunks[0].shape
+    N = chunks[1].shape[-1]
+    assert seen[0] == ((B, H_, nc, P, N), (B, H_, nc, P, N), (B, H_, nc, Q),
+                       (B, H_, nc))
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_b3_staged_backward_matches_autograd(chunk):
+    """The split the kernels compute (the carry recomputed; dS_in; the
+    state passing in reverse; the key side with the chunk state's
+    backward; the row side) against autograd of ``ssd_staged_plain``, in
+    float32 within 1e-5 of each gradient's max |g| (the sums run in
+    another order)."""
+    chunks, dy = _ssd_prepped(chunk=chunk)
+    ins = [t.clone().requires_grad_(True) for t in chunks]
+    want = torch.autograd.grad(ssd.ssd_staged_plain(*ins), ins, dy)
+    got = ssd.ssd_bwd_staged_plain(*chunks, dy)
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-5 * scale
+
+
+class _StagedScan(torch.autograd.Function):
+    """The plain staged scan whose backward is the kernels' split."""
+
+    @staticmethod
+    def forward(ctx, *chunks):
+        ctx.save_for_backward(*chunks)
+        return ssd.ssd_staged_plain(*chunks)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ssd.ssd_bwd_staged_plain(*ctx.saved_tensors, dy)
+
+
+@pytest.mark.parametrize("L,chunk", [(64, 16), (96, 32)])
+def test_b3_staged_backward_matches_reference_grad(L, chunk):
+    """x, B, C, dt and A through ``ops.ssd_prep`` and the kernels' split
+    against ``jax.grad`` of the reference's chunked scan on the same
+    inputs (reduced mamba2-130m's heads and widths), within 1e-4 of each
+    gradient's max |g| (float32; the reference's own scan tolerance)."""
+    ref_cfg = ref_reduced_config(ref_get_config("mamba2-130m"),
+                                 dtype=jnp.float32, ssm_chunk=chunk)
+    H, P, G, N = (ref_cfg.ssm_nheads, ref_cfg.ssm_headdim,
+                  ref_cfg.ssm_ngroups, ref_cfg.ssm_state)
+    rng = np.random.default_rng(3)
+    arrays = [rng.standard_normal((2, L, H, P)).astype(np.float32),
+              (rng.standard_normal((2, L, G, N)) * 0.5).astype(np.float32),
+              (rng.standard_normal((2, L, G, N)) * 0.5).astype(np.float32),
+              np.logaddexp(rng.standard_normal((2, L, H)), 0.0)
+              .astype(np.float32),
+              (-np.exp(rng.standard_normal(H) * 0.5)).astype(np.float32)]
+    dy = rng.standard_normal((2, L, H, P)).astype(np.float32)
+
+    def ref_loss(*a):
+        y, _ = ref_ssm._ssd_scan(*a, ref_cfg)
+        return jnp.sum(y * dy)
+
+    want = jax.grad(ref_loss, argnums=tuple(range(5)))(
+        *[jnp.asarray(a) for a in arrays])
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    y = _StagedScan.apply(*ops.ssd_prep(*ins, chunk=chunk))
+    y = y.movedim(1, 3).reshape(2, L, H, P)
+    got = torch.autograd.grad(y, ins, torch.from_numpy(dy))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max()

@@ -267,8 +267,10 @@ def test_b3_traced_route(no_launch, device):
 
 
 def test_b2_traced_backward_is_the_plain_one(no_launch):
-    """Under autograd the traced forward is one B2 op and its backward the
-    plain blocked backward (matmuls), as on the card."""
+    """Under autograd the traced forward is one B2 op and its backward one
+    op of B2's backward kernels, as on the card: no plain blocked backward
+    (its matmuls) is traced, and the trace counts the kernels'
+    operations."""
     tr = H.Tracer()
     with tr:
         q = torch.empty(1, 4, 64, 16, requires_grad=True)
@@ -277,7 +279,11 @@ def test_b2_traced_backward_is_the_plain_one(no_launch):
         fa.flash_attention_gpu(q, k, k, block_q=64, block_k=64).sum(),
         (q, k)), q, k)
     assert a.launches("repro_torch.b2_flash") == 1
-    assert a.per_computation["aten.bmm"]["flops"] > 0
+    assert a.launches("repro_torch.b2_flash_bwd") == 1
+    assert "aten.bmm" not in a.per_computation
+    assert a.flops == sum(f(1, 4, 64, 64, 2, 16, 16, causal=True,
+                            window=None, itemsize=4)[0]
+                          for f in (work.flash_work, work.flash_bwd_work))
 
 
 def test_loss_gradient_holds_no_global_rows():
@@ -302,6 +308,31 @@ def test_loss_gradient_holds_no_global_rows():
             a = H.analyze(lambda lg, y: torch.autograd.grad(
                 cross_entropy(lg, y), lg), logit.requires_grad_(), labels)
     assert a.memory["peak_bytes_est"] < B * S * V * 4
+
+
+def test_loss_holds_no_whole_vocabulary():
+    """C8: ``cross_entropy`` and its gradient on logits split 8 ways by
+    vocabulary, (1, 8): each rank reduces its own slice, so its peak stays
+    below one whole-vocabulary float32 copy of the logits (gathering the
+    vocabulary first, as the loss did before, costs at least one)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models.layers import cross_entropy
+    from repro_torch.models.sharding import use_mesh
+
+    B, S, V = 8, 16, 2048
+    with fake_group(8):
+        mesh = init_device_mesh("cpu", (1, 8), mesh_dim_names=("data",
+                                                               "model"))
+        tr = H.Tracer()
+        logit = _dt(tr, mesh, (B, S, V), (Replicate(), Shard(2)))
+        labels = _dt(tr, mesh, (B, S), (Replicate(), Replicate()),
+                     torch.int32)
+        with use_mesh(mesh):
+            a = H.analyze(lambda lg, y: torch.autograd.grad(
+                cross_entropy(lg, y), lg), logit.requires_grad_(), labels)
+    assert a.memory["peak_bytes_est"] < B * S * V * 4
+    assert sum(c.op == "all-reduce" for c in a.collectives) >= 3
 
 
 # -- memory and whole models ------------------------------------------------------

@@ -130,6 +130,45 @@ def test_sharded_step_matches_unsharded(world, arch, shape, mb):
                                             - ref.cfg.first_k_dense)
 
 
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4)])
+def test_vocab_parallel_loss_matches_unsharded(world, shape):
+    """C8: the loss of logits split by vocabulary (on ``model``) and by
+    rows (on ``data``) reduces each rank's slice: its value within 1e-6
+    relative and its gradient within 1e-6 of the leaf's max of the
+    unsharded loss's (float32; the sums run in another order). Rank 0's
+    slice and its gradient stay a ``model``-th of the vocabulary. The
+    labels fall in every slice, the padded columns' NEG_INF included."""
+    from repro_torch.kernels.ref import NEG_INF
+
+    rng = np.random.default_rng(0)
+    B, S, V = 4, 8, 64
+    logit = torch.from_numpy(rng.normal(size=(B, S, V)).astype(np.float32))
+    logit[..., 60:] = NEG_INF  # a padded vocabulary's tail
+    labels = torch.from_numpy(rng.integers(0, 60, (B, S)).astype(np.int32))
+    out = world.run(C.xent_case, logit, labels, shape)[0]
+    assert abs(out["loss"] - out["loss0"]) <= 1e-6 * abs(out["loss0"])
+    assert _close(out["g"], out["g0"], out["g0"], 1e-6)
+    assert out["width"] == out["grad_width"] == V // shape[1]
+    assert out["calls"] == 1
+
+
+def test_mtp_loss_is_vocab_parallel(world):
+    """C8 in reduced deepseek-v3's loss on (1, 4), the vocabulary split 4
+    ways: the main head's loss and the MTP term each go through the
+    vocabulary-parallel loss, and the loss, both terms and every gradient
+    match the unsharded step's (1e-6 relative; gradients 1e-5 of their
+    leaf's max |g|, as the sharded step's test holds them)."""
+    ref = ref_of("deepseek-v3-671b")
+    out = world.run(C.loss_case, ref.cfg, ref.params(), ref.batch,
+                    (1, 4))[0]
+    assert out["calls"] == 2
+    assert abs(out["loss"] - out["loss0"]) <= 1e-6 * abs(out["loss0"])
+    assert set(out["metrics0"]) >= {"nll", "mtp_nll"}
+    for k, v in out["metrics0"].items():
+        assert abs(out["metrics"][k] - v) <= 1e-6 * max(abs(v), 1e-6), k
+    assert grads_off(out["grads"], out["grads0"]) == []
+
+
 def held_update(old: dict, got: dict, want: dict) -> None:
     """An update (``params``, moments ``m`` and ``v``) given the oracle's
     gradients against the oracle's: parameters within 1e-5 of the update
