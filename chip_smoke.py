@@ -12,8 +12,10 @@ Phases (any failed check raises and exits non-zero):
      (one process per source, all at once), with ptxas's register,
      shared-memory and spill report, and the count of tensor-core
      instructions (``HGMMA``, ``HMMA``) in each library's SASS
-     (``cuobjdump -sass``): the matmul and flash libraries must hold HGMMA,
-     the SSD library HGMMA or HMMA;
+     (``cuobjdump -sass``): the matmul and flash libraries (B2's backward
+     too) must hold HGMMA, the SSD library HGMMA or HMMA; B2's backward
+     wgmma kernels must spill nothing and ptxas must serialise none of
+     their wgmma (``check_bwd_build``);
   3. kernels against their plain PyTorch versions on the card: the
      reference's kernel test cases (``tests/test_kernels.py``) in float32
      (the FFMA variants) and bf16 (the tensor-core variants), a bf16 shape
@@ -138,9 +140,13 @@ bound also carries o's rounding through ``delta``,
 ``kernels.ref.flash_dq_rounding_bound``), and a planted fault (dk without
 one 128-key tile) that the bound must fail; the backward kernels
 (``csrc/flash_attention_bwd.cu``) against their plain version
-``_plain_bwd`` on the same saved o, lse and do, with a planted fault; B2's
+``_plain_bwd`` on the same saved o, lse and do, with a planted fault, and
+two launches on the same inputs ``torch.equal``; B2's
 forward, its backward kernels, the plain backward, SDPA's backward alone
-and SDPA's forward and backward timed beside their bounds. Then one train
+and SDPA's forward and backward timed beside their bounds; the backward
+kernels under mixtral-8x7b's sliding window (``TRAIN_FLASH_WINDOW``, which
+no train step reaches) against ``_plain_bwd``, twice ``torch.equal``, with
+a planted fault, timed beside their bound. Then one train
 step from the same
 weights and 2 x 2048-token batch (``SyntheticTokenDataset``) under each
 of ``TRAIN_PLACEMENTS`` (untiered, prefetch off, host_offload 0.5 with
@@ -324,7 +330,10 @@ FLASH_FFMA_BF16 = [(1, 2, 2, 128, 128, 40, 40, True, None)]
 SASS_OPS = ("HGMMA", "HMMA")
 NEEDS_TENSOR_CORES = {"streaming_matmul": ("HGMMA",),
                       "flash_attention": ("HGMMA",),
+                      "flash_attention_bwd": ("HGMMA",),
                       "ssd_scan": ("HGMMA", "HMMA")}
+# ptxas's note when it serialises a kernel's wgmma (C7512 to C7518)
+WGMMA_SERIALISED = "wgmma.mma_async instructions are serialized"
 # the reference's SSD tolerance (tests/test_kernels.py::TestSSDKernel);
 # L, chunk, G with B 2, H 4, P 32, N 32, then one chunk and L < chunk
 SSD_TOL = 2e-4
@@ -430,6 +439,9 @@ TRAIN_FLASH = dict(B=2, H=32, KV=8, S=2048, D=128)
 # the restart check at the reduced float32 size (a full-width checkpoint
 # holds 13 GB): 10 steps, a checkpoint every 5, the run killed after step 7
 TRAIN_RESTART = dict(steps=10, ckpt_every=5, kill_at=7, batch=4, seq=64)
+# B2's backward under a sliding window, which no train step here reaches:
+# mixtral-8x7b's attention widths and window (4096) over 8192 positions
+TRAIN_FLASH_WINDOW = dict(B=1, H=32, KV=8, S=8192, D=128, window=4096)
 # B2's VJP at the other attention shapes the train steps run: zamba2-1.2b's
 # shared block (D 64) and seamless-m4t-medium's cross attention (Sq != Sk,
 # full), at the train batch of 2
@@ -622,6 +634,45 @@ def phase_hpc(dev: dict) -> None:
 
 
 # -- 2. build -------------------------------------------------------------------
+def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
+    """Spill store and load bytes of each kernel in an ``nvcc -Xptxas -v``
+    log (each "Compiling entry function" line is followed by its
+    kernel's "spill stores ... spill loads" line)."""
+    spills, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = entry.group(1)
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill and name:
+            spills[name] = (int(spill.group(1)), int(spill.group(2)))
+            name = None
+    return spills
+
+
+def check_bwd_build() -> None:
+    """B2's backward library: its tensor-core kernels (namespace ``tcb``)
+    spill nothing and ptxas serialises none of its wgmma. Rebuilt here if
+    an earlier run left it built, so that its ptxas report is read."""
+    name = "flash_attention_bwd"
+    if name not in _build.BUILD_LOG:
+        _build._target(name).unlink()
+        _build.build_all((name,))
+    log = _build.BUILD_LOG[name][1]
+    spills = ptxas_spills(log)
+    wgmma = {n: sp for n, sp in spills.items() if n.startswith("_ZN3tcb")}
+    require(len(wgmma) >= 8 and all(sp == (0, 0) for sp in wgmma.values()),
+            f"{name}: the wgmma kernels spill: {wgmma}")
+    require(WGMMA_SERIALISED not in log,
+            f"{name}: ptxas serialised a kernel's wgmma")
+    other = {n: sp for n, sp in spills.items() if n not in wgmma}
+    print(f"[build] {name}: {len(wgmma)} wgmma kernels, 0 spill bytes, no "
+          f"wgmma serialised; the other kernels' spill stores and loads "
+          f"(bytes): {sorted(other.values())}")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -644,6 +695,7 @@ def phase_build() -> None:
         ops_needed = NEEDS_TENSOR_CORES.get(name, ())
         require(not ops_needed or sum(n[op] for op in ops_needed) > 0,
                 f"{name}: no {' or '.join(ops_needed)} in its SASS")
+    check_bwd_build()
 
 
 # -- 3. kernels against their plain versions --------------------------------
@@ -1995,6 +2047,14 @@ def check_b2_vjp(dtype, sh: dict = TRAIN_FLASH) -> dict:
     kw = dict(causal=causal, window=None, scale=scale)
     bwd_variant = fa._bwd_variant(dtype, D, D)
     kern = fa._launch_bwd(qt, kt, vt, o, lse, dot, **kw)
+    again = fa._launch_bwd(qt, kt, vt, o, lse, dot, **kw)
+    require(all(torch.equal(a, b) for a, b in zip(kern, again)),
+            f"{what}: two launches of the backward kernels on the same "
+            f"inputs differ")
+    print(f"[check] {what} backward kernels ({fa._bwd_variant(dtype, D, D)})"
+          f": two launches on the same inputs torch.equal in dq, dk and dv")
+    out["deterministic"] = True
+    del again
     plain_bw = fa._plain_bwd(qt, kt, vt, o, lse, dot, **kw)
     # In bf16, dq's bound also carries delta's float32 sums: the two sides
     # sum delta = do . o and dp = do . v in other orders, and a row where
@@ -2096,6 +2156,71 @@ def check_b2_vjp(dtype, sh: dict = TRAIN_FLASH) -> dict:
               f"+ backward {t['sdpa_fwd_bwd_ms']:.4f} ms "
               f"({t['sdpa_backend']})")
         del o_sdpa
+    torch.cuda.synchronize()
+    return out
+
+
+def check_b2_window(sh: dict = TRAIN_FLASH_WINDOW) -> dict:
+    """B2's backward kernels under a causal sliding window (``sh``, bf16)
+    against ``_plain_bwd`` on the same o, lse and dO, within ``FLASH_TOL``
+    (dq's bound with delta's float32 sums, as :func:`check_b2_vjp`'s); two
+    launches ``torch.equal``; a planted fault (dk of KV head 0 without keys
+    4096..4223, which only queries inside the window see) must fail. Timed
+    beside its bound and the plain version."""
+    B, H, KV, S, D, window = (sh[k] for k in ("B", "H", "KV", "S", "D",
+                                               "window"))
+    rng = np.random.default_rng(13)
+    q, k, v, do = (rand(rng, shape, torch.bfloat16) for shape in (
+        (B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+    scale = 1.0 / math.sqrt(D)
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    kw = dict(causal=True, window=window, scale=scale)
+    what = (f"B2 backward kernels ({fa._bwd_variant(q.dtype, D, D)}) "
+            f"{shape_label(q, k, v, True)} window {window} bf16")
+    o, lse = fa._launch(qt, kt, vt, with_lse=True, **kw)
+    kern = fa._launch_bwd(qt, kt, vt, o, lse, dot, **kw)
+    again = fa._launch_bwd(qt, kt, vt, o, lse, dot, **kw)
+    require(all(torch.equal(a, b) for a, b in zip(kern, again)),
+            f"{what}: two launches on the same inputs differ")
+    del again
+    plain_bw = fa._plain_bwd(qt, kt, vt, o, lse, dot, **kw)
+    # delta's float32 sums, as check_b2_vjp's bound, one KV group at a time
+    # (the dense oracle's scores of all heads at once would take 26 GB)
+    G = H // KV
+    extra = torch.cat([flash_dq_rounding_bound(
+        q[:, :, j * G:(j + 1) * G], k[:, :, j:j + 1],
+        o.transpose(1, 2)[:, :, j * G:(j + 1) * G], do[:, :, j * G:(j + 1) * G],
+        causal=True, window=window, scale=scale) for j in range(KV)], dim=2)
+    extras = ((extra * 2.0 ** -8).transpose(1, 2), None, None)
+    del extra
+    out = {"deterministic": True}
+    for name, g, w, e in zip(("dq", "dk", "dv"), kern, plain_bw, extras):
+        out[f"kernel_{name}"] = max_err(
+            g, w, FLASH_TOL[torch.bfloat16],
+            f"{what} {name} against _plain_bwd on the same o, lse and do"
+            + (", bound + delta's float32 sums" if e is not None else ""), e)
+    faulty = kern[1].clone()
+    faulty[0, 0, 4096:4224] = 0
+    bad = int(outside_tolerance(faulty, plain_bw[1],
+                                FLASH_TOL[torch.bfloat16]).sum())
+    require(bad > 0, f"the bound passes a planted fault: {what} dk without "
+                     f"keys 4096:4224 of KV head 0")
+    print(f"[fault] {what} dk without keys 4096:4224 of KV head 0: {bad} of "
+          f"{faulty.numel()} elements beyond the bound, rejected")
+    del kern, plain_bw, faulty, extras
+    bb, bby = bound(*work.flash_bwd_work(B, H, S, S, KV, D, D, causal=True,
+                                          window=window, itemsize=2),
+                    PEAK_FLOPS[torch.bfloat16])
+    out["times"] = {
+        "backward_ms": time_ms(lambda: fa._launch_bwd(
+            qt, kt, vt, o, lse, dot, **kw), 10),
+        "plain_backward_ms": time_ms(lambda: fa._plain_bwd(
+            qt, kt, vt, o, lse, dot, **kw), 3),
+        "backward_bound_ms": bb, "backward_bound_by": bby,
+        "shape": f"{shape_label(q, k, v, True)} window {window} bf16"}
+    t = out["times"]
+    print(f"[time] {what}: {t['backward_ms']:.4f} ms (bound {bb:.4f}, {bby}; "
+          f"the plain _flash_bwd {t['plain_backward_ms']:.4f} ms)")
     torch.cuda.synchronize()
     return out
 
@@ -2548,6 +2673,8 @@ def phase_train(smi: str) -> dict:
     print(f"[train] on the card before the phase: "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
     vjp = {dt: check_b2_vjp(dt) for dt in (torch.bfloat16, torch.float32)}
+    vjp_window = check_b2_window()
+    release_memory()
     cfg = dataclasses.replace(GRANITE_8B, n_layers=TRAIN["n_layers"])
     data = SyntheticTokenDataset(cfg, TRAIN["batch"], TRAIN["seq"], seed=0)
     batch = to_device_fn("cuda", cfg.dtype)(data.batch_at(0))
@@ -2658,6 +2785,7 @@ def phase_train(smi: str) -> dict:
     print(f"[train] done in {time.perf_counter() - t0:.1f} s; {smi}")
     return {"launches": rows["untiered"]["launches"], "rows": rows,
             "deep_rows": deep_rows, "vjp": vjp, "vjp_more": vjp_more,
+            "vjp_window": vjp_window,
             "b3_vjp": b3_vjp, "model_rows": model_rows}
 
 
@@ -3441,7 +3569,13 @@ def main() -> None:
             **{k: by_dtype[torch.bfloat16]["times"][k] for k in (
                 "backward_ms", "plain_backward_ms", "backward_bound_ms",
                 "sdpa_bwd_ms", "shape")}}
-            for label, by_dtype in trained["vjp_more"].items()}})
+            for label, by_dtype in trained["vjp_more"].items()},
+        "window_case": {"max_abs_err": b2_err(trained["vjp_window"]),
+                        **trained["vjp_window"]["times"]},
+        "deterministic": all(r["deterministic"] for r in (
+            *vjp.values(), trained["vjp_window"],
+            *(r for by in trained["vjp_more"].values()
+              for r in by.values())))})
     kernels.append({
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",

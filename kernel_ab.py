@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 kernel_ab.py [--kernels B1,B2,B3] TREE [TREE ...]
+    python3 kernel_ab.py [--kernels B1,B2,B3,B2bwd] TREE [TREE ...]
 
 Each TREE is a directory of kernel sources: this checkout's
 ``src/repro_torch/kernels/csrc``, or the same directory of another commit
@@ -21,8 +21,13 @@ asked for (all three by default): B1 (x @ w at 4096³, bf16), B2 (causal
 flash attention, B1 H32 KV8 S4096 D128, bf16, q/k/v strided as the executor
 passes them) and B3 (the SSD chunk scan at mamba2-130m's B4 H24 L2048 P64
 N128 chunk 256, float32), then ``torch.matmul`` and SDPA on B1's and B2's
-inputs. It exits non-zero if a tree's kernel misses the bound or ptxas
-serialised a tree's wgmma (warning C7514).
+inputs. ``B2bwd`` (asked for by name) adds B2's backward kernels
+(``flash_attention_bwd``, bf16) at the train steps' three attention shapes,
+``BWD_SHAPES``: each tree's dq, dk and dv held against ``_plain_bwd`` on
+the same o, lse and dO, and two launches required ``torch.equal``; then
+SDPA's backward alone at each shape. It exits non-zero if a tree's kernel
+misses the bound, is not deterministic, or ptxas serialised a tree's wgmma
+(its "wgmma.mma_async instructions are serialized" notes, C7512 to C7518).
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import streaming_matmul as sm  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
+    flash_dq_rounding_bound,
     flash_ref,
     matmul_ref,
     outside_tolerance,
@@ -51,6 +57,15 @@ from repro_torch.kernels.ref import (  # noqa: E402
 
 ROUNDS = 3
 ITERS = 20
+# B2's backward at the attention shapes the train steps run, in bf16
+BWD_SHAPES = {
+    "granite-8b": dict(B=2, H=32, KV=8, Sq=2048, Sk=2048, D=128,
+                       causal=True),
+    "zamba2-1.2b": dict(B=2, H=32, KV=32, Sq=2048, Sk=2048, D=64,
+                        causal=True),
+    "seamless-m4t-medium cross": dict(B=2, H=16, KV=16, Sq=512, Sk=1024,
+                                      D=64, causal=False),
+}
 
 
 def time_ms(fn) -> float:
@@ -96,6 +111,48 @@ def ssd_scan(xc, bc, cc, dtc, cum) -> torch.Tensor:
     return y
 
 
+def bwd_case(draw, sh: dict):
+    """B2's backward at shape ``sh``: the launch, its plain version's
+    (dq, dk, dv) with each bound's extra term, and SDPA's backward alone
+    on the same inputs. q, k, v and dO are drawn in the models' (B, S, H,
+    D) layout and passed transposed, o and lse come from B2's forward."""
+    B, H, KV, Sq, Sk, D = (sh[k] for k in ("B", "H", "KV", "Sq", "Sk", "D"))
+    causal, scale = sh["causal"], D ** -0.5
+    q, do = draw(B, Sq, H, D), draw(B, Sq, H, D)
+    k, v = draw(B, Sk, KV, D), draw(B, Sk, KV, D)
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    o, lse = fa._launch(qt, kt, vt, causal=causal, window=None, scale=scale,
+                        with_lse=True)
+    kw = dict(causal=causal, window=None, scale=scale)
+    want = fa._plain_bwd(qt, kt, vt, o, lse, dot, **kw)
+    # dq also carries delta's float32 sums, taken in another order
+    extra = flash_dq_rounding_bound(q, k, o.transpose(1, 2), do,
+                                    causal=causal, scale=scale)
+    extras = ((extra * 2.0 ** -8).transpose(1, 2), None, None)
+    G = H // KV
+    q_req = qt.detach().requires_grad_(True)
+    k_rep, v_rep = (t.repeat_interleave(G, dim=1).detach().requires_grad_(
+        True) for t in (kt, vt))
+    o_sdpa = torch.nn.functional.scaled_dot_product_attention(
+        q_req, k_rep, v_rep, is_causal=causal)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o_sdpa, [q_req, k_rep, v_rep], dot,
+                                   retain_graph=True)
+
+    return (lambda: fa._launch_bwd(qt, kt, vt, o, lse, dot, **kw),
+            (want, extras), sdpa_bwd)
+
+
+def beyond(got, want, tol: float) -> int:
+    """Elements of ``got`` (a tensor, or B2bwd's three) beyond the bound."""
+    if isinstance(got, torch.Tensor):
+        return int(outside_tolerance(got, want, tol).sum())
+    (ref, extras) = want
+    return sum(int(outside_tolerance(g, w, tol, e).sum())
+               for g, w, e in zip(got, ref, extras))
+
+
 def main(trees: list[Path], kernels: list[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA card", file=sys.stderr)
@@ -126,7 +183,15 @@ def main(trees: list[Path], kernels: list[str]) -> int:
     want = {"B1": (lambda: matmul_ref(x, w), 0.5),
             "B2": (lambda: flash_ref(q, k, v, causal=True), 3e-2),
             "B3": (lambda: ssd.ssd_chunk_scan_plain(*chunks), 2e-4)}
-    runs = {name: fn for name, fn in runs.items() if name in kernels}
+    sdpa_bwd = {}
+    if "B2bwd" in kernels:
+        use(trees[0])
+        for label, sh in BWD_SHAPES.items():
+            fn, ref, sdpa_bwd[label] = bwd_case(draw, sh)
+            runs[f"B2bwd {label}"] = fn
+            want[f"B2bwd {label}"] = (lambda ref=ref: ref, 3e-2)
+    runs = {name: fn for name, fn in runs.items()
+            if name.split(" ")[0] in kernels}
     want = {name: (ref(), tol) for name, (ref, tol) in want.items()
             if name in runs}
     failed = False
@@ -135,14 +200,19 @@ def main(trees: list[Path], kernels: list[str]) -> int:
         _build.BUILD_LOG.clear()
         _build.build_all()
         for name, (_, log) in _build.BUILD_LOG.items():
-            if "C7514" in log:
+            if "wgmma.mma_async instructions are serialized" in log:
                 print(f"{tree}: ptxas serialised the wgmma of {name}")
                 failed = True
         for kernel, fn in runs.items():
             ref, tol = want[kernel]
-            bad = int(outside_tolerance(fn(), ref, tol).sum())
+            got = fn()
+            bad = beyond(got, ref, tol)
             print(f"{tree}: {kernel} {bad} elements beyond the bound")
             failed |= bad > 0
+            if kernel.startswith("B2bwd"):
+                same = all(torch.equal(a, b) for a, b in zip(got, fn()))
+                print(f"{tree}: {kernel} two launches torch.equal: {same}")
+                failed |= not same
     times = {(t, kn): [] for t in trees for kn in runs}
     for _ in range(ROUNDS):
         for tree in trees + trees[::-1]:
@@ -155,6 +225,8 @@ def main(trees: list[Path], kernels: list[str]) -> int:
     k_rep, v_rep = (t.repeat_interleave(4, dim=1) for t in (k, v))
     print(f"torch.matmul {time_ms(lambda: torch.matmul(x, w)):.4f} ms, SDPA "
           f"{time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k_rep, v_rep, is_causal=True)):.4f} ms")  # noqa: E501
+    for label, fn in sdpa_bwd.items():
+        print(f"SDPA backward alone at {label}: {time_ms(fn):.4f} ms")
     return int(failed)
 
 
@@ -163,7 +235,7 @@ if __name__ == "__main__":
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("trees", nargs="+", type=Path)
     parser.add_argument("--kernels", default="B1,B2,B3",
-                        help="comma-separated, of B1, B2, B3")
+                        help="comma-separated, of B1, B2, B3, B2bwd")
     args = parser.parse_args()
     raise SystemExit(main([t.resolve() for t in args.trees],
                           args.kernels.split(",")))

@@ -33,39 +33,55 @@
 //
 // (1) "wgmma", bf16 with D and Dv multiples of 16 and at most 128, three
 //   kernels launched back to back:
-//   * delta, one warp per query row (dO . o in float32);
-//   * dk and dv: one CTA per (b, KV head, 128 keys); warpgroup 0 is the
-//     producer (one thread issues TMA), warpgroups 1 and 2 own 64 keys each.
-//     The CTA's K and V tiles are loaded once; the query tiles (64 rows of
-//     q and dO) of the G query heads of its group stream through a
-//     TWO-STAGE ring with a "full" and an "empty" mbarrier per slot, in a
-//     fixed order (head, then query tile). Each warpgroup works on the
-//     transposed tiles, keys as rows, so that every product is a wgmma:
+//   * delta, the bf16 rows read 16 bytes a lane (dO . o in float32);
+//   * dk and dv: one CTA per (KV head, 128 keys, b); warpgroup 0 is the
+//     producer (one thread issues TMA, one warp stages each tile's lse and
+//     delta in shared memory), warpgroups 1 and 2 own 64 keys each. The
+//     CTA's K and V tiles are loaded once; the query tiles (64 rows of q and
+//     dO) of the G query heads of its group stream through a THREE-STAGE
+//     ring with a "full" and an "empty" mbarrier per slot, in a fixed order
+//     (head, then query tile). Each warpgroup works on the transposed
+//     tiles, keys as rows, so that every product is a wgmma:
 //       S^T  = K Q^T    wgmma.m64n64k16, both operands K-major in shared
 //                       memory (128-byte swizzle, as the forward's Q K^T);
 //       dP^T = V dO^T   the same, over Dv;
 //       dV  += P^T dO   register A (the S^T accumulator layout is the A
 //                       fragment layout of a 16-bit operand: P^T is packed
 //                       to bf16 in place) and B = dO MN-major (the transpose
-//                       bit), as the forward's P V;
-//       dK  += dS^T Q   the same with dS^T and Q.
-//     dk and dv are summed in registers over every query tile and head and
-//     written once;
-//   * dq: one CTA per (b, head, 128 query rows), the forward's layout: the
-//     Q and dO tiles loaded once, 64-key K and V tiles streamed through a
-//     two-stage ring; S = Q K^T and dP = dO V^T (wgmma.m64n64k16, both
-//     K-major), then dQ += dS K (register A, K MN-major). Its rows' lse and
-//     delta are read once.
+//                       bit), m64n{Dv}k16;
+//       dK  += dS^T Q   the same with dS^T and Q (dS / scale: the scale is
+//                       applied once, to dk, as to dq).
+//     S^T and dP^T are two commit groups, so the exp runs while dP^T is on
+//     the tensor cores, and dS^T while dV is; where the registers allow
+//     (runs_ahead: every padded (D, Dv) but (128, 128)), the next tile's
+//     S^T and dP^T are issued before this tile's dK is done, and a ring
+//     slot is given back as soon as its last product has finished. dk and
+//     dv are summed in registers over every query tile and head and written
+//     once;
+//   * dq: one CTA per (head, 128 query rows, b), the longest rows first:
+//     the Q and dO tiles loaded once, K and V tiles (128 keys at D <= 64,
+//     else 64) streamed through a two-stage ring; S = Q K^T and dP = dO
+//     V^T (wgmma.m64n128k16 at D <= 64, m64n64k16 above, both K-major) as
+//     two commit groups, then dQ += dS K (register A, K MN-major); always
+//     running ahead: the next tile's S and dP queue behind this tile's dQ.
+//     Its rows' lse and delta are read once.
 //   p and ds are float32 until they are packed to bf16 as wgmma's A operand
 //   (the plain version multiplies them in float32: a rounding of 2^-9 per
-//   element, averaged over the keys). The masks are applied element by
-//   element only where the tile crosses an edge; whole tiles the masks kill
-//   are never loaded.
-//   What holds it back: the dk/dv kernel issues its four products one after
-//   another with the exp and the masks between them (no ping-pong of the
-//   two warpgroups, no overlap of a tile's softmax with the next tile's
-//   products), and the dq kernel recomputes S and dP, 2 of the 5 products
-//   a second time (7 products in all, 1.4x the bound's count).
+//   element, averaged over the keys); exp2 on the special-function unit
+//   (ex2.approx). The masks are applied element by element only where the
+//   tile crosses an edge, in a copy of the exp loop of its own (a mask
+//   test left in the loop, even behind the tile's flag, cost a fifth of the
+//   time); whole tiles the masks kill are never loaded. No
+//   wgmma sits under a branch (ptxas would serialise them all), and ptxas
+//   spills nothing in these kernels.
+//   What holds it back: the dq kernel recomputes S and dP, 2 of the 5
+//   products a second time (7 in all, 1.4x the bound's count); the two
+//   score products of the dk/dv kernel read both operands from shared
+//   memory at m64n64, which takes all of its 128 bytes a cycle; and at
+//   D = Dv = 128 the dk and dv accumulators (128 floats a thread) leave no
+//   room to run ahead, so each warpgroup drains its tensor-core queue at the
+//   end of every tile and relies on the other warpgroup to fill the gap.
+//   PERF.md's Findings list the variants measured on the card and not kept.
 //
 // (2) "ffma", float32 and the shapes the first variant does not take (D up
 //   to 192), on the CUDA cores, in the forward's "ffma" layout: dq with one
@@ -78,9 +94,12 @@
 // Deterministic: every output element is summed by one thread in one fixed
 // order (the query tiles and heads of a key tile, or the key tiles of a
 // query tile, each walked in increasing order); no atomics, no split of a
-// sum over CTAs.
+// sum over CTAs, and the order does not depend on timing, so two launches on
+// the same inputs give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -127,6 +146,35 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
+}
+
+// the same for bf16 rows of 16-byte aligned chunks (Dv % 8 == 0, Dv <= 128):
+// 16 lanes a row, 8 columns a lane, two rows a warp
+__global__ void __launch_bounds__(DELTA_THREADS)
+flash_bwd_delta_vec(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                    float* __restrict__ delta, int H, int Sq, int Dv, Strides os, Strides ds,
+                    long long rows) {
+  const long long row = (long long)blockIdx.x * (DELTA_THREADS / 16) + threadIdx.x / 16;
+  const int c = 8 * (threadIdx.x % 16);
+  float acc = 0.f;
+  if (row < rows && c < Dv) {
+    const int i = static_cast<int>(row % Sq);
+    const int h = static_cast<int>((row / Sq) % H);
+    const long long b = row / ((long long)Sq * H);
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + b * os.b + h * os.h + i * os.s + c);
+    const uint4 dv = *reinterpret_cast<const uint4*>(dout + b * ds.b + h * ds.h + i * ds.s + c);
+    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(op[e]), y = __bfloat1622float2(dp[e]);
+      acc = fmaf(y.x, x.x, acc);
+      acc = fmaf(y.y, x.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && threadIdx.x % 16 == 0) delta[row] = acc;
 }
 
 // ---- (2) ffma: dq -------------------------------------------------------------
@@ -409,10 +457,24 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+bool chunks_of_16_bytes(const void* p, Strides st) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0 && st.b % 8 == 0 && st.h % 8 == 0 &&
+         st.s % 8 == 0;
+}
+
 template <typename T>
 int launch_delta(const void* o, const void* dout, float* delta, int B, int H,
                  int Sq, int Dv, Strides os, Strides ds, cudaStream_t stream) {
   const long long rows = (long long)B * H * Sq;
+  if (sizeof(T) == 2 && Dv % 8 == 0 && Dv <= 128 && chunks_of_16_bytes(o, os) &&
+      chunks_of_16_bytes(dout, ds)) {
+    const int per_block = DELTA_THREADS / 16;
+    flash_bwd_delta_vec<<<(unsigned)((rows + per_block - 1) / per_block), DELTA_THREADS, 0,
+                           stream>>>(static_cast<const __nv_bfloat16*>(o),
+                                     static_cast<const __nv_bfloat16*>(dout), delta, H, Sq, Dv,
+                                     os, ds, rows);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int per = DELTA_THREADS / 32;
   flash_bwd_delta_kernel<T><<<(unsigned)((rows + per - 1) / per), DELTA_THREADS, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), delta, H, Sq, Dv, os, ds, rows);
@@ -453,15 +515,16 @@ int launch_ffma(const void* q, const void* k, const void* v, const void* dout,
 namespace tcb {
 
 constexpr int THREADS = 384;
-constexpr int STAGES = 2;
 constexpr int BIG = 128;             // keys of a dk/dv CTA, query rows of a dq CTA
-constexpr int SMALL = 64;            // query rows of a dk/dv tile, keys of a dq tile
 constexpr int BIG_BOX = BIG * 128;   // one (128 rows x 64 cols) bf16 box
-constexpr int SMALL_BOX = SMALL * 128;  // one (64 rows x 64 cols) bf16 box
+constexpr int BQ = 64;               // query rows of a dk/dv tile
+constexpr int BQ_BOX = BQ * 128;     // one (64 rows x 64 cols) bf16 box
+constexpr int KV_STAGES = 3;         // the dk/dv kernel's ring of query tiles
+constexpr int Q_STAGES = 2;          // the dq kernel's ring of key tiles
 
-// D(64x64, f32) += A(64x16, bf16, shared) * B(16x64, bf16, shared)
+// D(64x64, f32) (+)= A(64x16, bf16, shared) * B(16x64, bf16, shared), both K-major
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a,
-                                                   uint64_t desc_b) {
+                                                   uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -476,46 +539,60 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// acc += A (registers, 4 k-steps of 16) * B (MN-major tile in shared memory,
-// 64 rows of K; N = 64 or 128 in boxes of SMALL_BOX bytes)
-template <int NP>
-__device__ __forceinline__ void rs_product(float (&acc)[NP / 2], const uint32_t (&a)[4][4],
-                                           const unsigned char* tile) {
+// acc (64 x N) = A (the 64 rows from a_row of a tile of a_box-byte boxes) *
+// B^T (the N rows of a tile of b_box-byte boxes), both K-major over KP
+// columns; the first k-step overwrites acc (scale-d 0)
+template <int N, int KP>
+__device__ __forceinline__ void ss_product(float (&acc)[N / 2], const unsigned char* a_tile,
+                                           int a_box, int a_row, const unsigned char* b_tile,
+                                           int b_box) {
 #pragma unroll
-  for (int kk = 0; kk < SMALL / 16; ++kk) {
-    const uint64_t db = hopper::smem_desc(tile + kk * 16 * 128, SMALL_BOX, 1024);
-    if constexpr (NP == 128)
+  for (int kk = 0; kk < KP / 16; ++kk) {
+    const int sub = (kk % 4) * 32;
+    const uint64_t da = hopper::smem_desc(a_tile + (kk / 4) * a_box + a_row * 128 + sub, 16, 1024);
+    const uint64_t db = hopper::smem_desc(b_tile + (kk / 4) * b_box + sub, 16, 1024);
+    if constexpr (N == 128)
+      hopper::wgmma_ss_m64n128k16<0>(acc, da, db, kk > 0);
+    else
+      wgmma_ss_m64n64k16(acc, da, db, kk > 0);
+  }
+}
+
+// acc (64 x N) += A (registers, KS k-steps of 16) * B (an MN-major tile in
+// shared memory: KS * 16 rows of K; N = 64 or 128 in boxes of `box` bytes)
+template <int N, int KS>
+__device__ __forceinline__ void rs_product(float (&acc)[N / 2], const uint32_t (&a)[KS][4],
+                                           const unsigned char* tile, int box) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t db = hopper::smem_desc(tile + kk * 16 * 128, box, 1024);
+    if constexpr (N == 128)
       hopper::wgmma_rs_m64n128k16<1>(acc, a[kk], db, 1);
     else
       hopper::wgmma_rs_m64n64k16<1>(acc, a[kk], db, 1);
   }
 }
 
-// acc (64 x 64) = A (64 rows of a tile of BOX-byte boxes, from row a_row) *
-// B^T (64 rows of SMALL_BOX boxes), both K-major over KP columns
-template <int KP>
-__device__ __forceinline__ void ss_product(float (&acc)[32], const unsigned char* a_tile,
-                                           int a_box, int a_row, const unsigned char* b_tile) {
+// an accumulator of KS * 16 columns packed to bf16 as KS k-steps of register A
+template <int KS>
+__device__ __forceinline__ void pack(uint32_t (&a)[KS][4], const float (&x)[KS * 8]) {
 #pragma unroll
-  for (int kk = 0; kk < KP / 16; ++kk) {
-    const int sub = (kk % 4) * 32;
-    const uint64_t da = hopper::smem_desc(a_tile + (kk / 4) * a_box + a_row * 128 + sub, 16, 1024);
-    const uint64_t db = hopper::smem_desc(b_tile + (kk / 4) * SMALL_BOX + sub, 16, 1024);
-    wgmma_ss_m64n64k16(acc, da, db);
-  }
-}
-
-__device__ __forceinline__ void pack(uint32_t (&a)[4][4], const float (&x)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     a[kk][0] = hopper::pack_bf16(x[8 * kk], x[8 * kk + 1]);
     a[kk][1] = hopper::pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
     a[kk][2] = hopper::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
     a[kk][3] = hopper::pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
   }
+}
+
+// 2^x on the special-function unit (flushes denormal results to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <int N>
@@ -533,18 +610,31 @@ struct TcArgs {
   Mask mask;
 };
 
+// Whether a consumer runs ahead: issues the next tile's S^T and dP^T (S and
+// dP) before this tile's last product (dK, dQ) is done. That keeps the last
+// product's dS operand and accumulator (`acc` floats a thread) in flight
+// beside the two new score tiles (`tile` columns each), so it is done only
+// where they fit in a consumer's registers: about 192 live floats, above
+// which ptxas serialises the wgmma (C7512). Granite-8b's D = Dv = 128 does
+// not fit.
+constexpr bool runs_ahead(int acc, int tile) { return acc + tile + tile / 4 <= 192; }
+
 template <int DP, int DVP>
 struct KvLayout {
+  static constexpr bool AHEAD = runs_ahead((DP + DVP) / 2, BQ);
   static constexpr int K_BYTES = BIG * DP * 2;
   static constexpr int V_BYTES = BIG * DVP * 2;
-  static constexpr int Q_BYTES = SMALL * DP * 2;
-  static constexpr int O_BYTES = SMALL * DVP * 2;
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int O_BYTES = BQ * DVP * 2;
   static constexpr int STAGE_BYTES = Q_BYTES + O_BYTES;
-  static constexpr int BARRIERS = 1 + 2 * STAGES;
-  static constexpr int SMEM_BYTES = 1024 + K_BYTES + V_BYTES + STAGES * STAGE_BYTES + BARRIERS * 8;
+  static constexpr int ROWS = 2 * BQ;  // a tile's lse * log2(e), then its delta
+  static constexpr int BARRIERS = 1 + 2 * KV_STAGES;
+  static constexpr int SMEM_BYTES = 1024 + K_BYTES + V_BYTES + KV_STAGES * STAGE_BYTES +
+                                    KV_STAGES * ROWS * 4 + BARRIERS * 8;
 };
 
-// dk, dv: grid (KV, key tiles of 128, B)
+// dk, dv: grid (KV, key tiles of 128, B), the key tiles with the most
+// query tiles (the first, under the causal mask) launched first
 template <int DP, int DVP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
@@ -554,33 +644,35 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                      TcArgs a) {
   using L = KvLayout<DP, DVP>;
+  constexpr bool AHEAD = L::AHEAD;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align1024(smem_raw);
   unsigned char* k_tile = smem;
   unsigned char* v_tile = smem + L::K_BYTES;
-  auto q_tile = [&](int s) { return smem + L::K_BYTES + L::V_BYTES + s * L::STAGE_BYTES; };
+  unsigned char* ring = v_tile + L::V_BYTES;
+  auto q_tile = [&](int s) { return ring + s * L::STAGE_BYTES; };
   auto do_tile = [&](int s) { return q_tile(s) + L::Q_BYTES; };
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::K_BYTES + L::V_BYTES +
-                                               STAGES * L::STAGE_BYTES);
+  float* rows = reinterpret_cast<float*>(ring + KV_STAGES * L::STAGE_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rows + KV_STAGES * L::ROWS);
   uint64_t* kv_full = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + STAGES;
+  uint64_t* empty = full + KV_STAGES;
 
   const int kvh = blockIdx.x, kb = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.KV;
   const int k_lo = kb * BIG;
   const int k_max = min(k_lo + BIG, a.Sk) - 1;
-  int qt_lo = 0, qt_hi = (a.Sq + SMALL - 1) / SMALL;
-  if (a.mask.causal) qt_lo = k_lo / SMALL;
-  if (a.mask.has_window) qt_hi = min(qt_hi, (k_max + a.mask.window - 1) / SMALL + 1);
+  int qt_lo = 0, qt_hi = (a.Sq + BQ - 1) / BQ;
+  if (a.mask.causal) qt_lo = k_lo / BQ;
+  if (a.mask.has_window) qt_hi = min(qt_hi, (k_max + a.mask.window - 1) / BQ + 1);
   const int nq = max(qt_hi - qt_lo, 0);
   const int n_tiles = G * nq;
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(kv_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    for (int s = 0; s < KV_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);  // the TMA thread's and the row warp's lanes
+      hopper::mbar_init(&empty[s], 8);      // one arrival per consumer warp
     }
     hopper::mbar_fence_init();
   }
@@ -589,7 +681,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
   const int wg = threadIdx.x / 128;
   if (wg == 0) {  // producer
     hopper::regs_dealloc<24>();
-    if (threadIdx.x == 0 && n_tiles > 0) {
+    if (threadIdx.x == 0 && n_tiles > 0) {  // TMA: K and V once, then the ring
       hopper::mbar_expect_tx(kv_full, L::K_BYTES + L::V_BYTES);
 #pragma unroll
       for (int c = 0; c < DP / 64; ++c)
@@ -598,17 +690,33 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
       for (int c = 0; c < DVP / 64; ++c)
         hopper::tma_load_4d(v_tile + c * BIG_BOX, &vmap, kv_full, c * 64, k_lo, kvh, b);
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % STAGES;
+        const int s = it % KV_STAGES;
         const int h = kvh * G + it / nq;
-        const int q_lo = (qt_lo + it % nq) * SMALL;
-        hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        const int q_lo = (qt_lo + it % nq) * BQ;
+        hopper::mbar_wait(&empty[s], ((it / KV_STAGES) & 1) ^ 1);
         hopper::mbar_expect_tx(&full[s], L::STAGE_BYTES);
 #pragma unroll
         for (int c = 0; c < DP / 64; ++c)
-          hopper::tma_load_4d(q_tile(s) + c * SMALL_BOX, &qmap, &full[s], c * 64, q_lo, h, b);
+          hopper::tma_load_4d(q_tile(s) + c * BQ_BOX, &qmap, &full[s], c * 64, q_lo, h, b);
 #pragma unroll
         for (int c = 0; c < DVP / 64; ++c)
-          hopper::tma_load_4d(do_tile(s) + c * SMALL_BOX, &domap, &full[s], c * 64, q_lo, h, b);
+          hopper::tma_load_4d(do_tile(s) + c * BQ_BOX, &domap, &full[s], c * 64, q_lo, h, b);
+      }
+    } else if (threadIdx.x / 32 == 1) {  // the row warp: each tile's lse and delta
+      const int lane = threadIdx.x % 32;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % KV_STAGES;
+        const int h = kvh * G + it / nq;
+        const int q_lo = (qt_lo + it % nq) * BQ;
+        const long long base = ((long long)b * a.H + h) * a.Sq;
+        hopper::mbar_wait(&empty[s], ((it / KV_STAGES) & 1) ^ 1);
+        float* r = rows + s * L::ROWS;
+        for (int i = lane; i < BQ; i += 32) {
+          const int qi = min(q_lo + i, a.Sq - 1);
+          r[i] = a.lse[base + qi] * LOG2E;
+          r[BQ + i] = a.delta[base + qi];
+        }
+        hopper::mbar_arrive(&full[s]);  // releases the rows' stores to the consumers
       }
     }
   } else {  // consumers: 64 keys each, keys as the rows of every tile
@@ -624,61 +732,107 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     float dk_acc[DP / 2], dv_acc[DVP / 2];
     zero(dk_acc);
     zero(dv_acc);
+    float st[BQ / 2], dpt[BQ / 2];
+    uint32_t da[BQ / 16][4];  // dS^T, read by dK's product
+    auto wait_full = [&](int it) {
+      hopper::mbar_wait(&full[it % KV_STAGES], (it / KV_STAGES) & 1);
+    };
+    auto issue_s = [&](int it) {  // S^T = K Q^T, a commit group
+      hopper::wgmma_fence();
+      ss_product<BQ, DP>(st, k_tile, BIG_BOX, cw * 64, q_tile(it % KV_STAGES), BQ_BOX);
+      hopper::wgmma_commit();
+    };
+    auto issue_dp = [&](int it) {  // dP^T = V dO^T, a commit group
+      hopper::wgmma_fence();
+      ss_product<BQ, DVP>(dpt, v_tile, BIG_BOX, cw * 64, do_tile(it % KV_STAGES), BQ_BOX);
+      hopper::wgmma_commit();
+    };
+    auto release = [&](int it) {  // every product that reads tile `it` is done
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[it % KV_STAGES]);
+    };
+    // No wgmma may sit under a branch: ptxas would serialise them all (C7518).
     if (n_tiles > 0) hopper::mbar_wait(kv_full, 0);
     for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % STAGES;
-      const int h = kvh * G + it / nq;
-      const int q_lo = (qt_lo + it % nq) * SMALL;
-      const float* lse = a.lse + ((long long)b * a.H + h) * a.Sq;
-      const float* delta = a.delta + ((long long)b * a.H + h) * a.Sq;
-      // does the tile cross an edge of a mask (else every pair is live)?
-      const bool edge = q_lo + SMALL > a.Sq || row_lo + 64 > a.Sk ||
+      const int s = it % KV_STAGES;
+      wait_full(it);
+      issue_s(it);  // running ahead, queued behind the previous tile's dK
+      issue_dp(it);
+      if constexpr (AHEAD) {
+        hopper::wgmma_wait<2>();  // the previous tile's dK is done
+        hopper::fence_regs(dk_acc);
+        hopper::fence_regs(da);
+        if (it > 0) release(it - 1);
+      }
+      const int q_lo = (qt_lo + it % nq) * BQ;
+      const int q_hi = q_lo + BQ - 1;
+      // the tile crosses an edge of a mask (else every pair is live)
+      const bool edge = q_hi >= a.Sq || row_lo + 64 > a.Sk ||
                         (a.mask.causal && row_lo + 63 > q_lo) ||
-                        (a.mask.has_window && row_lo <= q_lo + SMALL - 1 - a.mask.window);
-
-      float st[32], dpt[32];
-      zero(st);
-      zero(dpt);
-      hopper::mbar_wait(&full[s], (it / STAGES) & 1);
-      hopper::wgmma_fence();
-      ss_product<DP>(st, k_tile, BIG_BOX, cw * 64, q_tile(s));     // S^T = K Q^T
-      ss_product<DVP>(dpt, v_tile, BIG_BOX, cw * 64, do_tile(s));  // dP^T = V dO^T
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
+                        (a.mask.has_window && row_lo <= q_hi - a.mask.window);
+      const float* l2r = rows + s * L::ROWS;
+      const float* dlr = l2r + BQ;
+      hopper::wgmma_wait<1>();  // S^T is done, dP^T may still run
       hopper::fence_regs(st);
+      // P^T, its mask evaluated only on a tile that crosses an edge
+      auto probs = [&](auto masked) {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(l2r + 8 * j + col);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int x = 4 * j + 2 * r + e;
+              float p = exp2_approx(st[x] * a.scale_log2 - (e ? l2.y : l2.x));
+              if constexpr (decltype(masked)::value)
+                if (!a.mask.live(q_lo + 8 * j + col + e, r ? k1 : k0)) p = 0.f;
+              st[x] = p;
+            }
+          }
+        }
+      };
+      if (edge)
+        probs(std::true_type{});
+      else
+        probs(std::false_type{});
+      uint32_t pa[BQ / 16][4];
+      pack(pa, st);
+      hopper::wgmma_fence();
+      rs_product<DVP, BQ / 16>(dv_acc, pa, do_tile(s), BQ_BOX);  // dV += P^T dO
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // dP^T is done, dV may still run
       hopper::fence_regs(dpt);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(dlr + 8 * j + col);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int qi = q_lo + 8 * j + col + e;
-          const int qc = min(qi, a.Sq - 1);
-          const float l2 = lse[qc] * LOG2E, dl = delta[qc];
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const int x = 4 * j + 2 * r + e;
-            const int ki = r == 0 ? k0 : k1;
-            float p = exp2f(st[x] * a.scale_log2 - l2);
-            if (edge && !a.mask.live(qi, ki)) p = 0.f;
-            st[x] = p;
-            dpt[x] = p * (dpt[x] - dl) * a.scale;
+            dpt[x] = st[x] * (dpt[x] - (e ? dl.y : dl.x));  // dS^T / scale
           }
         }
       }
-      uint32_t pa[4][4], da[4][4];
-      pack(pa, st);
       pack(da, dpt);
       hopper::wgmma_fence();
-      rs_product<DVP>(dv_acc, pa, do_tile(s));  // dV += P^T dO
-      rs_product<DP>(dk_acc, da, q_tile(s));    // dK += dS^T Q
+      rs_product<DP, BQ / 16>(dk_acc, da, q_tile(s), BQ_BOX);  // dK += dS^T Q / scale
       hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
+      hopper::wgmma_wait<1>();  // dV is done: P^T's registers are free
       hopper::fence_regs(dv_acc);
-      hopper::fence_regs(dk_acc);
       hopper::fence_regs(pa);
+      if constexpr (!AHEAD) {
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dk_acc);
+        hopper::fence_regs(da);
+        release(it);
+      }
+    }
+    if constexpr (AHEAD) {  // the last tile's slot needs no release
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dk_acc);
       hopper::fence_regs(da);
-      __syncwarp();
-      if (lane == 0) hopper::mbar_arrive(&empty[s]);
     }
 
     __nv_bfloat16* dkp = dk + b * a.dks.b + kvh * a.dks.h;
@@ -689,10 +843,10 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
       if (c >= a.D) continue;  // D is a multiple of 16
       if (k0 < a.Sk)
         *reinterpret_cast<__nv_bfloat162*>(dkp + k0 * a.dks.s + c) =
-            __floats2bfloat162_rn(dk_acc[4 * j], dk_acc[4 * j + 1]);
+            __floats2bfloat162_rn(dk_acc[4 * j] * a.scale, dk_acc[4 * j + 1] * a.scale);
       if (k1 < a.Sk)
         *reinterpret_cast<__nv_bfloat162*>(dkp + k1 * a.dks.s + c) =
-            __floats2bfloat162_rn(dk_acc[4 * j + 2], dk_acc[4 * j + 3]);
+            __floats2bfloat162_rn(dk_acc[4 * j + 2] * a.scale, dk_acc[4 * j + 3] * a.scale);
     }
 #pragma unroll
     for (int j = 0; j < DVP / 8; ++j) {
@@ -710,13 +864,17 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
 
 template <int DP, int DVP>
 struct QLayout {
+  // keys of a tile: 128 where dQ's accumulator leaves room (D <= 64), else 64
+  static constexpr int BK = DP <= 64 ? 128 : 64;
+  static_assert(runs_ahead(DP / 2, BK), "the dq kernel runs ahead");
+  static constexpr int K_BOX = BK * 128;  // one (BK rows x 64 cols) bf16 box
   static constexpr int Q_BYTES = BIG * DP * 2;
   static constexpr int O_BYTES = BIG * DVP * 2;
-  static constexpr int K_BYTES = SMALL * DP * 2;
-  static constexpr int V_BYTES = SMALL * DVP * 2;
+  static constexpr int K_BYTES = BK * DP * 2;
+  static constexpr int V_BYTES = BK * DVP * 2;
   static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
-  static constexpr int BARRIERS = 1 + 4 * STAGES;
-  static constexpr int SMEM_BYTES = 1024 + Q_BYTES + O_BYTES + STAGES * STAGE_BYTES + BARRIERS * 8;
+  static constexpr int BARRIERS = 1 + 4 * Q_STAGES;
+  static constexpr int SMEM_BYTES = 1024 + Q_BYTES + O_BYTES + Q_STAGES * STAGE_BYTES + BARRIERS * 8;
 };
 
 // dq: grid (H, query tiles of 128, B), the longest rows first
@@ -728,6 +886,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap domap,
                    __nv_bfloat16* __restrict__ dq, TcArgs a) {
   using L = QLayout<DP, DVP>;
+  constexpr int BK = L::BK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align1024(smem_raw);
   unsigned char* q_tile = smem;
@@ -735,28 +894,27 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
   auto k_tile = [&](int s) { return smem + L::Q_BYTES + L::O_BYTES + s * L::STAGE_BYTES; };
   auto v_tile = [&](int s) { return k_tile(s) + L::K_BYTES; };
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::Q_BYTES + L::O_BYTES +
-                                               STAGES * L::STAGE_BYTES);
+                                               Q_STAGES * L::STAGE_BYTES);
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;
-  uint64_t* v_full = k_full + STAGES;
-  uint64_t* k_empty = v_full + STAGES;
-  uint64_t* v_empty = k_empty + STAGES;
+  uint64_t* v_full = k_full + Q_STAGES;
+  uint64_t* k_empty = v_full + Q_STAGES;
+  uint64_t* v_empty = k_empty + Q_STAGES;
 
-  const int h = blockIdx.x;
+  const int h = blockIdx.x, b = blockIdx.z;
   const int qb = gridDim.y - 1 - blockIdx.y;
-  const int b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
   const int q_lo = qb * BIG;
-  int kb_lo = 0, kb_hi = (a.Sk + SMALL - 1) / SMALL;
-  if (a.mask.causal) kb_hi = min(kb_hi, (q_lo + BIG - 1) / SMALL + 1);
+  int kb_lo = 0, kb_hi = (a.Sk + BK - 1) / BK;
+  if (a.mask.causal) kb_hi = min(kb_hi, (q_lo + BIG - 1) / BK + 1);
   if (a.mask.has_window) {
-    const int x = q_lo - a.mask.window - (SMALL - 1);  // live iff kb * SMALL > x
-    if (x >= 0) kb_lo = x / SMALL + 1;
+    const int x = q_lo - a.mask.window - (BK - 1);  // live iff kb * BK > x
+    if (x >= 0) kb_lo = x / BK + 1;
   }
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < Q_STAGES; ++s) {
       hopper::mbar_init(&k_full[s], 1);
       hopper::mbar_init(&v_full[s], 1);
       hopper::mbar_init(&k_empty[s], 8);
@@ -778,20 +936,20 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
       for (int c = 0; c < DVP / 64; ++c)
         hopper::tma_load_4d(do_tile + c * BIG_BOX, &domap, q_full, c * 64, q_lo, h, b);
       for (int kb = kb_lo, i = 0; kb < kb_hi; ++kb, ++i) {
-        const int s = i % STAGES;
-        const uint32_t ph = ((i / STAGES) & 1) ^ 1;
+        const int s = i % Q_STAGES;
+        const uint32_t ph = ((i / Q_STAGES) & 1) ^ 1;
         hopper::mbar_wait(&k_empty[s], ph);
         hopper::mbar_expect_tx(&k_full[s], L::K_BYTES);
 #pragma unroll
         for (int c = 0; c < DP / 64; ++c)
-          hopper::tma_load_4d(k_tile(s) + c * SMALL_BOX, &kmap, &k_full[s], c * 64,
-                              kb * SMALL, kvh, b);
+          hopper::tma_load_4d(k_tile(s) + c * L::K_BOX, &kmap, &k_full[s], c * 64, kb * BK,
+                              kvh, b);
         hopper::mbar_wait(&v_empty[s], ph);
         hopper::mbar_expect_tx(&v_full[s], L::V_BYTES);
 #pragma unroll
         for (int c = 0; c < DVP / 64; ++c)
-          hopper::tma_load_4d(v_tile(s) + c * SMALL_BOX, &vmap, &v_full[s], c * 64,
-                              kb * SMALL, kvh, b);
+          hopper::tma_load_4d(v_tile(s) + c * L::K_BOX, &vmap, &v_full[s], c * 64, kb * BK,
+                              kvh, b);
       }
     }
   } else {  // consumers: 64 query rows each
@@ -807,54 +965,71 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
     const float* delta = a.delta + ((long long)b * a.H + h) * a.Sq;
     const float l2_0 = lse[min(r0, a.Sq - 1)] * LOG2E, l2_1 = lse[min(r1, a.Sq - 1)] * LOG2E;
     const float d0 = delta[min(r0, a.Sq - 1)], d1 = delta[min(r1, a.Sq - 1)];
-
     float dq_acc[DP / 2];
     zero(dq_acc);
-    if (kb_lo < kb_hi) hopper::mbar_wait(q_full, 0);
-    for (int kb = kb_lo, i = 0; kb < kb_hi; ++kb, ++i) {
-      const int s = i % STAGES;
-      const uint32_t ph = (i / STAGES) & 1;
-      const int k_lo = kb * SMALL;
-      const bool edge = k_lo + SMALL > a.Sk || row_lo + 64 > a.Sq ||
-                        (a.mask.causal && k_lo + SMALL - 1 > row_lo) ||
-                        (a.mask.has_window && k_lo <= row_lo + 63 - a.mask.window);
-      float sc[32], dp[32];
-      zero(sc);
-      zero(dp);
+    float sc[BK / 2], dp[BK / 2];
+    // S = Q K^T and dP = dO V^T of key tile `i`, one commit group each
+    auto issue_scores = [&](int i) {
+      const int s = i % Q_STAGES;
+      const uint32_t ph = (i / Q_STAGES) & 1;
       hopper::mbar_wait(&k_full[s], ph);
       hopper::mbar_wait(&v_full[s], ph);
       hopper::wgmma_fence();
-      ss_product<DP>(sc, q_tile, BIG_BOX, cw * 64, k_tile(s));    // S = Q K^T
-      ss_product<DVP>(dp, do_tile, BIG_BOX, cw * 64, v_tile(s));  // dP = dO V^T
+      ss_product<BK, DP>(sc, q_tile, BIG_BOX, cw * 64, k_tile(s), L::K_BOX);
       hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(sc);
-      hopper::fence_regs(dp);
-      __syncwarp();
-      if (lane == 0) hopper::mbar_arrive(&v_empty[s]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int x = 4 * j + e;
-          const int ki = k_lo + 8 * j + col + (e & 1);
-          const int qi = e < 2 ? r0 : r1;
-          float p = exp2f(sc[x] * a.scale_log2 - (e < 2 ? l2_0 : l2_1));
-          if (edge && !a.mask.live(qi, ki)) p = 0.f;
-          sc[x] = p * (dp[x] - (e < 2 ? d0 : d1)) * a.scale;
-        }
-      }
-      uint32_t da[4][4];
-      pack(da, sc);
-      hopper::wgmma_fence();
-      rs_product<DP>(dq_acc, da, k_tile(s));  // dQ += dS K
+      ss_product<BK, DVP>(dp, do_tile, BIG_BOX, cw * 64, v_tile(s), L::K_BOX);
       hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
+    };
+    const int n_kb = max(kb_hi - kb_lo, 0);
+    uint32_t da[BK / 16][4];  // dS, read by dQ's product (into the next tile)
+    if (n_kb > 0) hopper::mbar_wait(q_full, 0);
+    for (int i = 0; i < n_kb; ++i) {
+      const int s = i % Q_STAGES;
+      issue_scores(i);  // queued behind the previous tile's dQ
+      hopper::wgmma_wait<2>();  // the previous tile's dQ is done
       hopper::fence_regs(dq_acc);
       hopper::fence_regs(da);
       __syncwarp();
-      if (lane == 0) hopper::mbar_arrive(&k_empty[s]);
+      if (i > 0 && lane == 0) hopper::mbar_arrive(&k_empty[(i - 1) % Q_STAGES]);
+      const int k_lo = (kb_lo + i) * BK;
+      const bool edge = k_lo + BK > a.Sk || row_lo + 64 > a.Sq ||
+                        (a.mask.causal && k_lo + BK - 1 > row_lo) ||
+                        (a.mask.has_window && k_lo <= row_lo + 63 - a.mask.window);
+      hopper::wgmma_wait<1>();  // S is done, dP may still run
+      hopper::fence_regs(sc);
+      // P, its mask evaluated only on a tile that crosses an edge
+      auto probs = [&](auto masked) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * j + e;
+            float p = exp2_approx(sc[x] * a.scale_log2 - (e < 2 ? l2_0 : l2_1));
+            if constexpr (decltype(masked)::value)
+              if (!a.mask.live(e < 2 ? r0 : r1, k_lo + 8 * j + col + (e & 1))) p = 0.f;
+            sc[x] = p;
+          }
+        }
+      };
+      if (edge)
+        probs(std::true_type{});
+      else
+        probs(std::false_type{});
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&v_empty[s]);  // V is read
+#pragma unroll
+      for (int x = 0; x < BK / 2; ++x)
+        sc[x] = sc[x] * (dp[x] - ((x & 2) ? d1 : d0));  // dS / scale
+      pack(da, sc);
+      hopper::wgmma_fence();
+      rs_product<DP, BK / 16>(dq_acc, da, k_tile(s), L::K_BOX);  // dQ += dS K / scale
+      hopper::wgmma_commit();
     }
+    hopper::wgmma_wait<0>();  // the last tile's slot needs no release
+    hopper::fence_regs(dq_acc);
+    hopper::fence_regs(da);
 
     __nv_bfloat16* dqp = dq + b * a.dqs.b + h * a.dqs.h;
 #pragma unroll
@@ -863,10 +1038,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
       if (c >= a.D) continue;
       if (r0 < a.Sq)
         *reinterpret_cast<__nv_bfloat162*>(dqp + r0 * a.dqs.s + c) =
-            __floats2bfloat162_rn(dq_acc[4 * j], dq_acc[4 * j + 1]);
+            __floats2bfloat162_rn(dq_acc[4 * j] * a.scale, dq_acc[4 * j + 1] * a.scale);
       if (r1 < a.Sq)
         *reinterpret_cast<__nv_bfloat162*>(dqp + r1 * a.dqs.s + c) =
-            __floats2bfloat162_rn(dq_acc[4 * j + 2], dq_acc[4 * j + 3]);
+            __floats2bfloat162_rn(dq_acc[4 * j + 2] * a.scale, dq_acc[4 * j + 3] * a.scale);
     }
   }
 }
@@ -886,15 +1061,17 @@ template <int DP, int DVP>
 int launch(const void* q, const void* k, const void* v, const void* dout, void* dq,
            void* dk, void* dv, int B, Strides qs, Strides ks, Strides vs, Strides dos,
            const TcArgs& a, cudaStream_t stream) {
-  CUtensorMap qm_s, km_b, vm_b, dom_s, qm_b, km_s, vm_s, dom_b;
-  int err = head_map(&qm_s, q, B, a.H, a.Sq, a.D, qs, SMALL);
-  if (err == 0) err = head_map(&dom_s, dout, B, a.H, a.Sq, a.Dv, dos, SMALL);
-  if (err == 0) err = head_map(&km_b, k, B, a.KV, a.Sk, a.D, ks, BIG);
-  if (err == 0) err = head_map(&vm_b, v, B, a.KV, a.Sk, a.Dv, vs, BIG);
-  if (err == 0) err = head_map(&qm_b, q, B, a.H, a.Sq, a.D, qs, BIG);
-  if (err == 0) err = head_map(&dom_b, dout, B, a.H, a.Sq, a.Dv, dos, BIG);
-  if (err == 0) err = head_map(&km_s, k, B, a.KV, a.Sk, a.D, ks, SMALL);
-  if (err == 0) err = head_map(&vm_s, v, B, a.KV, a.Sk, a.Dv, vs, SMALL);
+  constexpr int BK = QLayout<DP, DVP>::BK;
+  // _t: the dk/dv kernel's query tiles; _k: the dq kernel's key tiles
+  CUtensorMap qm_t, dom_t, km, vm, qm, dom, km_k, vm_k;
+  int err = head_map(&qm_t, q, B, a.H, a.Sq, a.D, qs, BQ);
+  if (err == 0) err = head_map(&dom_t, dout, B, a.H, a.Sq, a.Dv, dos, BQ);
+  if (err == 0) err = head_map(&km, k, B, a.KV, a.Sk, a.D, ks, BIG);
+  if (err == 0) err = head_map(&vm, v, B, a.KV, a.Sk, a.Dv, vs, BIG);
+  if (err == 0) err = head_map(&qm, q, B, a.H, a.Sq, a.D, qs, BIG);
+  if (err == 0) err = head_map(&dom, dout, B, a.H, a.Sq, a.Dv, dos, BIG);
+  if (err == 0) err = head_map(&km_k, k, B, a.KV, a.Sk, a.D, ks, BK);
+  if (err == 0) err = head_map(&vm_k, v, B, a.KV, a.Sk, a.Dv, vs, BK);
   if (err != 0) return err;
   const int kv_smem = KvLayout<DP, DVP>::SMEM_BYTES;
   const int q_smem = QLayout<DP, DVP>::SMEM_BYTES;
@@ -903,14 +1080,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout, void* 
     e = set_smem(reinterpret_cast<const void*>(flash_bwd_dq_wgmma<DP, DVP>), q_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_bwd_dkdv_wgmma<DP, DVP><<<dim3(a.KV, (a.Sk + BIG - 1) / BIG, B), THREADS, kv_smem,
-                                  stream>>>(qm_s, km_b, vm_b, dom_s,
+                                  stream>>>(qm_t, km, vm, dom_t,
                                             static_cast<__nv_bfloat16*>(dk),
                                             static_cast<__nv_bfloat16*>(dv), a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_bwd_dq_wgmma<DP, DVP><<<dim3(a.H, (a.Sq + BIG - 1) / BIG, B), THREADS, q_smem,
-                                stream>>>(qm_b, km_s, vm_s, dom_b,
-                                          static_cast<__nv_bfloat16*>(dq), a);
+                                stream>>>(qm, km_k, vm_k, dom, static_cast<__nv_bfloat16*>(dq), a);
   return static_cast<int>(cudaGetLastError());
 }
 

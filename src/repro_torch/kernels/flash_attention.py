@@ -112,12 +112,13 @@ def _signature(lib: ctypes.CDLL, variant: str):
 def _tma_ready(name: str, t: torch.Tensor, traced: bool) -> None:
     """Raise unless TMA can read ``t``: 16-byte aligned, the last dim
     contiguous and the other strides multiples of 8 elements."""
-    if (t.stride(3) != 1 or (not traced and t.data_ptr() % 16)
-            or any(t.stride(d) % 8 for d in range(3))):
+    st = t.stride()
+    if (st[3] != 1 or (not traced and t.data_ptr() % 16)
+            or any(x % 8 for x in st[:3])):
         raise ValueError(
             f"flash_attention: TMA needs {name} 16-byte aligned with the "
             f"head dim contiguous and strides that are multiples of 8 "
-            f"elements; got strides {tuple(t.stride())}")
+            f"elements; got strides {st}")
 
 
 def _launch(q, k, v, *, causal, window, scale, variant: str | None = None,
@@ -198,11 +199,11 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, window, scale):
             f"{tuple(do.shape)} and {tuple(lse.shape)} {lse.dtype}")
     traced = is_traced(q, k, v, o, do)
     variant = _bwd_variant(q.dtype, D, Dv)
-    if do.stride(3) != 1 or variant == "wgmma" and (
-            any(do.stride(d) % 8 for d in range(3))
-            or not traced and do.data_ptr() % 16):
+    st = do.stride()
+    if st[3] != 1 or variant == "wgmma" and (
+            any(x % 8 for x in st[:3]) or not traced and do.data_ptr() % 16):
         do = do.contiguous()
-    if any(t.stride(3) != 1 for t in (q, k, v, o)):
+    if any(t.stride()[3] != 1 for t in (q, k, v, o)):
         raise ValueError("flash_attention backward: the head dim must be "
                          "contiguous")
     if variant == "wgmma":
@@ -237,8 +238,7 @@ def _call_bwd(variant: str, tensors, B, H, KV, Sq, Sk, D, Dv, *, causal,
     fn.argtypes = [i, i] + [p] * 10 + [i] * 7 + [ll] * 24 + [
         ctypes.c_float, i, i, i, p]
     fn.restype = ctypes.c_int
-    strides = [t.stride(d) for t in (q, k, v, o, do, dq, dk, dv)
-               for d in range(3)]
+    strides = [x for t in (q, k, v, o, do, dq, dk, dv) for x in t.stride()[:3]]
     code = fn(int(variant == "wgmma"), _DTYPE_CODE[q.dtype],
               *(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk,
                                        dv)),

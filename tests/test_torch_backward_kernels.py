@@ -12,6 +12,8 @@ stage-by-stage :func:`ssd_bwd_staged_plain` against autograd of
 the reference's chunked scan (``repro.models.ssm._ssd_scan``), in float32.
 """
 import math
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -163,6 +165,86 @@ def test_b2_bwd_launches_count_one_per_backward(monkeypatch):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     fa.reset_launches()
     assert fa.BWD_LAUNCHES == 0
+
+
+# -- B2's build report, as chip_smoke.py's [build] reads it ----------------------
+
+def _entry(name: str, spill: int) -> str:
+    return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {name}\n"
+            f"    {spill} bytes stack frame, {spill} bytes spill stores, "
+            f"{spill} bytes spill loads\n"
+            f"ptxas info    : Used 168 registers, used 1 barriers\n")
+
+
+_TCB = [f"_ZN3tcb{len(k)}{k}ILi{dp}ELi{dv}EEEv14CUtensorMap_st"
+        for k in ("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma")
+        for dp in (64, 128) for dv in (64, 128)]
+_FFMA = "_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu17flash_bwd_dq_ffmaIfEEv"
+_SERIALISED = ("ptxas info    : (C7512) Potential Performance Loss: "
+               "wgmma.mma_async instructions are serialized due to "
+               f"insufficient register resources for the function '{_TCB[0]}'\n")
+
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    """``chip_smoke.py`` as a module (importing it runs nothing)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    return chip_smoke
+
+
+def test_ptxas_spills_reads_each_kernels_line(chip_smoke):
+    """Each kernel's spill line is read for the entry function above it;
+    the notes ptxas prints before the entries name no kernel's spills."""
+    log = _SERIALISED + _entry(_TCB[0], 0) + _entry(_FFMA, 28) + _entry(
+        _TCB[1], 16)
+    assert chip_smoke.ptxas_spills(log) == {
+        _TCB[0]: (0, 0), _FFMA: (28, 28), _TCB[1]: (16, 16)}
+
+
+@pytest.mark.parametrize("case,passes", [
+    ("clean", True),          # 8 wgmma kernels, none spills; ffma may
+    ("wgmma_spills", False),  # one wgmma kernel spills
+    ("serialised", False),    # ptxas serialised a wgmma
+    ("missing", False),       # fewer than the 8 wgmma kernels reported
+])
+def test_bwd_build_check(chip_smoke, monkeypatch, case, passes):
+    """``check_bwd_build`` passes B2's backward library only with every
+    one of its 8 wgmma kernels at 0 spill bytes and no wgmma serialised."""
+    names = _TCB[:-1] if case == "missing" else _TCB
+    log = "".join(_entry(n, 8 if case == "wgmma_spills" and i == 3 else 0)
+                  for i, n in enumerate(names)) + _entry(_FFMA, 28)
+    if case == "serialised":
+        log = _SERIALISED + log
+    monkeypatch.setattr(_build, "BUILD_LOG",
+                        {"flash_attention_bwd": (1.0, log)})
+    if passes:
+        chip_smoke.check_bwd_build()
+    else:
+        with pytest.raises(SystemExit, match="flash_attention_bwd"):
+            chip_smoke.check_bwd_build()
+
+
+@pytest.mark.parametrize("shift,want", [(0.0, 0), (1.0, 3)])
+def test_kernel_ab_bwd_gate(shift, want):
+    """``kernel_ab.py``'s gate on B2's backward counts the elements of dq,
+    dk and dv beyond the bound, dq's with its extra term."""
+    sys.path.insert(0, str(ROOT))
+    import kernel_ab
+
+    rng = np.random.default_rng(3)
+    ref = tuple(torch.from_numpy(rng.standard_normal((1, 2, 8, 16)).astype(
+        np.float32)) for _ in range(3))
+    got = tuple(r.clone() for r in ref)
+    for g in got:
+        g[0, 0, 0, 0] += shift
+    extras = (torch.zeros_like(ref[0]), None, None)
+    assert kernel_ab.beyond(got, (ref, extras), 3e-2) == want
+    assert kernel_ab.beyond(got[1], ref[1], 3e-2) == int(want > 0)
 
 
 # -- B3 ---------------------------------------------------------------------------
