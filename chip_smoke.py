@@ -14,8 +14,8 @@ Phases (any failed check raises and exits non-zero):
      instructions (``HGMMA``, ``HMMA``) in each library's SASS
      (``cuobjdump -sass``): the matmul and flash libraries (B2's backward
      too) must hold HGMMA, the SSD library HGMMA or HMMA; B2's backward
-     wgmma kernels must spill nothing and ptxas must serialise none of
-     their wgmma (``check_bwd_build``);
+     wgmma kernels and B3's backward kernels must spill nothing and ptxas
+     must serialise none of their libraries' wgmma (``check_bwd_build``);
   3. kernels against their plain PyTorch versions on the card: the
      reference's kernel test cases (``tests/test_kernels.py``) in float32
      (the FFMA variants) and bf16 (the tensor-core variants), a bf16 shape
@@ -66,7 +66,9 @@ Phases (any failed check raises and exits non-zero):
      seamless-m4t-medium whole; then ``[train]`` (below): granite-8b,
      mamba2-130m, zamba2-1.2b and seamless-m4t-medium trained at full
      width, B2's lse and VJP, the backward kernels of B2 and B3 against
-     their plain versions; then ``[mesh]`` (below):
+     their plain versions (B2's under mixtral's window beside SDPA's
+     backward with the window as a mask; B3's at both widths it is
+     instantiated on and at ragged shapes); then ``[mesh]`` (below):
      the sharding layer on a one-rank NCCL mesh; then ``[dryrun]``: the
      trace analysis's predicted peak of ``[train]``'s granite-8b step
      (fake CUDA tensors on a one-rank mesh, untiered and at host_offload
@@ -275,6 +277,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     matmul_ref,
     outside_tolerance,
     reference_attention,
+    ssd_grad_ratio,
     tolerance_ratio,
 )
 from repro_torch.models import get_model, make_batch  # noqa: E402
@@ -334,6 +337,12 @@ NEEDS_TENSOR_CORES = {"streaming_matmul": ("HGMMA",),
                       "ssd_scan": ("HGMMA", "HMMA")}
 # ptxas's note when it serialises a kernel's wgmma (C7512 to C7518)
 WGMMA_SERIALISED = "wgmma.mma_async instructions are serialized"
+# the backward kernels of each library, by a part of their mangled names,
+# and how many ptxas must report: B2's 8 wgmma kernels (namespace tcb); B3's
+# key and row kernels and its fused states kernel at widths 64 and 128, and
+# its state passing
+BWD_KERNELS = {"flash_attention_bwd": ("_ZN3tcb", 8),
+               "ssd_scan": ("ssd_bwd_", 7)}
 # the reference's SSD tolerance (tests/test_kernels.py::TestSSDKernel);
 # L, chunk, G with B 2, H 4, P 32, N 32, then one chunk and L < chunk
 SSD_TOL = 2e-4
@@ -465,6 +474,14 @@ TRAIN_MODEL_PLACEMENTS = {
 B3_VJP = {"mamba2-130m": dict(B=2, H=24, L=2048, P=64, N=128, chunk=256,
                               G=1),
           "zamba2-1.2b": dict(B=2, H=64, L=2048, P=64, N=64, chunk=256, G=1)}
+# ... and at ragged shapes, checked, not timed: N 72 runs the kernels at width
+# 128 and N 20 at 64, both over zero-filled columns; P 40 and 30 leave zero
+# columns of x and dy; Q 200 and 48 end in part tiles; P 30 and N 20 take
+# the 4-byte copies
+B3_VJP_RAGGED = {"ragged P40 N72 Q200": dict(B=1, H=3, L=400, P=40, N=72,
+                                             chunk=200, G=1),
+                 "ragged P30 N20 Q48": dict(B=1, H=2, L=96, P=30, N=20,
+                                            chunk=48, G=1)}
 # [encdec]: seamless-m4t-medium whole (12 encoder and 12 decoder layers,
 # d_model 1024, 16 heads of 64, vocab 256206 padded to 258048), bf16: 4
 # sources of the config's 1024 frames and 4 targets of 512 tokens (a
@@ -565,6 +582,27 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_name(name: str) -> str:
+    """A profiled kernel's name without its namespace and arguments."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def launch_times(fn, reps: int = 5,
+                 tries: int = 3) -> dict[str, tuple[float, float]]:
+    """Each kernel ``fn`` launches, by name: its mean device ms a launch
+    and its launches a call of ``fn``, from ``torch.profiler`` over
+    ``reps`` calls (a launch the profiler drops lowers the second, not the
+    first). The profiler on the card now and then records no device time
+    at all: it is asked again, up to ``tries`` times, and an empty result
+    is returned as it is."""
+    fn()
+    for _ in range(tries):
+        _, kernels = profiled(lambda: [fn() for _ in range(reps)])
+        if kernels:
+            break
+    return {name: (ms / n, n / reps) for name, (ms, n) in kernels.items()}
+
+
 def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     """Least time in ms the card could take at ``peak`` FLOP/s, and what
     bounds it."""
@@ -653,24 +691,26 @@ def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
 
 
 def check_bwd_build() -> None:
-    """B2's backward library: its tensor-core kernels (namespace ``tcb``)
-    spill nothing and ptxas serialises none of its wgmma. Rebuilt here if
-    an earlier run left it built, so that its ptxas report is read."""
-    name = "flash_attention_bwd"
-    if name not in _build.BUILD_LOG:
-        _build._target(name).unlink()
-        _build.build_all((name,))
-    log = _build.BUILD_LOG[name][1]
-    spills = ptxas_spills(log)
-    wgmma = {n: sp for n, sp in spills.items() if n.startswith("_ZN3tcb")}
-    require(len(wgmma) >= 8 and all(sp == (0, 0) for sp in wgmma.values()),
-            f"{name}: the wgmma kernels spill: {wgmma}")
-    require(WGMMA_SERIALISED not in log,
-            f"{name}: ptxas serialised a kernel's wgmma")
-    other = {n: sp for n, sp in spills.items() if n not in wgmma}
-    print(f"[build] {name}: {len(wgmma)} wgmma kernels, 0 spill bytes, no "
-          f"wgmma serialised; the other kernels' spill stores and loads "
-          f"(bytes): {sorted(other.values())}")
+    """The backward kernels (:data:`BWD_KERNELS`: B2's wgmma kernels, B3's
+    backward) spill nothing and ptxas serialises none of their library's
+    wgmma. A library an earlier run left built is rebuilt here, so that its
+    ptxas report is read."""
+    for name, (part, count) in BWD_KERNELS.items():
+        if name not in _build.BUILD_LOG:
+            _build._target(name).unlink()
+            _build.build_all((name,))
+        log = _build.BUILD_LOG[name][1]
+        spills = ptxas_spills(log)
+        bwd = {n: sp for n, sp in spills.items() if part in n}
+        require(len(bwd) >= count and all(sp == (0, 0) for sp in bwd.values()),
+                f"{name}: the backward kernels spill, or fewer than {count} "
+                f"reported: {bwd}")
+        require(WGMMA_SERIALISED not in log,
+                f"{name}: ptxas serialised a kernel's wgmma")
+        other = {n: sp for n, sp in spills.items() if n not in bwd}
+        print(f"[build] {name}: {len(bwd)} backward kernels, 0 spill bytes, "
+              f"no wgmma serialised; the other kernels' spill stores and "
+              f"loads (bytes): {sorted(other.values())}")
 
 
 def phase_build() -> None:
@@ -2166,7 +2206,9 @@ def check_b2_window(sh: dict = TRAIN_FLASH_WINDOW) -> dict:
     (dq's bound with delta's float32 sums, as :func:`check_b2_vjp`'s); two
     launches ``torch.equal``; a planted fault (dk of KV head 0 without keys
     4096..4223, which only queries inside the window see) must fail. Timed
-    beside its bound and the plain version."""
+    beside its bound, the plain version and SDPA's backward alone with the
+    window as an explicit boolean mask (k and v expanded to every head; the
+    backend that answered printed)."""
     B, H, KV, S, D, window = (sh[k] for k in ("B", "H", "KV", "S", "D",
                                                "window"))
     rng = np.random.default_rng(13)
@@ -2211,16 +2253,32 @@ def check_b2_window(sh: dict = TRAIN_FLASH_WINDOW) -> dict:
     bb, bby = bound(*work.flash_bwd_work(B, H, S, S, KV, D, D, causal=True,
                                           window=window, itemsize=2),
                     PEAK_FLOPS[torch.bfloat16])
+    # query i sees key j for i - window < j <= i
+    i = torch.arange(S, device="cuda")
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    q_req = qt.detach().requires_grad_(True)
+    k_rep, v_rep = (t.repeat_interleave(H // KV, dim=1).detach()
+                    .requires_grad_(True) for t in (kt, vt))
+    o_sdpa = torch.nn.functional.scaled_dot_product_attention(
+        q_req, k_rep, v_rep, attn_mask=mask, scale=scale)
+    sdpa_o_err = (o_sdpa.float() - o.float()).abs().max().item()
     out["times"] = {
         "backward_ms": time_ms(lambda: fa._launch_bwd(
             qt, kt, vt, o, lse, dot, **kw), 10),
         "plain_backward_ms": time_ms(lambda: fa._plain_bwd(
             qt, kt, vt, o, lse, dot, **kw), 3),
         "backward_bound_ms": bb, "backward_bound_by": bby,
+        "sdpa_bwd_ms": time_ms(lambda: torch.autograd.grad(
+            o_sdpa, [q_req, k_rep, v_rep], dot, retain_graph=True), 10),
+        "sdpa_backend": sdpa_backend(q_req, k_rep, v_rep, False, mask),
         "shape": f"{shape_label(q, k, v, True)} window {window} bf16"}
+    del o_sdpa, q_req, k_rep, v_rep, mask
     t = out["times"]
     print(f"[time] {what}: {t['backward_ms']:.4f} ms (bound {bb:.4f}, {bby}; "
-          f"the plain _flash_bwd {t['plain_backward_ms']:.4f} ms)")
+          f"the plain _flash_bwd {t['plain_backward_ms']:.4f} ms); SDPA "
+          f"backward alone with the window as a boolean mask "
+          f"{t['sdpa_bwd_ms']:.4f} ms ({t['sdpa_backend']}; its o within "
+          f"{sdpa_o_err:.3g} of B2's)")
     torch.cuda.synchronize()
     return out
 
@@ -2541,27 +2599,26 @@ def step_launches(cfg) -> dict:
 
 
 def b3_grad_ratio(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
-    """``|got - want|`` over B3's backward bound, per element: the
-    forward's ``SSD_TOL + SSD_TOL * |want|`` with its absolute term scaled
-    to the gradient (times its root mean square), since the five
-    gradients run from 1e-2 to 1e3 in magnitude."""
-    rms = want.float().pow(2).mean().sqrt()
-    return (got - want).abs() / (SSD_TOL * rms + SSD_TOL * want.abs())
+    """``|got - want|`` over B3's backward bound, per element:
+    ``kernels.ref.ssd_grad_ratio`` at the forward's ``SSD_TOL``."""
+    return ssd_grad_ratio(got, want, SSD_TOL)
 
 
-def check_b3_vjp(label: str, dims: dict) -> dict:
+def check_b3_vjp(label: str, dims: dict, timed: bool = True) -> dict:
     """B3 under autograd at one layer's scan in a train step (``dims``):
     the Function's (``ssd_chunk_scan_gpu`` of grad-requiring inputs: the
     kernels forward and backward) gradients of all five inputs, given a
     fixed dy, against plain autograd's through ``ssd_staged_plain`` (the
     backward kernels' plain version) at the same inputs, each within
     :func:`b3_grad_ratio`'s bound (the worst element's share printed);
-    its y within ``SSD_TOL`` of the plain scan's; a planted fault (the
-    kernels' dx without one chunk's carry term ``w_j D B_j``) rejected by
-    the same check. Times the backward kernels (``_launch_bwd``) beside
+    its y within ``SSD_TOL`` of the plain scan's; two launches of the
+    backward kernels ``torch.equal``; a planted fault (the kernels' dx
+    without one chunk's carry term ``w_j D B_j``) rejected by the same
+    check. ``timed``: the backward kernels (``_launch_bwd``) timed beside
     their bound (:func:`repro_torch.kernels.work.ssd_bwd_work` at the
     3xTF32 rate, and at the CUDA cores' float32) and the plain VJP (its
-    forward recomputed, as the CPU path runs it)."""
+    forward recomputed, as the CPU path runs it), and each of their
+    launches under ``torch.profiler``."""
     rng = np.random.default_rng(13)
     chunks = ssd_chunks(rng, **dims)
     dy = torch.randn(chunks[0].shape, generator=torch.Generator(
@@ -2590,6 +2647,12 @@ def check_b3_vjp(label: str, dims: dict) -> dict:
         require(share[name] <= 1.0,
                 f"B3 backward kernels at {label}: d{name} beyond the bound "
                 f"(worst element at {share[name]:.3f} of it)")
+    first = ssd._launch_bwd(*chunks, dy)
+    same = all(torch.equal(a, b) for a, b in zip(first, ssd._launch_bwd(
+        *chunks, dy)))
+    require(same, f"B3 backward kernels at {label}: two launches on the same "
+                  f"inputs differ")
+    del first
     grad_err = max((g - w).abs().max().item() for g, w in zip(got, want))
     print(f"[check] B3 backward kernels at {label}'s train scan {shape}: "
           f"the Function's gradients of {', '.join(names)} against plain "
@@ -2598,8 +2661,11 @@ def check_b3_vjp(label: str, dims: dict) -> dict:
           + f"; max|g - want| {grad_err:.4g} (max|want| "
           + ", ".join(f"{w.abs().max().item():.4g}" for w in want) + ")")
     # the planted fault: the kernels' dx less chunk `drop`'s carry term
+    # (a chunk with a successor: the last chunk's dS_loc is zero)
     xc, bc, cc, dtc, cum = chunks
-    drop = xc.shape[2] // 2
+    require(xc.shape[2] >= 2, f"B3 VJP at {label}: one chunk has no carry "
+                              f"to drop")
+    drop = min(xc.shape[2] // 2, xc.shape[2] - 2)
     ds_in = torch.einsum("bhcip,bhcin->bhcpn", dy * torch.exp(cum)[..., None],
                          cc)
     ds_loc = ssd.ssd_state_passing_bwd_plain(ds_in, cum)[:, :, drop]
@@ -2615,6 +2681,12 @@ def check_b3_vjp(label: str, dims: dict) -> dict:
           f"at {label}: {bad} of {faulty.numel()} elements beyond the bound, "
           f"rejected")
     del faulty, y, y_p, ds_in, ds_loc
+    out = {"max_abs_err": grad_err, "share_of_bound": share,
+           "forward_max_abs_err": err, "deterministic": same, "shape": shape,
+           "width": ssd._bwd_width(bc.shape[-1])}
+    if not timed:
+        torch.cuda.synchronize()
+        return out
     ins = [t.detach().clone().requires_grad_(True) for t in chunks]
     flops, nbytes = work.ssd_bwd_work(*xc.shape, bc.shape[-1])
     b_tf32, by = bound(TF32_PASSES * flops, nbytes, PEAK_FLOPS["tf32"])
@@ -2622,15 +2694,20 @@ def check_b3_vjp(label: str, dims: dict) -> dict:
     ms = time_ms(lambda: ssd._launch_bwd(*chunks, dy), 10)
     plain_ms = time_ms(lambda: torch.autograd.grad(
         ssd.ssd_staged_plain(*ins), ins, dy), 3)
+    per = launch_times(lambda: ssd._launch_bwd(*chunks, dy))
     print(f"[time] B3 backward kernels at {label}'s train scan {shape}: "
           f"{ms:.4f} ms; bound {b_tf32:.4f} ms ({by}, at 3xTF32), "
           f"{b_f32:.4f} ms at the CUDA cores' float32; the plain staged VJP "
           f"{plain_ms:.4f} ms; library none")
+    print(f"[time] B3 backward kernels at {label}'s train scan, each kernel "
+          f"(torch.profiler, ms a launch and launches a call): " + ("; ".join(
+              f"{kernel_name(name)} {t:.4f} x{n:g}"
+              for name, (t, n) in per.items())
+              or "the profiler recorded no device time in 3 tries"))
     torch.cuda.synchronize()
-    return {"max_abs_err": grad_err, "share_of_bound": share,
-            "forward_max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_tf32, "bound_by": by, "bound_f32_ms": b_f32,
-            "library_ms": None, "shape": shape}
+    return {**out, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_tf32,
+            "bound_by": by, "bound_f32_ms": b_f32, "library_ms": None,
+            "launch_ms": {kernel_name(name): t for name, (t, _) in per.items()}}
 
 
 def check_learning(cfg, data) -> None:
@@ -2659,7 +2736,8 @@ def phase_train(smi: str) -> dict:
     (4 layers; the untiered step profiled) and ``TRAIN_DEEP_PLACEMENTS``
     (12 layers, where remat nests: :func:`check_nesting`), each leg all
     ``torch.equal``; B3's backward at ``B3_VJP``'s scans with a planted
-    fault; mamba2-130m, zamba2-1.2b and seamless-m4t-medium at full width
+    fault, two launches ``torch.equal`` and each launch's time, and at
+    ``B3_VJP_RAGGED``'s shapes untimed; mamba2-130m, zamba2-1.2b and seamless-m4t-medium at full width
     and full depth one step under each of ``TRAIN_MODEL_PLACEMENTS``, all
     ``torch.equal``, B2 and B3 launches a step as
     :func:`step_launches` counts them; 10 steps of ``train.loop.train`` on
@@ -2702,6 +2780,8 @@ def phase_train(smi: str) -> dict:
                 for label, sh in TRAIN_FLASH_MORE.items()}
     b3_vjp = {label: check_b3_vjp(label, dims)
               for label, dims in B3_VJP.items()}
+    b3_vjp.update({label: check_b3_vjp(label, dims, timed=False)
+                   for label, dims in B3_VJP_RAGGED.items()})
     release_memory()
     model_rows = {}
     for name, spec in TRAIN_MODELS.items():
@@ -3366,15 +3446,14 @@ def phase_model_shape_checks(fa_inputs: dict, ssd_inputs: dict) -> dict:
     return errs
 
 
-def sdpa_backend(q, k, v, causal: bool = True) -> str:
+def sdpa_backend(q, k, v, causal: bool = True, attn_mask=None) -> str:
     """The backend ``scaled_dot_product_attention`` picks for these
     inputs."""
     from torch.nn.attention import SDPBackend
 
     names = {int(b): n for n, b in SDPBackend.__members__.items()}
-    return names.get(int(torch._fused_sdp_choice(q, k, v,
-                                                 is_causal=causal)),
-                     "unknown")
+    return names.get(int(torch._fused_sdp_choice(
+        q, k, v, attn_mask=attn_mask, is_causal=causal)), "unknown")
 
 
 def phase_model_shape_times(fa_inputs: dict, ssd_inputs: dict) -> dict:

@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 kernel_ab.py [--kernels B1,B2,B3,B2bwd] TREE [TREE ...]
+    python3 kernel_ab.py [--kernels B1,B2,B3,B2bwd,B3bwd] [--rounds R]
+                         TREE [TREE ...]
 
 Each TREE is a directory of kernel sources: this checkout's
 ``src/repro_torch/kernels/csrc``, or the same directory of another commit
@@ -25,9 +26,18 @@ inputs. ``B2bwd`` (asked for by name) adds B2's backward kernels
 (``flash_attention_bwd``, bf16) at the train steps' three attention shapes,
 ``BWD_SHAPES``: each tree's dq, dk and dv held against ``_plain_bwd`` on
 the same o, lse and dO, and two launches required ``torch.equal``; then
-SDPA's backward alone at each shape. It exits non-zero if a tree's kernel
-misses the bound, is not deterministic, or ptxas serialised a tree's wgmma
-(its "wgmma.mma_async instructions are serialized" notes, C7512 to C7518).
+SDPA's backward alone at each shape. ``B3bwd`` (by name) adds B3's
+backward kernels (``ssd_chunk_scan_bwd``, float32) at the train steps' two
+scans, ``chip_smoke.py``'s ``B3_VJP`` (mamba2-130m's and zamba2-1.2b's):
+each tree's five gradients held to ``ssd_bwd_staged_plain`` within
+``chip_smoke.b3_grad_ratio``'s bound and two launches required
+``torch.equal``, each tree called by the interface it exports (the state
+width after the dims where the library has ``ssd_bwd_interface``), and
+each tree's launches timed one by one under ``torch.profiler``. ``--rounds
+0`` checks and profiles without the timed turns. It exits non-zero if a
+tree's kernel misses the bound, is not deterministic, or ptxas serialised a
+tree's wgmma (its "wgmma.mma_async instructions are serialized" notes,
+C7512 to C7518).
 """
 from __future__ import annotations
 
@@ -53,6 +63,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     flash_ref,
     matmul_ref,
     outside_tolerance,
+    ssd_grad_ratio,
 )
 
 ROUNDS = 3
@@ -111,6 +122,62 @@ def ssd_scan(xc, bc, cc, dtc, cum) -> torch.Tensor:
     return y
 
 
+def ssd_bwd(chunks, dy) -> list[torch.Tensor]:
+    """B3's backward through the current tree's library, by the interface
+    it exports: ``ssd_bwd_interface()`` 2 takes the state width after the
+    five dims, a library without it the five dims alone; both take the
+    same scratch. Returns the five gradients."""
+    lib = _build.load("ssd_scan")
+    xc, bc = chunks[0], chunks[1]
+    B, H, nc, Q, P = xc.shape
+    N = bc.shape[-1]
+    states = xc.new_empty((B, H, nc, P, N))
+    scratch = [states, torch.empty_like(states), torch.empty_like(chunks[4]),
+               chunks[4].new_empty((B, H, nc))]
+    grads = [torch.empty_like(t) for t in chunks]
+    ints = [B * H, nc, Q, P, N]
+    if hasattr(lib, "ssd_bwd_interface"):
+        lib.ssd_bwd_interface.restype = ctypes.c_int
+        if lib.ssd_bwd_interface() != 2:
+            raise RuntimeError("ssd_chunk_scan_bwd: an interface this "
+                               "script does not know")
+        ints.append(ssd._bwd_width(N))
+    tensors = [*chunks, dy, *scratch, *grads]
+    fn = lib.ssd_chunk_scan_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * len(tensors)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+    code = fn(*(t.data_ptr() for t in tensors), *ints,
+              torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code, "ssd backward")
+    return grads
+
+
+def ssd_bwd_case(dims: dict):
+    """B3's backward at one train scan ``dims`` (``B3_VJP``'s): the
+    chunks as ``chip_smoke.ssd_chunks`` draws them, a dy, and the plain
+    staged backward's five gradients."""
+    import numpy as np
+
+    from chip_smoke import ssd_chunks
+
+    chunks = ssd_chunks(np.random.default_rng(13), **dims)
+    dy = torch.randn(chunks[0].shape, generator=torch.Generator(
+        device="cuda").manual_seed(14), device="cuda")
+    want = ssd.ssd_bwd_staged_plain(*chunks, dy)
+    return (lambda: ssd_bwd(chunks, dy)), want
+
+
+def b3_beyond(got, want) -> int:
+    """Elements of B3bwd's five gradients beyond ``chip_smoke``'s
+    ``b3_grad_ratio`` bound (the reference's SSD tolerance scaled to each
+    gradient); NaN and inf always miss."""
+    from chip_smoke import SSD_TOL
+
+    return sum(int((~(ssd_grad_ratio(g, w, SSD_TOL) <= 1.0)).sum())
+               for g, w in zip(got, want))
+
+
 def bwd_case(draw, sh: dict):
     """B2's backward at shape ``sh``: the launch, its plain version's
     (dq, dk, dv) with each bound's extra term, and SDPA's backward alone
@@ -153,7 +220,7 @@ def beyond(got, want, tol: float) -> int:
                for g, w, e in zip(got, ref, extras))
 
 
-def main(trees: list[Path], kernels: list[str]) -> int:
+def main(trees: list[Path], kernels: list[str], rounds: int = ROUNDS) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA card", file=sys.stderr)
         return 1
@@ -190,6 +257,13 @@ def main(trees: list[Path], kernels: list[str]) -> int:
             fn, ref, sdpa_bwd[label] = bwd_case(draw, sh)
             runs[f"B2bwd {label}"] = fn
             want[f"B2bwd {label}"] = (lambda ref=ref: ref, 3e-2)
+    if "B3bwd" in kernels:
+        from chip_smoke import B3_VJP
+
+        for label, dims in B3_VJP.items():
+            fn, ref = ssd_bwd_case(dims)
+            runs[f"B3bwd {label}"] = fn
+            want[f"B3bwd {label}"] = (lambda ref=ref: ref, None)
     runs = {name: fn for name, fn in runs.items()
             if name.split(" ")[0] in kernels}
     want = {name: (ref(), tol) for name, (ref, tol) in want.items()
@@ -203,25 +277,44 @@ def main(trees: list[Path], kernels: list[str]) -> int:
             if "wgmma.mma_async instructions are serialized" in log:
                 print(f"{tree}: ptxas serialised the wgmma of {name}")
                 failed = True
+        if "B3bwd" in kernels and "ssd_scan" in _build.BUILD_LOG:
+            # registers, spills and stack of each kernel
+            for line in _build.BUILD_LOG["ssd_scan"][1].splitlines():
+                if "Compiling entry" in line or "Used" in line or "spill" in line:
+                    print(f"{tree}: ssd_scan {line.strip()}")
         for kernel, fn in runs.items():
             ref, tol = want[kernel]
             got = fn()
-            bad = beyond(got, ref, tol)
+            bad = (b3_beyond(got, ref) if kernel.startswith("B3bwd")
+                   else beyond(got, ref, tol))
             print(f"{tree}: {kernel} {bad} elements beyond the bound")
             failed |= bad > 0
-            if kernel.startswith("B2bwd"):
+            if kernel.startswith(("B2bwd", "B3bwd")):
                 same = all(torch.equal(a, b) for a, b in zip(got, fn()))
                 print(f"{tree}: {kernel} two launches torch.equal: {same}")
                 failed |= not same
+            if kernel.startswith("B3bwd"):
+                from chip_smoke import kernel_name, launch_times
+
+                per = launch_times(fn)
+                print(f"{tree}: {kernel} launches (torch.profiler, ms a "
+                      f"launch and launches a call): " + "; ".join(
+                          f"{kernel_name(name)} {ms:.4f} x{n:g}"
+                          for name, (ms, n) in per.items()))
+            del got
     times = {(t, kn): [] for t in trees for kn in runs}
-    for _ in range(ROUNDS):
+    for _ in range(rounds):
         for tree in trees + trees[::-1]:
             use(tree)
             for kernel, fn in runs.items():
                 times[tree, kernel].append(time_ms(fn))
     for (tree, kernel), ms in times.items():
+        if not ms:
+            continue
         print(f"{tree}: {kernel} median {statistics.median(ms):.4f} ms, runs "
               + ", ".join(f"{t:.4f}" for t in ms))
+    if rounds == 0:
+        return int(failed)
     k_rep, v_rep = (t.repeat_interleave(4, dim=1) for t in (k, v))
     print(f"torch.matmul {time_ms(lambda: torch.matmul(x, w)):.4f} ms, SDPA "
           f"{time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k_rep, v_rep, is_causal=True)):.4f} ms")  # noqa: E501
@@ -235,7 +328,9 @@ if __name__ == "__main__":
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("trees", nargs="+", type=Path)
     parser.add_argument("--kernels", default="B1,B2,B3",
-                        help="comma-separated, of B1, B2, B3, B2bwd")
+                        help="comma-separated, of B1, B2, B3, B2bwd, B3bwd")
+    parser.add_argument("--rounds", type=int, default=ROUNDS,
+                        help="timed turns over the trees (0: check only)")
     args = parser.parse_args()
     raise SystemExit(main([t.resolve() for t in args.trees],
-                          args.kernels.split(",")))
+                          args.kernels.split(","), args.rounds))

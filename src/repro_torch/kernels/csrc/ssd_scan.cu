@@ -86,41 +86,63 @@
 // The backward (`ssd_chunk_scan_bwd`), which the reference has no kernel
 // for (it trains through its plain chunked scan, src/repro/models/ssm.py::
 // _ssd_scan, and the port's plain version is the VJP of the staged scan,
-// kernels/ssd_scan.py::ssd_bwd_staged_plain stage by stage), runs the
+// kernels/ssd_scan.py::ssd_bwd_staged_plain launch by launch), runs the
 // stages in reverse, with g = dy, w_j = exp(total - cum_j) dt_j and
-// lambda_c = exp(total_c), in six launches:
-//   1, 2. the forward's kernels 1 and 2 recompute the states entering each
-//      chunk (scratch `states`);
-//   1'. kernel 1 with exp(cum) weights, g and C in the places of x and B:
-//      dS_in[c] = sum_i exp(cum_i) g_i (x) C_i (scratch `dstates`);
-//   4. the state passing in reverse, one thread per state element, in place:
-//      dS_loc[c] = R[c+1] (0 for the last chunk), R[c] = dS_in[c] +
-//      lambda_c R[c+1];
-//   5. the key side, one block per (64-key tile, chunk, b, h), four warps of
+// lambda_c = exp(total_c), in four launches, each instantiated on the state
+// width NW, 64 or 128 (the wrapper's `_bwd_width`: the smaller that holds
+// N), so that zamba2's N 64 runs no product over zero columns:
+//   1. the chunk states and dS_in, one block per (chunk, b, h) and product
+//      (grid z): states[c] = x^T (w o B), as the forward's kernel 1, and
+//      dS_in[c] = sum_i exp(cum_i) g_i (x) C_i, the same product with
+//      exp(cum) weights and g and C in the places of x and B;
+//   2. the state passing, one thread per state element: forward over the
+//      chunks, states[c] becomes the state entering chunk c; then back in
+//      place over dstates, dS_loc[c] = R[c+1] (0 for the last chunk),
+//      R[c] = dS_in[c] + lambda_c R[c+1];
+//   3. the key side, one block per (64-key tile, chunk, b, h), four warps of
 //      16 keys, the query tiles from the diagonal on streamed through two
 //      cp.async slots: the scores B C^T and x g^T of a tile transposed (keys
 //      as rows), M = (C B^T) o L and G o L, dx += M^T g and dB += (G o L)^T C
 //      from the accumulators as kernel 3's P x takes them; ddt and the key
 //      side of dcum from the same tile; then the chunk state's backward with
-//      D = dS_loc[c]: dx += w D B, dB += (w o x) D, dw = x^T D B feeding ddt,
-//      dcum and the chunk total's term tw_j = dw_j w_j; the block of key
-//      tile 0 also writes lambda_c <D, S_in[c]>;
-//   6. the row side, one block per (64-row query tile, chunk, b, h), as
+//      D = dS_loc[c]: dx += w D B (B D^T in two halves of P), dB += (w o x)
+//      D, dw = x^T D B feeding ddt, dcum and the chunk total's term
+//      tw_j = dw_j w_j; the block of key tile 0 also writes
+//      lambda_c <D, S_in[c]>;
+//   4. the row side, one block per (64-row query tile, chunk, b, h), as
 //      kernel 3: dC = exp(cum) g S_in + sum_j (G o L)_ij B_j, and dcum's row
 //      side (g . y_inter, sum_j G_ij M_ij, and at the chunk's last position
-//      sum_j tw_j + lambda_c <D, S_in>) added to kernel 5's.
+//      sum_j tw_j + lambda_c <D, S_in>, tw summed by the whole block) added
+//      to kernel 3's.
 // Only the causal triangle is computed, the mask selecting before the exp,
 // so the gradients are finite wherever the plain version's are (C7). Every
-// product is mma.sync in 3xTF32 as in the forward; every output element has
-// one owner and each sum a fixed order (no atomics), so the backward is
-// deterministic. Bound on the H100 at mamba2-130m's train scan (B 2, H 24,
-// L 2048, Q 256, P 64, N 128): kernels/work.py::ssd_bwd_work counts
-// 2 (3N + 2P) operations a live pair and 12 Q N P a chunk, 22.6 GFLOP; at
-// 3xTF32 (3 x 22.6 GFLOP at 495 TFLOP/s) 0.137 ms, against 0.083 ms for the
-// 278 MB of inputs, dy and gradients: bound by operations. What holds it
-// back: the recomputed states (two launches) and dS_in, the key and row
-// kernels each recompute both score tiles (C B^T and g x^T), and the
-// per-element exp and masks sit between the products.
+// product is mma.sync in 3xTF32; the backward's split hands lo = a - hi to
+// the tensor cores as it is, truncated to TF32 by them instead of rounded
+// by cvt (split_trunc: 3 instructions for split's 7; a product to about
+// 2^-20 of its size, where the reference's bound is 2e-4), and its decay
+// exp is ex2.approx of the exact difference of two cumsums. Every output
+// element has one owner and each sum a fixed order (no atomics), so the
+// backward is deterministic. Bound on the H100 at mamba2-130m's train scan
+// (B 2, H 24, L 2048, Q 256, P 64, N 128): kernels/work.py::ssd_bwd_work
+// counts 2 (3N + 2P) operations a live pair and 12 Q N P a chunk, 22.6
+// GFLOP; at 3xTF32 (3 x 22.6 GFLOP at 495 TFLOP/s) 0.137 ms, against 0.083
+// ms for the 278 MB of inputs, dy and gradients: bound by operations.
+// What holds it back, measured by removing parts of the kernels one at a
+// time (kernel_ab.py --kernels B3bwd): the key and row kernels are bound by
+// latency and instruction issue, not by the tensor cores or by memory; so
+// at NW 64 they run three blocks an SM (75 KB of shared memory and 168
+// registers each: cum and dt read through L1, the row kernel's x slots at
+// a stride of 68), at 128 two (the shared memory of the 64-key tile and two
+// query slots). Tried and not kept, each slower at both train scans: hi/lo
+// planes split once in shared memory (128-byte swizzle) with the score
+// products on mma.sync or on wgmma m64n32k8 in three passes (from straight-
+// line code, not serialised), also with two warpgroups a block taking the
+// query tiles in turns: the planes double the shared memory and its reads,
+// leave one block an SM at NW 128, and a 64 x 32 score tile reads its
+// 64-row operand three times a tile (bound by shared memory); D and S_in
+// split once in halves (two more barriers a block); the blocks ordered by
+// chunk for L2 (the kernels are not bound by memory, and the heaviest-first
+// order balances the load).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -216,6 +238,23 @@ __device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32(a - __uint_as_float(hi));
 }
 
+// The backward's split: hi as above, lo = a - hi exact in float32 and handed
+// to the tensor cores as it is, which read a TF32 operand's top 19 bits: lo
+// truncated instead of rounded, each product to about 2^-20 of its size, and
+// four instructions fewer than split's cvt.
+__device__ __forceinline__ void split_trunc(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+template <bool TRUNC>
+__device__ __forceinline__ void split_as(float a, uint32_t& hi, uint32_t& lo) {
+  if constexpr (TRUNC)
+    split_trunc(a, hi, lo);
+  else
+    split(a, hi, lo);
+}
+
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
@@ -251,7 +290,7 @@ __device__ __forceinline__ void mma_3xtf32(float (*d)[4], const uint32_t (&ah)[4
 // d[t] += sum over the KW columns of A's rows a_row (+ g, + g + 8) times
 // B's row b_row + 8t + g, for T n-tiles (columns past N or P are zero in
 // both); SA and SB are A's and B's row strides in shared memory
-template <int T, int KW = MAX_N, int SA = S_K, int SB = S_K>
+template <int T, int KW = MAX_N, int SA = S_K, int SB = S_K, bool TRUNC = false>
 __device__ __forceinline__ void product_rows(float (*d)[4], const float* a, int a_row,
                                              const float* b, int b_row, int q) {
 #pragma unroll 2
@@ -259,14 +298,14 @@ __device__ __forceinline__ void product_rows(float (*d)[4], const float* a, int 
     const float4 r0 = *reinterpret_cast<const float4*>(a + a_row * SA + c0 + 4 * q);
     const float4 r1 = *reinterpret_cast<const float4*>(a + (a_row + 8) * SA + c0 + 4 * q);
     uint32_t ah[2][4], al[2][4];
-    split(r0.x, ah[0][0], al[0][0]);
-    split(r1.x, ah[0][1], al[0][1]);
-    split(r0.y, ah[0][2], al[0][2]);
-    split(r1.y, ah[0][3], al[0][3]);
-    split(r0.z, ah[1][0], al[1][0]);
-    split(r1.z, ah[1][1], al[1][1]);
-    split(r0.w, ah[1][2], al[1][2]);
-    split(r1.w, ah[1][3], al[1][3]);
+    split_as<TRUNC>(r0.x, ah[0][0], al[0][0]);
+    split_as<TRUNC>(r1.x, ah[0][1], al[0][1]);
+    split_as<TRUNC>(r0.y, ah[0][2], al[0][2]);
+    split_as<TRUNC>(r1.y, ah[0][3], al[0][3]);
+    split_as<TRUNC>(r0.z, ah[1][0], al[1][0]);
+    split_as<TRUNC>(r1.z, ah[1][1], al[1][1]);
+    split_as<TRUNC>(r0.w, ah[1][2], al[1][2]);
+    split_as<TRUNC>(r1.w, ah[1][3], al[1][3]);
 #pragma unroll
     for (int t0 = 0; t0 < T; t0 += 4) {
       uint32_t bh[2][4][2], bl[2][4][2];
@@ -274,10 +313,10 @@ __device__ __forceinline__ void product_rows(float (*d)[4], const float* a, int 
       for (int t = 0; t < 4; ++t) {
         const float4 r =
             *reinterpret_cast<const float4*>(b + (b_row + 8 * (t0 + t)) * SB + c0 + 4 * q);
-        split(r.x, bh[0][t][0], bl[0][t][0]);
-        split(r.y, bh[0][t][1], bl[0][t][1]);
-        split(r.z, bh[1][t][0], bl[1][t][0]);
-        split(r.w, bh[1][t][1], bl[1][t][1]);
+        split_as<TRUNC>(r.x, bh[0][t][0], bl[0][t][0]);
+        split_as<TRUNC>(r.y, bh[0][t][1], bl[0][t][1]);
+        split_as<TRUNC>(r.z, bh[1][t][0], bl[1][t][0]);
+        split_as<TRUNC>(r.w, bh[1][t][1], bl[1][t][1]);
       }
       mma_3xtf32<4>(d + t0, ah[0], al[0], bh[0], bl[0]);
       mma_3xtf32<4>(d + t0, ah[1], al[1], bh[1], bl[1]);
@@ -288,13 +327,11 @@ __device__ __forceinline__ void product_rows(float (*d)[4], const float* a, int 
 // ---- 1. chunk state --------------------------------------------------------
 
 // grid (nc, BH); warp w owns S rows p in [16 (w % 4), +16), columns n in
-// [64 (w / 4), +64). `exp_cum` (the backward's dS_in = (exp(cum) o g)^T C,
-// with g and C in the places of x and B) weighs key j by exp(cum_j) instead.
+// [64 (w / 4), +64).
 __global__ void __launch_bounds__(CS_THREADS)
 ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ b,
                        const float* __restrict__ dt, const float* __restrict__ cum,
-                       float* __restrict__ states, int nc, int Q, int P, int N, int vec,
-                       int exp_cum) {
+                       float* __restrict__ states, int nc, int Q, int P, int N, int vec) {
   extern __shared__ __align__(16) float smem[];
   float* Xs = smem;                   // [2][KT][S_COL_P]
   float* Bs = Xs + 2 * KT * S_COL_P;  // [2][KT][S_COL_N]
@@ -318,7 +355,7 @@ ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ b,
   load_tile(0);
   const float total = cg[Q - 1];
   for (int j = threadIdx.x; j < nkt * KT; j += CS_THREADS)
-    ws[j] = j >= Q ? 0.f : exp_cum ? expf(cg[j]) : expf(total - cg[j]) * dg[j];
+    ws[j] = j >= Q ? 0.f : expf(total - cg[j]) * dg[j];
 
   const int m0 = 16 * (warp & 3), n0 = 64 * (warp >> 2);
   const bool active = m0 < P && n0 < N;
@@ -541,16 +578,34 @@ ssd_chunk_output_kernel(const float* __restrict__ x, const float* __restrict__ b
 
 // ---- the backward -----------------------------------------------------------
 
-constexpr int S_C = MAX_N + 4;   // C (kernel 5) and B (kernel 6) tiles: 16-byte
-                                 // reads, and row pairs (2q, 2q+1) free of conflicts
+// The key and row kernels at state width NW (64 or 128).
+template <int NW>
+struct BwdStrides {
+  // blocks an SM: at NW 64 three (each at most 75 KB of shared memory and
+  // 168 registers a thread), at 128 two
+  static constexpr int BLOCKS = NW == 64 ? 3 : 2;
+  // x rows of the row kernel's key tiles: 16-byte reads free of conflicts at
+  // 80, two-way at 68 (which three blocks an SM need)
+  static constexpr int SX = NW == 64 ? MAX_P + 4 : MAX_P + 16;
+  // the chunk's cum and dt in shared memory (at NW 128), or read through L1
+  // (at NW 64, where three blocks an SM leave no room for them)
+  static constexpr bool CUM_SMEM = NW != 64;
+  static constexpr int SK = NW + 16;  // rows read 16 bytes a lane over N
+  static constexpr int SC = NW + 4;   // C (key side) and B (row side) tiles: 16-byte
+                                      // reads, and row pairs (2q, 2q+1) free of conflicts
+};
 constexpr int S_P = MAX_P + 16;  // x and g rows read 16 bytes a lane over P
 
+template <int NW>
 __host__ __device__ inline int bwd_key_smem_floats(int Q) {
-  return RT * S_K + RT * S_P + 2 * KT * S_C + 2 * KT * S_PERM_P + 2 * Q;
+  using S = BwdStrides<NW>;
+  return RT * S::SK + RT * S_P + 2 * KT * S::SC + 2 * KT * S_PERM_P + (S::CUM_SMEM ? 2 * Q : 0);
 }
 
+template <int NW>
 __host__ __device__ inline int bwd_row_smem_floats(int Q) {
-  return RT * S_K + RT * S_P + 2 * KT * S_C + 2 * KT * S_P + 2 * Q;
+  using S = BwdStrides<NW>;
+  return RT * S::SK + RT * S_P + 2 * KT * S::SC + 2 * KT * S::SX + (S::CUM_SMEM ? 2 * Q : 0);
 }
 
 // columns [width, full) of `rows` rows of stride `stride` set to zero: the
@@ -560,6 +615,15 @@ __device__ __forceinline__ void zero_pad(float* base, int stride, int rows, int 
   const int pad = full - width;
   for (int e = threadIdx.x; e < rows * pad; e += blockDim.x)
     base[(e / pad) * stride + width + e % pad] = 0.f;
+}
+
+// exp(d) as 2^(d log2 e) on the special-function unit: d is a difference
+// of two cumsums, exact where they are close; about 2^-22 of the value
+// (flushes results below 2^-126 to 0)
+__device__ __forceinline__ float exp_fast(float d) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(d * 1.44269504088896341f));
+  return y;
 }
 
 // the sum over the 4 lanes of a fragment row (lanes 4g .. 4g + 3)
@@ -580,13 +644,13 @@ __device__ __forceinline__ void product_kn(float (*d)[4], AFrag a, const float* 
     a(k0, av);
     uint32_t ah[4], al[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) split(av[r], ah[r], al[r]);
+    for (int r = 0; r < 4; ++r) split_trunc(av[r], ah[r], al[r]);
     const float* b0 = b + (k0 + q) * SB + n0 + g;
     uint32_t bh[8][2], bl[8][2];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      split(b0[8 * u], bh[u][0], bl[u][0]);
-      split(b0[8 * u + 4 * SB], bh[u][1], bl[u][1]);
+      split_trunc(b0[8 * u], bh[u][0], bl[u][0]);
+      split_trunc(b0[8 * u + 4 * SB], bh[u][1], bl[u][1]);
     }
     mma_3xtf32<8>(d, ah, al, bh, bl);
   }
@@ -594,32 +658,32 @@ __device__ __forceinline__ void product_kn(float (*d)[4], AFrag a, const float* 
 
 // d[0 .. 8 U) += A B, A the accumulator tile s (16 rows x 32 columns, the
 // columns permuted as kernel 3's P x takes them) and B's rows 8t + 2q, + 1 of
-// stride SB, columns 8u + g
-template <int U, int SB>
+// stride SB, columns 8u + g; GRP n-tiles at a time (4 holds fewer registers)
+template <int U, int SB, int GRP = 8>
 __device__ __forceinline__ void product_perm(float (*d)[4], const float (&s)[4][4],
                                              const float* b, int g, int q) {
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     uint32_t ah[4], al[4];
-    split(s[t][0], ah[0], al[0]);
-    split(s[t][2], ah[1], al[1]);
-    split(s[t][1], ah[2], al[2]);
-    split(s[t][3], ah[3], al[3]);
+    split_trunc(s[t][0], ah[0], al[0]);
+    split_trunc(s[t][2], ah[1], al[1]);
+    split_trunc(s[t][1], ah[2], al[2]);
+    split_trunc(s[t][3], ah[3], al[3]);
     const float* b0 = b + (8 * t + 2 * q) * SB + g;
 #pragma unroll
-    for (int u0 = 0; u0 < U; u0 += 8) {
-      uint32_t bh[8][2], bl[8][2];
+    for (int u0 = 0; u0 < U; u0 += GRP) {
+      uint32_t bh[GRP][2], bl[GRP][2];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        split(b0[8 * (u0 + u)], bh[u][0], bl[u][0]);
-        split(b0[8 * (u0 + u) + SB], bh[u][1], bl[u][1]);
+      for (int u = 0; u < GRP; ++u) {
+        split_trunc(b0[8 * (u0 + u)], bh[u][0], bl[u][0]);
+        split_trunc(b0[8 * (u0 + u) + SB], bh[u][1], bl[u][1]);
       }
-      mma_3xtf32<8>(d + u0, ah, al, bh, bl);
+      mma_3xtf32<GRP>(d + u0, ah, al, bh, bl);
     }
   }
 }
 
-// ---- 5. the key side of the chunk output's backward, and the chunk state's ----
+// ---- backward 3. the key side of the chunk output's, and the chunk state's ----
 
 // grid (n_jt * nc * BH): block k takes key tile k / (nc BH), so the key tiles
 // with the most causal query tiles start first. Four warps own 16 keys each;
@@ -630,10 +694,11 @@ __device__ __forceinline__ void product_perm(float (*d)[4], const float (&s)[4][
 //   dx_j   = sum_i M_ij g_i + w_j D B_j
 //   dB_j   = sum_i G_ij L_ij C_i + w_j D^T x_j
 //   ddt_j  = sum_i G_ij (C_i . B_j) E_ij + dw_j exp(total - cum_j)
-//   dcum_j = -sum_i G_ij M_ij - dw_j w_j      (the key side; kernel 6 adds the rest)
+//   dcum_j = -sum_i G_ij M_ij - dw_j w_j      (the key side; the row kernel adds the rest)
 //   tw_j   = dw_j w_j
 // and the block of key tile 0 writes lam_dot[chunk] = exp(total) <D, S_in>.
-__global__ void __launch_bounds__(CO_THREADS, 2)
+template <int NW>
+__global__ void __launch_bounds__(CO_THREADS, BwdStrides<NW>::BLOCKS)
 ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
                    const float* __restrict__ c, const float* __restrict__ dt,
                    const float* __restrict__ cum, const float* __restrict__ dy,
@@ -642,13 +707,12 @@ ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
                    float* __restrict__ dcum, float* __restrict__ tw,
                    float* __restrict__ lam_dot, int nc, int Q, int P, int N, int n_jt,
                    int vec) {
+  constexpr int S_K = BwdStrides<NW>::SK, S_C = BwdStrides<NW>::SC;
   extern __shared__ __align__(16) float smem[];
   float* Bs = smem;                   // [RT][S_K]: B of the key tile
   float* Xs = Bs + RT * S_K;          // [RT][S_P]: x of the key tile
   float* Cs = Xs + RT * S_P;          // [2][KT][S_C]: C of a query tile; D after
   float* Gs = Cs + 2 * KT * S_C;      // [2][KT][S_PERM_P]: g of a query tile
-  float* cum_s = Gs + 2 * KT * S_PERM_P;
-  float* dt_s = cum_s + Q;
   __shared__ float red[CO_THREADS / 32];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -656,14 +720,21 @@ ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
   const int per_jt = gridDim.x / n_jt;
   const size_t chunk = blockIdx.x % per_jt;
   const int j0 = (blockIdx.x / per_jt) * RT;
+  const float* cum_s = cum + chunk * Q;
+  const float* dt_s = dt + chunk * Q;
 
-  zero_pad(Bs, S_K, RT, N, MAX_N);
+  zero_pad(Bs, S_K, RT, N, NW);
   zero_pad(Xs, S_P, RT, P, MAX_P);
-  zero_pad(Cs, S_C, 2 * KT, N, MAX_N);
+  zero_pad(Cs, S_C, 2 * KT, N, NW);
   zero_pad(Gs, S_PERM_P, 2 * KT, P, MAX_P);
-  for (int e = threadIdx.x; e < Q; e += CO_THREADS) {
-    cum_s[e] = cum[chunk * Q + e];
-    dt_s[e] = dt[chunk * Q + e];
+  if constexpr (BwdStrides<NW>::CUM_SMEM) {
+    float* cs_ = Gs + 2 * KT * S_PERM_P;
+    for (int e = threadIdx.x; e < Q; e += CO_THREADS) {
+      cs_[e] = cum_s[e];
+      cs_[Q + e] = dt_s[e];
+    }
+    cum_s = cs_;
+    dt_s = cs_ + Q;
   }
   load_rows(Bs, S_K, b + chunk * Q * N + (size_t)j0 * N, N, RT, Q - j0, vec);
   load_rows(Xs, S_P, x + chunk * Q * P + (size_t)j0 * P, P, RT, Q - j0, vec);
@@ -673,13 +744,13 @@ ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
   const int r0 = j0 + m0;
   const bool rows_live = r0 < Q;
   const int ja = r0 + g, jb = ja + 8;  // this thread's two keys
-  float dx_acc[8][4], db_acc[16][4];
+  float dx_acc[8][4], db_acc[NW / 8][4];
 #pragma unroll
   for (int u = 0; u < 8; ++u)
 #pragma unroll
     for (int r = 0; r < 4; ++r) dx_acc[u][r] = 0.f;
 #pragma unroll
-  for (int u = 0; u < 16; ++u)
+  for (int u = 0; u < NW / 8; ++u)
 #pragma unroll
     for (int r = 0; r < 4; ++r) db_acc[u][r] = 0.f;
   float ddt_acc[2] = {0.f, 0.f}, dcum_acc[2] = {0.f, 0.f};
@@ -713,8 +784,8 @@ ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
       for (int t = 0; t < 4; ++t)
 #pragma unroll
         for (int r = 0; r < 4; ++r) sct[t][r] = gt[t][r] = 0.f;
-      product_rows<4, MAX_N, S_K, S_C>(sct, Bs, m0 + g, cs, g, q);          // B C^T
-      product_rows<4, MAX_P, S_P, S_PERM_P>(gt, Xs, m0 + g, gs, g, q);      // x g^T
+      product_rows<4, NW, S_K, S_C, true>(sct, Bs, m0 + g, cs, g, q);          // B C^T
+      product_rows<4, MAX_P, S_P, S_PERM_P, true>(gt, Xs, m0 + g, gs, g, q);      // x g^T
 #pragma unroll
       for (int t = 0; t < 4; ++t)
 #pragma unroll
@@ -726,7 +797,7 @@ ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
           for (int h = 0; h < 2; ++h) {
             const int i = i0 + 8 * t + 2 * q + h;
             const bool live = j <= i && i < Q && j < Q;  // selects: E overflows above
-            const float E = live ? expf(cum_s[min(i, Q - 1)] - cj) : 0.f;
+            const float E = live ? exp_fast(cum_s[min(i, Q - 1)] - cj) : 0.f;
             const float L = E * dj;
             const float sc = sct[t][2 * r + h], gv = gt[t][2 * r + h];
             const float M = sc * L;
@@ -736,8 +807,8 @@ ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
             gt[t][2 * r + h] = gv * L;
           }
         }
-      product_perm<8, S_PERM_P>(dx_acc, sct, gs, g, q);  // dx += M^T g
-      product_perm<16, S_C>(db_acc, gt, cs, g, q);       // dB += (G o L)^T C
+      product_perm<8, S_PERM_P, NW == 64 ? 4 : 8>(dx_acc, sct, gs, g, q);  // dx += M^T g
+      product_perm<NW / 8, S_C, NW == 64 ? 4 : 8>(db_acc, gt, cs, g, q);       // dB += (G o L)^T C
     }
     __syncthreads();  // slot k & 1 is free for tile k + 2
   }
@@ -750,30 +821,37 @@ ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
   __syncthreads();
   const float total = cum_s[Q - 1];
   if (rows_live) {
-    float dbt[8][4];  // (B D^T): keys ja, jb x p = 8u + 2q, + 1
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) dbt[u][r] = 0.f;
-    product_rows<8, MAX_N, S_K, S_C>(dbt, Bs, m0 + g, Ds, g, q);
-    float w[2], dw[2];
+    // B D^T (keys ja, jb x p = 8u + 2q, + 1) in two halves of p, each
+    // added to dx and to dw as soon as it is done
+    float w[2], dws[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int j = r ? jb : ja;
       const int jc = min(j, Q - 1);
       w[r] = j < Q ? expf(total - cum_s[jc]) * dt_s[jc] : 0.f;
-      const float* xr = Xs + (m0 + g + 8 * r) * S_P;
-      float s = 0.f;
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) s += xr[8 * u + 2 * q + h] * dbt[u][2 * r + h];
-      dw[r] = quad_sum(s);
     }
 #pragma unroll
-    for (int u = 0; u < 8; ++u)
+    for (int hf = 0; hf < 2; ++hf) {
+      float dbt[4][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dx_acc[u][e] += w[e >> 1] * dbt[u][e];
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dbt[u][r] = 0.f;
+      product_rows<4, NW, S_K, S_C, true>(dbt, Bs, m0 + g, Ds, g + 32 * hf, q);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float* xr = Xs + (m0 + g + 8 * r) * S_P + 32 * hf;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) dws[r] += xr[8 * u + 2 * q + h] * dbt[u][2 * r + h];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dx_acc[4 * hf + u][e] += w[e >> 1] * dbt[u][e];
+    }
+    const float dw[2] = {quad_sum(dws[0]), quad_sum(dws[1])};
     // dB += (w o x) D, A read [j][p] from x, B [p][n] from D
     const float* xa = Xs + (m0 + g) * S_P;
     const float* xb = xa + 8 * S_P;
@@ -783,8 +861,8 @@ ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
       av[2] = w[0] * xa[k0 + q + 4];
       av[3] = w[1] * xb[k0 + q + 4];
     };
-    product_kn<MAX_P, S_C>(db_acc, afrag, Ds, 0, g, q);
-    product_kn<MAX_P, S_C>(db_acc + 8, afrag, Ds, 64, g, q);
+#pragma unroll
+    for (int h = 0; h < NW / 64; ++h) product_kn<MAX_P, S_C>(db_acc + 8 * h, afrag, Ds, 64 * h, g, q);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int j = r ? jb : ja;
@@ -809,7 +887,7 @@ ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
         for (int h = 0; h < 2; ++h)
           if (8 * u + 2 * q + h < P) dxg[(size_t)j * P + 8 * u + 2 * q + h] = dx_acc[u][2 * r + h];
 #pragma unroll
-      for (int u = 0; u < 16; ++u)
+      for (int u = 0; u < NW / 8; ++u)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           if (8 * u + 2 * q + h < N) dbg[(size_t)j * N + 8 * u + 2 * q + h] = db_acc[u][2 * r + h];
@@ -833,7 +911,7 @@ ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
   }
 }
 
-// ---- 6. the row side of the chunk output's backward -------------------------------
+// ---- backward 4. the row side of the chunk output's ------------------------------
 
 // grid (n_rt * nc * BH), the heaviest row tiles first, as kernel 3: four warps
 // own 16 query rows each; the key tiles (32 rows of B and x) stream through
@@ -841,21 +919,22 @@ ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
 //   dC_i   = exp(cum_i) g_i S_in + sum_{j <= i} G_ij L_ij B_j
 //   dcum_i = dcum_key_i + exp(cum_i) g_i . (C_i S_in^T) + sum_j G_ij M_ij
 //            (+ sum_j tw_j + lam_dot at the chunk's last position)
-// over kernel 5's dcum, which holds the key side.
-__global__ void __launch_bounds__(CO_THREADS, 2)
+// over the key kernel's dcum, which holds the key side.
+template <int NW>
+__global__ void __launch_bounds__(CO_THREADS, BwdStrides<NW>::BLOCKS)
 ssd_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ b,
                    const float* __restrict__ c, const float* __restrict__ dt,
                    const float* __restrict__ cum, const float* __restrict__ dy,
                    const float* __restrict__ entering, const float* __restrict__ tw,
                    const float* __restrict__ lam_dot, float* __restrict__ dc,
                    float* __restrict__ dcum, int nc, int Q, int P, int N, int n_rt, int vec) {
+  constexpr int S_K = BwdStrides<NW>::SK, S_C = BwdStrides<NW>::SC, S_X = BwdStrides<NW>::SX;
   extern __shared__ __align__(16) float smem[];
   float* Cs = smem;                  // [RT][S_K]: C of the row tile
   float* Gs = Cs + RT * S_K;         // [RT][S_P]: g of the row tile
   float* Bs = Gs + RT * S_P;         // [2][KT][S_C]: B of a key tile; S_in first
-  float* Xs = Bs + 2 * KT * S_C;     // [2][KT][S_P]: x of a key tile
-  float* cum_s = Xs + 2 * KT * S_P;
-  float* dt_s = cum_s + Q;
+  float* Xs = Bs + 2 * KT * S_C;     // [2][KT][S_X]: x of a key tile
+  __shared__ float red[CO_THREADS / 32];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
@@ -863,14 +942,21 @@ ssd_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ b,
   const size_t chunk = blockIdx.x % per_rt;
   const int i0 = (n_rt - 1 - blockIdx.x / per_rt) * RT;
   const bool has_state = chunk % nc != 0;
+  const float* cum_s = cum + chunk * Q;
+  const float* dt_s = dt + chunk * Q;
 
-  zero_pad(Cs, S_K, RT, N, MAX_N);
+  zero_pad(Cs, S_K, RT, N, NW);
   zero_pad(Gs, S_P, RT, P, MAX_P);
-  zero_pad(Bs, S_C, 2 * KT, N, MAX_N);
-  zero_pad(Xs, S_P, 2 * KT, P, MAX_P);
-  for (int e = threadIdx.x; e < Q; e += CO_THREADS) {
-    cum_s[e] = cum[chunk * Q + e];
-    dt_s[e] = dt[chunk * Q + e];
+  zero_pad(Bs, S_C, 2 * KT, N, NW);
+  zero_pad(Xs, S_X, 2 * KT, P, MAX_P);
+  if constexpr (BwdStrides<NW>::CUM_SMEM) {
+    float* cs_ = Xs + 2 * KT * S_X;
+    for (int e = threadIdx.x; e < Q; e += CO_THREADS) {
+      cs_[e] = cum_s[e];
+      cs_[Q + e] = dt_s[e];
+    }
+    cum_s = cs_;
+    dt_s = cs_ + Q;
   }
   load_rows(Cs, S_K, c + chunk * Q * N + (size_t)i0 * N, N, RT, Q - i0, vec);
   load_rows(Gs, S_P, dy + chunk * Q * P + (size_t)i0 * P, P, RT, Q - i0, vec);
@@ -881,9 +967,9 @@ ssd_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ b,
   const int r0 = i0 + m0;
   const bool rows_live = r0 < Q;
   const int ia = r0 + g, ib = ia + 8;
-  float dc_acc[16][4];
+  float dc_acc[NW / 8][4];
 #pragma unroll
-  for (int u = 0; u < 16; ++u)
+  for (int u = 0; u < NW / 8; ++u)
 #pragma unroll
     for (int r = 0; r < 4; ++r) dc_acc[u][r] = 0.f;
   float dcum_acc[2] = {0.f, 0.f};
@@ -897,7 +983,7 @@ ssd_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ b,
       for (int u = 0; u < 8; ++u)
 #pragma unroll
         for (int r = 0; r < 4; ++r) yi[u][r] = 0.f;
-      product_rows<8, MAX_N, S_K, S_C>(yi, Cs, m0 + g, Bs, g, q);
+      product_rows<8, NW, S_K, S_C, true>(yi, Cs, m0 + g, Bs, g, q);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const float* gr = Gs + (m0 + g + 8 * r) * S_P;
@@ -914,13 +1000,14 @@ ssd_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ b,
         av[2] = ga[k0 + q + 4];
         av[3] = gb[k0 + q + 4];
       };
-      product_kn<MAX_P, S_C>(dc_acc, afrag, Bs, 0, g, q);       // g S_in
-      product_kn<MAX_P, S_C>(dc_acc + 8, afrag, Bs, 64, g, q);
+#pragma unroll
+      for (int h = 0; h < NW / 64; ++h)  // g S_in
+        product_kn<MAX_P, S_C>(dc_acc + 8 * h, afrag, Bs, 64 * h, g, q);
       const float ea = expf(cum_s[min(ia, Q - 1)]), eb = expf(cum_s[min(ib, Q - 1)]);
       dcum_acc[0] *= ea;
       dcum_acc[1] *= eb;
 #pragma unroll
-      for (int u = 0; u < 16; ++u) {
+      for (int u = 0; u < NW / 8; ++u) {
         dc_acc[u][0] *= ea;
         dc_acc[u][1] *= ea;
         dc_acc[u][2] *= eb;
@@ -936,7 +1023,7 @@ ssd_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ b,
     const int j0 = kt * KT;
     load_rows(Bs + (kt & 1) * KT * S_C, S_C, b + chunk * Q * N + (size_t)j0 * N, N, KT,
               Q - j0, vec);
-    load_rows(Xs + (kt & 1) * KT * S_P, S_P, x + chunk * Q * P + (size_t)j0 * P, P, KT,
+    load_rows(Xs + (kt & 1) * KT * S_X, S_X, x + chunk * Q * P + (size_t)j0 * P, P, KT,
               Q - j0, vec);
     cp_async_commit();
   };
@@ -952,14 +1039,14 @@ ssd_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ b,
     const int j0 = kt * KT;
     if (rows_live && j0 <= r0 + 15) {
       const float* bs = Bs + (kt & 1) * KT * S_C;
-      const float* xs = Xs + (kt & 1) * KT * S_P;
+      const float* xs = Xs + (kt & 1) * KT * S_X;
       float sc[4][4], gg[4][4];  // rows ia, ib x keys j0 + 8t + 2q, + 1
 #pragma unroll
       for (int t = 0; t < 4; ++t)
 #pragma unroll
         for (int r = 0; r < 4; ++r) sc[t][r] = gg[t][r] = 0.f;
-      product_rows<4, MAX_N, S_K, S_C>(sc, Cs, m0 + g, bs, g, q);  // C B^T
-      product_rows<4, MAX_P, S_P, S_P>(gg, Gs, m0 + g, xs, g, q);  // g x^T
+      product_rows<4, NW, S_K, S_C, true>(sc, Cs, m0 + g, bs, g, q);  // C B^T
+      product_rows<4, MAX_P, S_P, S_X, true>(gg, Gs, m0 + g, xs, g, q);  // g x^T
 #pragma unroll
       for (int t = 0; t < 4; ++t)
 #pragma unroll
@@ -971,17 +1058,30 @@ ssd_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ b,
             const int j = j0 + 8 * t + 2 * q + h;
             const int jc = min(j, Q - 1);
             const bool live = j <= i && i < Q;
-            const float L = live ? expf(ci - cum_s[jc]) * dt_s[jc] : 0.f;
+            const float L = live ? exp_fast(ci - cum_s[jc]) * dt_s[jc] : 0.f;
             const float gl = gg[t][2 * r + h] * L;
             dcum_acc[r] += gl * sc[t][2 * r + h];
             gg[t][2 * r + h] = gl;
           }
         }
-      product_perm<16, S_C>(dc_acc, gg, bs, g, q);  // dC += (G o L) B
+      product_perm<NW / 8, S_C>(dc_acc, gg, bs, g, q);  // dC += (G o L) B
     }
     __syncthreads();
   }
 
+  // the chunk total's gradient through the carry, sum_j tw_j + lam_dot, at
+  // the chunk's last position: the block that holds it sums tw, each thread
+  // a share, in a fixed order
+  float tail = 0.f;
+  if (i0 + RT >= Q) {
+    float t = 0.f;
+    for (int j = threadIdx.x; j < Q; j += CO_THREADS) t += tw[chunk * Q + j];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+    if (lane == 0) red[warp] = t;
+    __syncthreads();
+    tail = (red[0] + red[1]) + (red[2] + red[3]) + lam_dot[chunk];
+  }
   if (!rows_live) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -989,13 +1089,7 @@ ssd_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ b,
     const float s = quad_sum(dcum_acc[r]);
     if (q == 0 && i < Q) {
       const size_t o = chunk * Q + i;
-      float v = dcum[o] + s;
-      if (i == Q - 1) {  // the chunk total's gradient through the carry
-        float t = 0.f;
-        for (int j = 0; j < Q; ++j) t += tw[chunk * Q + j];
-        v += t + lam_dot[chunk];
-      }
-      dcum[o] = v;
+      dcum[o] = dcum[o] + s + (i == Q - 1 ? tail : 0.f);
     }
   }
   float* dcg = dc + chunk * Q * N;
@@ -1004,29 +1098,145 @@ ssd_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ b,
     const int i = r ? ib : ia;
     if (i >= Q) continue;
 #pragma unroll
-    for (int u = 0; u < 16; ++u)
+    for (int u = 0; u < NW / 8; ++u)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         if (8 * u + 2 * q + h < N) dcg[(size_t)i * N + 8 * u + 2 * q + h] = dc_acc[u][2 * r + h];
   }
 }
 
-// ---- 4. the state passing in reverse ------------------------------------------
+// ---- backward 1. the chunk states and dS_in ------------------------------------
 
-// grid (ceil(P N / SP_THREADS), BH): in place over dS_in, from the last chunk:
-// dS_loc[c] = R[c+1] (0 for the last), R[c] = dS_in[c] + exp(total_c) R[c+1]
+// grid (nc, BH, 2): z = 0 is kernel 1, states[c] = x^T (w o B) with
+// w_j = exp(total - cum_j) dt_j; z = 1 writes dstates[c] = dS_in[c] =
+// (exp(cum) o g)^T C, g and C in the places of x and B. As kernel 1, at state
+// width NW: warp w owns rows p in [16 (w % 4), +16) and columns n in
+// [NW/2 (w / 4), +NW/2).
+template <int NW>
+__global__ void __launch_bounds__(CS_THREADS)
+ssd_bwd_states_kernel(const float* __restrict__ x, const float* __restrict__ b,
+                      const float* __restrict__ dy, const float* __restrict__ c,
+                      const float* __restrict__ dt, const float* __restrict__ cum,
+                      float* __restrict__ states, float* __restrict__ dstates, int nc, int Q,
+                      int P, int N, int vec) {
+  constexpr int SCN = NW + 8;  // B (or C) read as [k][n]: 8 mod 32
+  constexpr int NT = NW / 16;  // n-tiles of a warp
+  extern __shared__ __align__(16) float smem[];
+  float* Xs = smem;                   // [2][KT][S_COL_P]
+  float* Bs = Xs + 2 * KT * S_COL_P;  // [2][KT][SCN]
+  float* ws = Bs + 2 * KT * SCN;      // the weights of the chunk, 0 past Q
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const bool grad = blockIdx.z != 0;
+  const size_t chunk = (size_t)blockIdx.y * nc + blockIdx.x;
+  const float* xg = (grad ? dy : x) + chunk * Q * P;
+  const float* bg = (grad ? c : b) + chunk * Q * N;
+  const float* cg = cum + chunk * Q;
+  const float* dg = dt + chunk * Q;
+  const int nkt = (Q + KT - 1) / KT;
+
+  auto load_tile = [&](int kt) {
+    const int j0 = kt * KT;
+    load_rows(Xs + (kt & 1) * KT * S_COL_P, S_COL_P, xg + (size_t)j0 * P, P, KT, Q - j0, vec);
+    load_rows(Bs + (kt & 1) * KT * SCN, SCN, bg + (size_t)j0 * N, N, KT, Q - j0, vec);
+    cp_async_commit();
+  };
+  load_tile(0);
+  const float total = cg[Q - 1];
+  for (int j = threadIdx.x; j < nkt * KT; j += CS_THREADS)
+    ws[j] = j >= Q ? 0.f : grad ? expf(cg[j]) : expf(total - cg[j]) * dg[j];
+
+  const int m0 = 16 * (warp & 3), n0 = (NW / 2) * (warp >> 2);
+  const bool active = m0 < P && n0 < N;
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[t][r] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {
+      load_tile(kt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile kt (and, the first time, ws) is in place
+    if (active) {
+      const float* xs = Xs + (kt & 1) * KT * S_COL_P;
+      const float* bs = Bs + (kt & 1) * KT * SCN;
+      const float* w = ws + kt * KT;
+#pragma unroll
+      for (int k0 = 0; k0 < KT; k0 += 8) {
+        const float w0 = w[k0 + q], w1 = w[k0 + q + 4];
+        const float* x0 = xs + (k0 + q) * S_COL_P + m0 + g;
+        const float* x1 = x0 + 4 * S_COL_P;
+        uint32_t ah[4], al[4];
+        split_trunc(x0[0] * w0, ah[0], al[0]);
+        split_trunc(x0[8] * w0, ah[1], al[1]);
+        split_trunc(x1[0] * w1, ah[2], al[2]);
+        split_trunc(x1[8] * w1, ah[3], al[3]);
+        const float* b0 = bs + (k0 + q) * SCN + n0 + g;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          uint32_t bh[1][2], bl[1][2];
+          split_trunc(b0[8 * t], bh[0][0], bl[0][0]);
+          split_trunc(b0[8 * t + 4 * SCN], bh[0][1], bl[0][1]);
+          mma_3xtf32<1>(acc + t, ah, al, bh, bl);
+        }
+      }
+    }
+    __syncthreads();  // slot kt & 1 is free for tile kt + 2
+  }
+
+  if (!active) return;
+  float* sg = (grad ? dstates : states) + chunk * P * N;
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = m0 + g + 8 * h, n = n0 + 8 * t + 2 * q;
+      if (p >= P) continue;
+      if (n < N) sg[(size_t)p * N + n] = acc[t][2 * h];
+      if (n + 1 < N) sg[(size_t)p * N + n + 1] = acc[t][2 * h + 1];
+    }
+}
+
+template <int NW>
+__host__ __device__ inline int bwd_states_smem_floats(int Q) {
+  return 2 * KT * (S_COL_P + NW + 8) + round_up(Q, KT);
+}
+
+// ---- backward 2. the state passing, forward then in reverse ---------------------
+
+// grid (ceil(P N / SP_THREADS), BH), one thread per state element, in place:
+// forward over the chunks, states[c] becomes the state entering chunk c (as
+// kernel 2); then from the last chunk, dstates[c] = dS_loc[c] = R[c+1] (0
+// for the last), R[c] = dS_in[c] + exp(total_c) R[c+1]
 __global__ void __launch_bounds__(SP_THREADS)
-ssd_state_passing_bwd_kernel(float* __restrict__ dstates, const float* __restrict__ cum,
-                             int nc, int Q, int PN) {
+ssd_bwd_passing_kernel(float* __restrict__ states, float* __restrict__ dstates,
+                       const float* __restrict__ cum, int nc, int Q, int PN) {
   const int e = blockIdx.x * SP_THREADS + threadIdx.x;
   if (e >= PN) return;
   const size_t bh = blockIdx.y;
-  float* s = dstates + bh * nc * PN + e;
+  float* s = states + bh * nc * PN + e;
+  float* ds = dstates + bh * nc * PN + e;
   const float* total = cum + bh * nc * Q + (Q - 1);
+  float S = 0.f;
+  float next = s[0];
+  for (int c = 0; c < nc; ++c) {
+    const float local = next;
+    if (c + 1 < nc) next = s[(size_t)(c + 1) * PN];
+    s[(size_t)c * PN] = S;
+    S = expf(total[(size_t)c * Q]) * S + local;
+  }
   float R = 0.f;
+  next = ds[(size_t)(nc - 1) * PN];
   for (int c = nc - 1; c >= 0; --c) {
-    const float d_in = s[(size_t)c * PN];
-    s[(size_t)c * PN] = R;
+    const float d_in = next;
+    if (c > 0) next = ds[(size_t)(c - 1) * PN];
+    ds[(size_t)c * PN] = R;
     R = d_in + expf(total[(size_t)c * Q]) * R;
   }
 }
@@ -1075,7 +1285,7 @@ extern "C" int ssd_chunk_state(const void* x, const void* b, const void* dt,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(b),
       static_cast<const float*>(dt), static_cast<const float*>(cum),
-      static_cast<float*>(states), nc, Q, P, N, vector_loads(P, N, x, b, x), 0);
+      static_cast<float*>(states), nc, Q, P, N, vector_loads(P, N, x, b, x));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1125,64 +1335,81 @@ extern "C" int ssd_chunk_scan_staged(const void* x, const void* b, const void* c
   return err;
 }
 
+// The backward's key and row kernels (launches 3 and 4) at state width NW.
+template <int NW>
+int bwd_sides(const float* const (&f)[6], const float* states, const float* dstates, float* tw,
+              float* lam_dot, float* dx, float* db, float* dc, float* ddt, float* dcum,
+              int BH, int nc, int Q, int P, int N, int vec, cudaStream_t st) {
+  const int n_t = (Q + RT - 1) / RT;
+  if (static_cast<long long>(n_t) * nc * BH > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t key_smem = sizeof(float) * static_cast<size_t>(bwd_key_smem_floats<NW>(Q));
+  const size_t row_smem = sizeof(float) * static_cast<size_t>(bwd_row_smem_floats<NW>(Q));
+  cudaError_t e = set_smem(reinterpret_cast<const void*>(ssd_bwd_key_kernel<NW>), key_smem);
+  if (e == cudaSuccess)
+    e = set_smem(reinterpret_cast<const void*>(ssd_bwd_row_kernel<NW>), row_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_bwd_key_kernel<NW><<<n_t * nc * BH, CO_THREADS, key_smem, st>>>(
+      f[0], f[1], f[2], f[3], f[4], f[5], states, dstates, dx, db, ddt, dcum, tw, lam_dot, nc,
+      Q, P, N, n_t, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_bwd_row_kernel<NW><<<n_t * nc * BH, CO_THREADS, row_smem, st>>>(
+      f[0], f[1], f[2], f[3], f[4], f[5], states, tw, lam_dot, dc, dcum, nc, Q, P, N, n_t, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The backward of the scan, from its five inputs and dy (the shape of y):
 // dx, dy-shaped; db, dc (BH, nc, Q, N); ddt, dcum (BH, nc, Q). Scratch:
 // states and dstates (BH, nc, P, N), tw (BH, nc, Q), lam_dot (BH, nc).
-// Kernels 1 and 2 recompute the states entering each chunk into `states`;
-// kernel 1 with exp(cum) weights writes dS_in = (exp(cum) o g)^T C into
-// `dstates`; kernel 4 passes it back over the chunks in place (dS_loc);
-// kernel 5 (per key tile) writes dx, db, ddt and dcum's key side, kernel 6
-// (per query tile) dc and the rest of dcum.
+// `width` is the state width the kernels are instantiated on, 64 or 128, at
+// least N (the wrapper's `_bwd_width`). Launch 1 writes each chunk's own
+// state into `states` and dS_in = (exp(cum) o g)^T C into `dstates`; launch 2
+// turns them in place into the states entering each chunk and dS_loc; launch
+// 3 (per key tile) writes dx, db, ddt and dcum's key side, launch 4 (per
+// query tile) dc and the rest of dcum.
 extern "C" int ssd_chunk_scan_bwd(const void* x, const void* b, const void* c,
                                   const void* dt, const void* cum, const void* dy,
                                   void* states, void* dstates, void* tw, void* lam_dot,
                                   void* dx, void* db, void* dc, void* ddt, void* dcum,
-                                  int BH, int nc, int Q, int P, int N, void* stream) {
-  if (bad_shape(BH, nc, Q, P, N)) return static_cast<int>(cudaErrorInvalidValue);
+                                  int BH, int nc, int Q, int P, int N, int width,
+                                  void* stream) {
+  if (bad_shape(BH, nc, Q, P, N) || (width != 64 && width != 128) || N > width)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = ssd_chunk_state(x, b, dt, cum, states, BH, nc, Q, P, N, stream);
-  if (err == 0) err = ssd_state_passing(states, cum, nullptr, BH, nc, Q, P, N, stream);
-  if (err != 0) return err;
   const float* cm = static_cast<const float*>(cum);
-  const size_t cs_smem = sizeof(float) * static_cast<size_t>(chunk_state_smem_floats(Q));
-  cudaError_t e = set_smem(reinterpret_cast<const void*>(ssd_chunk_state_kernel), cs_smem);
+  const int svec = vector_loads(P, N, x, b, c) && aligned16(dy);
+  const size_t st_smem = sizeof(float) * static_cast<size_t>(
+      width == 64 ? bwd_states_smem_floats<64>(Q) : bwd_states_smem_floats<128>(Q));
+  auto states_kernel = width == 64 ? ssd_bwd_states_kernel<64> : ssd_bwd_states_kernel<128>;
+  cudaError_t e = set_smem(reinterpret_cast<const void*>(states_kernel), st_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_chunk_state_kernel<<<dim3(nc, BH), CS_THREADS, cs_smem, st>>>(
-      static_cast<const float*>(dy), static_cast<const float*>(c), cm, cm,
-      static_cast<float*>(dstates), nc, Q, P, N, vector_loads(P, N, dy, c, dy), 1);
+  states_kernel<<<dim3(nc, BH, 2), CS_THREADS, st_smem, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(b),
+      static_cast<const float*>(dy), static_cast<const float*>(c),
+      static_cast<const float*>(dt), cm, static_cast<float*>(states),
+      static_cast<float*>(dstates), nc, Q, P, N, svec);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int PN = P * N;
-  ssd_state_passing_bwd_kernel<<<dim3((PN + SP_THREADS - 1) / SP_THREADS, BH), SP_THREADS, 0,
-                                 st>>>(static_cast<float*>(dstates), cm, nc, Q, PN);
+  ssd_bwd_passing_kernel<<<dim3((PN + SP_THREADS - 1) / SP_THREADS, BH), SP_THREADS, 0, st>>>(
+      static_cast<float*>(states), static_cast<float*>(dstates), cm, nc, Q, PN);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_t = (Q + RT - 1) / RT;
-  if (static_cast<long long>(n_t) * nc * BH > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
   const int vec = vector_loads(P, N, x, b, c) && aligned16(dy) && aligned16(states) &&
                   aligned16(dstates);
-  const size_t key_smem = sizeof(float) * static_cast<size_t>(bwd_key_smem_floats(Q));
-  const size_t row_smem = sizeof(float) * static_cast<size_t>(bwd_row_smem_floats(Q));
-  e = set_smem(reinterpret_cast<const void*>(ssd_bwd_key_kernel), key_smem);
-  if (e == cudaSuccess) e = set_smem(reinterpret_cast<const void*>(ssd_bwd_row_kernel), row_smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const float* f[6] = {static_cast<const float*>(x), static_cast<const float*>(b),
-                       static_cast<const float*>(c), static_cast<const float*>(dt), cm,
-                       static_cast<const float*>(dy)};
-  ssd_bwd_key_kernel<<<n_t * nc * BH, CO_THREADS, key_smem, st>>>(
-      f[0], f[1], f[2], f[3], f[4], f[5], static_cast<const float*>(states),
-      static_cast<const float*>(dstates), static_cast<float*>(dx), static_cast<float*>(db),
-      static_cast<float*>(ddt), static_cast<float*>(dcum), static_cast<float*>(tw),
-      static_cast<float*>(lam_dot), nc, Q, P, N, n_t, vec);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_bwd_row_kernel<<<n_t * nc * BH, CO_THREADS, row_smem, st>>>(
-      f[0], f[1], f[2], f[3], f[4], f[5], static_cast<const float*>(states),
-      static_cast<const float*>(tw), static_cast<const float*>(lam_dot),
-      static_cast<float*>(dc), static_cast<float*>(dcum), nc, Q, P, N, n_t, vec);
-  return static_cast<int>(cudaGetLastError());
+  const float* const f[6] = {static_cast<const float*>(x), static_cast<const float*>(b),
+                             static_cast<const float*>(c), static_cast<const float*>(dt), cm,
+                             static_cast<const float*>(dy)};
+  auto sides = width == 64 ? bwd_sides<64> : bwd_sides<128>;
+  return sides(f, static_cast<const float*>(states), static_cast<const float*>(dstates),
+               static_cast<float*>(tw), static_cast<float*>(lam_dot), static_cast<float*>(dx),
+               static_cast<float*>(db), static_cast<float*>(dc), static_cast<float*>(ddt),
+               static_cast<float*>(dcum), BH, nc, Q, P, N, vec, st);
 }
+
+// The interface of ssd_chunk_scan_bwd: 2 since it takes `width`.
+extern "C" int ssd_bwd_interface() { return 2; }
 
 extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

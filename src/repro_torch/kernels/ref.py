@@ -126,6 +126,16 @@ def flash_dq_rounding_bound(q, k, o, do, *, causal=True, window=None,
     return scale * delta_err * kbar.abs()
 
 
+def ssd_grad_ratio(got: torch.Tensor, want: torch.Tensor,
+                   tol: float) -> torch.Tensor:
+    """``|got - want|`` over B3's backward bound, per element (above 1, or
+    NaN, misses): the forward's ``tol + tol * |want|`` with its absolute
+    term scaled to the gradient (times its root mean square), since the
+    five gradients run from 1e-2 to 1e3 in magnitude."""
+    rms = want.float().pow(2).mean().sqrt()
+    return (got - want).abs() / (tol * rms + tol * want.abs())
+
+
 def ssd_ref(xc, bc, cc, dtc, cum):
     """Recurrent oracle on the SSD kernel's chunk tensors, in float32.
 

@@ -34,13 +34,15 @@ LAUNCHES = 0
 #: Launches of each of the three CUDA kernels.
 STAGE_LAUNCHES = {"chunk_state": 0, "state_passing": 0, "chunk_output": 0}
 #: Backward passes run through the CUDA kernels, one per call of
-#: ``ssd_chunk_scan_bwd`` (its six kernels together).
+#: ``ssd_chunk_scan_bwd`` (its four kernels together).
 BWD_LAUNCHES = 0
 
 #: Largest head dim and state dim the CUDA kernels' tiles cover
 #: (mamba2-130m: 64 and 128).
 MAX_HEADDIM = 64
 MAX_STATE = 128
+#: The state widths the backward kernels are instantiated on.
+BWD_WIDTHS = (64, 128)
 
 
 def reset_launches() -> None:
@@ -129,11 +131,11 @@ def ssd_staged_plain(xc, bc, cc, dtc, cum) -> torch.Tensor:
 
 
 def ssd_state_passing_bwd_plain(ds_in, cum) -> torch.Tensor:
-    """Backward stage (b): the state passing in reverse over the chunks.
-    From ``ds_in[c]``, the gradient of the state entering chunk c through
-    chunk c's own output, ``R[c] = ds_in[c] + exp(total_c) R[c+1]``, and
-    the gradient of chunk c's own state ``S_loc[c]`` is ``R[c+1]`` (zero
-    for the last chunk). Returns those (B, H, nc, P, N)."""
+    """The state passing in reverse over the chunks. From ``ds_in[c]``,
+    the gradient of the state entering chunk c through chunk c's own
+    output, ``R[c] = ds_in[c] + exp(total_c) R[c+1]``, and the gradient of
+    chunk c's own state ``S_loc[c]`` is ``R[c+1]`` (zero for the last
+    chunk). Returns those (B, H, nc, P, N)."""
     lam = torch.exp(cum[..., -1])                                # (B,H,nc)
     R = torch.zeros_like(ds_in[:, :, 0])
     ds_loc = torch.empty_like(ds_in)
@@ -141,6 +143,27 @@ def ssd_state_passing_bwd_plain(ds_in, cum) -> torch.Tensor:
         ds_loc[:, :, c] = R
         R = ds_in[:, :, c] + lam[:, :, c, None, None] * R
     return ds_loc
+
+
+def ssd_bwd_states_plain(xc, bc, cc, dtc, cum, dy):
+    """The backward's first launch: each chunk's own state ``x^T (w o
+    B)``, the forward's stage 1 recomputed (:func:`ssd_chunk_state_plain`),
+    and ``dS_in[c] = sum_i exp(cum_i) g_i (x) C_i``, the gradient of the
+    state entering chunk c through chunk c's own output: the same product
+    with exp(cum) weights, g and C in the places of x and B. Returns
+    (states, ds_in), (B, H, nc, P, N) each."""
+    ds_in = torch.einsum("bhcip,bhcin->bhcpn", dy * torch.exp(cum)[..., None],
+                         cc)
+    return ssd_chunk_state_plain(xc, bc, dtc, cum), ds_in
+
+
+def ssd_bwd_passing_plain(states, ds_in, cum):
+    """The backward's second launch, one pass per state element: forward
+    over the chunks, the states entering each chunk
+    (:func:`ssd_state_passing_plain`); then in reverse, dS_loc
+    (:func:`ssd_state_passing_bwd_plain`). Returns (entering, ds_loc)."""
+    entering, _ = ssd_state_passing_plain(states, cum)
+    return entering, ssd_state_passing_bwd_plain(ds_in, cum)
 
 
 def _intra_terms(xc, bc, cc, dtc, cum, dy):
@@ -159,8 +182,8 @@ def _intra_terms(xc, bc, cc, dtc, cum, dy):
 
 
 def ssd_key_bwd_plain(xc, bc, cc, dtc, cum, dy, entering, ds_loc):
-    """Backward stage (c) and the key side of stage (a), per key j of a
-    chunk (one kernel): with M = (C B^T) o L and D = ``ds_loc[c]``,
+    """The key side of the chunk output's backward and the chunk state's
+    backward, per key j of a chunk (one kernel): with M = (C B^T) o L and D = ``ds_loc[c]``,
     w_j = exp(total - cum_j) dt_j and dw_j = x_j^T D B_j,
 
       dx_j   = sum_{i>=j} M_ij g_i + w_j D B_j
@@ -188,8 +211,8 @@ def ssd_key_bwd_plain(xc, bc, cc, dtc, cum, dy, entering, ds_loc):
 
 
 def ssd_row_bwd_plain(xc, bc, cc, dtc, cum, dy, entering, dcum_key, tail):
-    """The row side of backward stage (a), per query row i of a chunk
-    (one kernel, after the key side): with y_inter_i = exp(cum_i) C_i
+    """The row side of the chunk output's backward, per query row i of a
+    chunk (one kernel, after the key side): with y_inter_i = exp(cum_i) C_i
     S_in^T,
 
       dC_i   = exp(cum_i) g_i S_in + sum_{j<=i} G_ij L_ij B_j
@@ -208,18 +231,15 @@ def ssd_row_bwd_plain(xc, bc, cc, dtc, cum, dy, entering, dcum_key, tail):
 
 
 def ssd_bwd_staged_plain(xc, bc, cc, dtc, cum, dy):
-    """The backward of :func:`ssd_staged_plain`, stage by stage as the
-    backward kernels split it: the forward's chunk states and states
-    entering each chunk recomputed (kernels 1 and 2); (a) the gradient of
-    each entering state, ``sum_i exp(cum_i) g_i (x) C_i`` (kernel 1's
-    product); (b) the state passing in reverse; the key side of (a) with
-    (c); the row side of (a). Returns (dx, dB, dC, ddt, dcum), the
+    """The backward of :func:`ssd_staged_plain`, launch by launch as the
+    backward kernels split it: the chunk states and dS_in
+    (:func:`ssd_bwd_states_plain`); the state passing forward and in
+    reverse (:func:`ssd_bwd_passing_plain`); the key side with the chunk
+    state's backward (:func:`ssd_key_bwd_plain`); the row side
+    (:func:`ssd_row_bwd_plain`). Returns (dx, dB, dC, ddt, dcum), the
     gradients of the five inputs."""
-    entering, _ = ssd_state_passing_plain(
-        ssd_chunk_state_plain(xc, bc, dtc, cum), cum)
-    ds_in = torch.einsum("bhcip,bhcin->bhcpn", dy * torch.exp(cum)[..., None],
-                         cc)
-    ds_loc = ssd_state_passing_bwd_plain(ds_in, cum)
+    entering, ds_loc = ssd_bwd_passing_plain(
+        *ssd_bwd_states_plain(xc, bc, cc, dtc, cum, dy), cum)
     dx, dB, ddt, dcum_key, tail = ssd_key_bwd_plain(
         xc, bc, cc, dtc, cum, dy, entering, ds_loc)
     dC, dcum = ssd_row_bwd_plain(xc, bc, cc, dtc, cum, dy, entering,
@@ -282,12 +302,12 @@ def _checked(xc, bc, *tensors) -> tuple[int, ...]:
 
 def _call(entry: str, pointers, dims, device) -> None:
     """One C entry point of the library: pointers (tensors or None), then
-    the five ints, then the stream."""
+    the ints (the five dims, and the backward's width), then the stream."""
     lib = _build.load("ssd_scan")
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(
+        dims) + [ctypes.c_void_p]
     stream = torch.cuda.current_stream(device).cuda_stream
     code = fn(*(None if t is None else t.data_ptr() for t in pointers), *dims,
               stream)
@@ -386,12 +406,24 @@ def _launch(xc, bc, cc, dtc, cum) -> torch.Tensor:
     return y
 
 
+def _bwd_width(N: int) -> int:
+    """The state width the backward kernels run at for state dim N: the
+    smaller of :data:`BWD_WIDTHS` that holds N (columns past N are zero in
+    every tile, so a smaller width does fewer products)."""
+    for width in BWD_WIDTHS:
+        if N <= width:
+            return width
+    raise ValueError(f"ssd_chunk_scan backward: no kernel for N={N} > "
+                     f"{BWD_WIDTHS[-1]}")
+
+
 def _launch_bwd(xc, bc, cc, dtc, cum, dy):
     """Launch the backward kernels (``ssd_chunk_scan_bwd``) on the scan's
     five inputs and ``dy``: (dx, dB, dC, ddt, dcum), the five inputs'
     gradients. The wrapper allocates the kernels' scratch: the states
     entering each chunk and their gradients (B, H, nc, P, N), and per
-    position and per chunk the chunk total's terms."""
+    position and per chunk the chunk total's terms; and picks the state
+    width the kernels are instantiated on (:func:`_bwd_width`)."""
     global BWD_LAUNCHES
     dims = _checked(xc, bc, cc, dtc, cum)
     if tuple(dy.shape) != tuple(xc.shape) or dy.dtype != torch.float32:
@@ -409,7 +441,8 @@ def _launch_bwd(xc, bc, cc, dtc, cum, dy):
                                           dstates, tw, lam_dot, *grads)
         return grads
     _call("ssd_chunk_scan_bwd", (xc, bc, cc, dtc, cum, dy, states, dstates,
-                                 tw, lam_dot, *grads), dims, xc.device)
+                                 tw, lam_dot, *grads),
+          (*dims, _bwd_width(dims[4])), xc.device)
     BWD_LAUNCHES += 1
     return grads
 

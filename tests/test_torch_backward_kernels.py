@@ -206,26 +206,46 @@ def test_ptxas_spills_reads_each_kernels_line(chip_smoke):
         _TCB[0]: (0, 0), _FFMA: (28, 28), _TCB[1]: (16, 16)}
 
 
+_SSD_BWD = [f"_ZN55_GLOBAL__N__0b1c2d3e_11_ssd_scan_cu{k}ILi{w}EEEvPKf"
+            for k in ("18ssd_bwd_key_kernel", "18ssd_bwd_row_kernel",
+                      "21ssd_bwd_states_kernel") for w in (64, 128)] + [
+    "_ZN55_GLOBAL__N__0b1c2d3e_11_ssd_scan_cu22ssd_bwd_passing_kernelEPfS0_PKfiii"]
+_SSD_FWD = "_ZN55_GLOBAL__N__0b1c2d3e_11_ssd_scan_cu23ssd_chunk_output_kernelEPKf"
+
+
 @pytest.mark.parametrize("case,passes", [
     ("clean", True),          # 8 wgmma kernels, none spills; ffma may
     ("wgmma_spills", False),  # one wgmma kernel spills
     ("serialised", False),    # ptxas serialised a wgmma
     ("missing", False),       # fewer than the 8 wgmma kernels reported
+    ("ssd_spills", False),    # one of B3's backward kernels spills
+    ("ssd_serialised", False),  # ptxas serialised a wgmma of B3's library
+    ("ssd_missing", False),   # fewer than B3's 7 backward kernels reported
 ])
 def test_bwd_build_check(chip_smoke, monkeypatch, case, passes):
     """``check_bwd_build`` passes B2's backward library only with every
-    one of its 8 wgmma kernels at 0 spill bytes and no wgmma serialised."""
+    one of its 8 wgmma kernels at 0 spill bytes and no wgmma serialised,
+    and the SSD library only with B3's 7 backward kernels (key, row and
+    states at widths 64 and 128, the state passing) at 0 spill bytes and
+    none of its wgmma serialised; the forward's kernels may spill."""
     names = _TCB[:-1] if case == "missing" else _TCB
     log = "".join(_entry(n, 8 if case == "wgmma_spills" and i == 3 else 0)
                   for i, n in enumerate(names)) + _entry(_FFMA, 28)
     if case == "serialised":
         log = _SERIALISED + log
+    ssd_names = _SSD_BWD[1:] if case == "ssd_missing" else _SSD_BWD
+    ssd_log = "".join(_entry(n, 4 if case == "ssd_spills" and i == 2 else 0)
+                      for i, n in enumerate(ssd_names)) + _entry(_SSD_FWD, 16)
+    if case == "ssd_serialised":
+        ssd_log = _SERIALISED.replace(_TCB[0], _SSD_BWD[0]) + ssd_log
     monkeypatch.setattr(_build, "BUILD_LOG",
-                        {"flash_attention_bwd": (1.0, log)})
+                        {"flash_attention_bwd": (1.0, log),
+                         "ssd_scan": (1.0, ssd_log)})
     if passes:
         chip_smoke.check_bwd_build()
     else:
-        with pytest.raises(SystemExit, match="flash_attention_bwd"):
+        lib = "ssd_scan" if case.startswith("ssd") else "flash_attention_bwd"
+        with pytest.raises(SystemExit, match=lib):
             chip_smoke.check_bwd_build()
 
 
@@ -245,6 +265,28 @@ def test_kernel_ab_bwd_gate(shift, want):
     extras = (torch.zeros_like(ref[0]), None, None)
     assert kernel_ab.beyond(got, (ref, extras), 3e-2) == want
     assert kernel_ab.beyond(got[1], ref[1], 3e-2) == int(want > 0)
+
+
+@pytest.mark.parametrize("shift,want", [(0.0, 0), (1e-3, 0), (1.0, 5),
+                                        (float("nan"), 5)])
+def test_kernel_ab_b3_bwd_gate(chip_smoke, shift, want):
+    """``kernel_ab.py``'s gate on B3's backward counts the elements of the
+    five gradients beyond ``chip_smoke.b3_grad_ratio``'s bound (2e-4 of
+    each gradient's rms plus 2e-4 of the element): a shift of 1e-3 on an
+    element of size O(1) stays inside, 1 does not, NaN never does."""
+    sys.path.insert(0, str(ROOT))
+    import kernel_ab
+
+    rng = np.random.default_rng(4)
+    ref = [torch.from_numpy(rng.standard_normal((1, 2, 2, 8, 6)).astype(
+        np.float32) * 10) for _ in range(5)]
+    got = [r.clone() for r in ref]
+    for g in got:
+        g[0, 0, 0, 0, 0] += shift
+    assert kernel_ab.b3_beyond(got, ref) == want
+    assert kernel_ab.b3_beyond(got, ref) == sum(
+        int((~(chip_smoke.b3_grad_ratio(g, w) <= 1.0)).sum())
+        for g, w in zip(got, ref))
 
 
 # -- B3 ---------------------------------------------------------------------------
@@ -267,6 +309,45 @@ def test_b3_bwd_argument_checks(no_launch):
     wide = torch.zeros((2, 3, 3, 16, 80))
     with pytest.raises(ValueError, match="P <= 64"):
         ssd._launch_bwd(wide, b, c, dt, cum, wide)
+
+
+@pytest.mark.parametrize("N,width", [(1, 64), (20, 64), (64, 64), (65, 128),
+                                     (72, 128), (128, 128)])
+def test_b3_bwd_width_rule(N, width):
+    """The backward kernels run at the smaller of the two state widths
+    they are instantiated on that holds N; past 128 there is none."""
+    assert ssd._bwd_width(N) == width
+
+
+def test_b3_bwd_refuses_a_wide_state(no_launch):
+    """N past the widest instantiation raises before any launch, in the
+    wrapper's checks and in the width rule."""
+    x, b, c, dt, cum = _b3_chunks(N=12)
+    wide = torch.zeros((*b.shape[:4], 136))
+    with pytest.raises(ValueError, match="N <= 128"):
+        ssd._launch_bwd(x, wide, wide, dt, cum, x)
+    with pytest.raises(ValueError, match="N=136"):
+        ssd._bwd_width(136)
+
+
+@pytest.mark.parametrize("P,N,Q", [(40, 72, 20), (30, 20, 48), (64, 128, 64)])
+def test_b3_bwd_traced_route_shapes(no_launch, P, N, Q):
+    """At ragged shapes and at each width, the traced route on fake CUDA
+    tensors gives the five gradients of their inputs' shapes, one
+    registered backward op with the kernels' operation count, and the
+    scratch (the states and their gradients) in the trace's memory."""
+    B, H_, nc = 1, 2, 2
+    tr = H.Tracer()
+    with tr:
+        ins = _b3_chunks(B, H_, nc, Q, P, N, "cuda")
+    out = {}
+    a = H.analyze(lambda *t: out.setdefault(
+        "g", ssd._launch_bwd(*t, t[0])), *ins)
+    for g, t in zip(out["g"], ins):
+        assert tuple(g.shape) == tuple(t.shape) and g.device.type == "cuda"
+    assert a.launches("repro_torch.b3_scan_bwd") == 1
+    assert a.flops == work.ssd_bwd_work(B, H_, nc, Q, P, N)[0]
+    assert a.memory["temp_bytes"] >= 2 * B * H_ * nc * P * N * 4
 
 
 @pytest.mark.parametrize("device", ["meta", "cpu", "cuda"])
@@ -318,13 +399,14 @@ def test_b3_bwd_launches_count_one_per_backward(monkeypatch):
     the plain staged scan and the backward's C entry point by the plain
     stage-by-stage backward written into the kernels' outputs: each
     backward counts one launch, and gives those gradients; the scratch is
-    handed to the entry point with the gradients after it."""
+    handed to the entry point with the gradients after it, and the ints
+    are the five dims and the state width."""
     seen = []
 
     def fake_call(entry, pointers, dims, device):
         if entry == "ssd_chunk_scan_bwd":
             ins, dy, grads = pointers[:5], pointers[5], pointers[10:]
-            seen.append(tuple(t.shape for t in pointers[6:10]))
+            seen.append((tuple(t.shape for t in pointers[6:10]), dims))
             for out, g in zip(grads, ssd.ssd_bwd_staged_plain(*ins, dy)):
                 out.copy_(g)
         else:
@@ -343,8 +425,25 @@ def test_b3_bwd_launches_count_one_per_backward(monkeypatch):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     B, H_, nc, Q, P = chunks[0].shape
     N = chunks[1].shape[-1]
-    assert seen[0] == ((B, H_, nc, P, N), (B, H_, nc, P, N), (B, H_, nc, Q),
-                       (B, H_, nc))
+    assert seen[0] == (((B, H_, nc, P, N), (B, H_, nc, P, N), (B, H_, nc, Q),
+                        (B, H_, nc)), (B * H_, nc, Q, P, N, 64))
+
+
+def test_b3_bwd_fused_plain_launches():
+    """The plain versions of the backward's first two launches are the
+    stages they fuse: the chunk states and dS_in, then the state passing
+    forward and in reverse."""
+    chunks, dy = _ssd_prepped()
+    xc, bc, cc, dtc, cum = chunks
+    states, ds_in = ssd.ssd_bwd_states_plain(*chunks, dy)
+    assert torch.equal(states, ssd.ssd_chunk_state_plain(xc, bc, dtc, cum))
+    want_in = torch.einsum("bhcip,bhcin->bhcpn",
+                           dy * torch.exp(cum)[..., None], cc)
+    assert torch.equal(ds_in, want_in)
+    entering, ds_loc = ssd.ssd_bwd_passing_plain(states, ds_in, cum)
+    assert torch.equal(entering, ssd.ssd_state_passing_plain(states, cum)[0])
+    assert torch.equal(ds_loc, ssd.ssd_state_passing_bwd_plain(ds_in, cum))
+    assert torch.equal(ds_loc[:, :, -1], torch.zeros_like(ds_loc[:, :, -1]))
 
 
 @pytest.mark.parametrize("chunk", [16, 32])
