@@ -31,9 +31,8 @@ backward kernels (``ssd_chunk_scan_bwd``, float32) at the train steps' two
 scans, ``chip_smoke.py``'s ``B3_VJP`` (mamba2-130m's and zamba2-1.2b's):
 each tree's five gradients held to ``ssd_bwd_staged_plain`` within
 ``chip_smoke.b3_grad_ratio``'s bound and two launches required
-``torch.equal``, each tree called by the interface it exports (the state
-width after the dims where the library has ``ssd_bwd_interface``), and
-each tree's launches timed one by one under ``torch.profiler``. ``--rounds
+``torch.equal``, and each tree's launches timed one by one under
+``torch.profiler``. ``--rounds
 0`` checks and profiles without the timed turns. It exits non-zero if a
 tree's kernel misses the bound, is not deterministic, or ptxas serialised a
 tree's wgmma (its "wgmma.mma_async instructions are serialized" notes,
@@ -123,10 +122,9 @@ def ssd_scan(xc, bc, cc, dtc, cum) -> torch.Tensor:
 
 
 def ssd_bwd(chunks, dy) -> list[torch.Tensor]:
-    """B3's backward through the current tree's library, by the interface
-    it exports: ``ssd_bwd_interface()`` 2 takes the state width after the
-    five dims, a library without it the five dims alone; both take the
-    same scratch. Returns the five gradients."""
+    """B3's backward through the current tree's library (the states and
+    their gradients, and the chunk total's terms, as scratch). Returns the
+    five gradients."""
     lib = _build.load("ssd_scan")
     xc, bc = chunks[0], chunks[1]
     B, H, nc, Q, P = xc.shape
@@ -136,12 +134,6 @@ def ssd_bwd(chunks, dy) -> list[torch.Tensor]:
                chunks[4].new_empty((B, H, nc))]
     grads = [torch.empty_like(t) for t in chunks]
     ints = [B * H, nc, Q, P, N]
-    if hasattr(lib, "ssd_bwd_interface"):
-        lib.ssd_bwd_interface.restype = ctypes.c_int
-        if lib.ssd_bwd_interface() != 2:
-            raise RuntimeError("ssd_chunk_scan_bwd: an interface this "
-                               "script does not know")
-        ints.append(ssd._bwd_width(N))
     tensors = [*chunks, dy, *scratch, *grads]
     fn = lib.ssd_chunk_scan_bwd
     fn.restype = ctypes.c_int

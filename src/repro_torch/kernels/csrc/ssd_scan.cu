@@ -89,10 +89,10 @@
 // kernels/ssd_scan.py::ssd_bwd_staged_plain launch by launch), runs the
 // stages in reverse, with g = dy, w_j = exp(total - cum_j) dt_j and
 // lambda_c = exp(total_c), in four launches, each instantiated on the state
-// width NW, 64 or 128 (the wrapper's `_bwd_width`: the smaller that holds
-// N), so that zamba2's N 64 runs no product over zero columns:
+// width NW, 64 or 128 (the host entry picks the smaller that holds N), so
+// that zamba2's N 64 runs no product over zero columns:
 //   1. the chunk states and dS_in, one block per (chunk, b, h) and product
-//      (grid z): states[c] = x^T (w o B), as the forward's kernel 1, and
+//      (grid z): the forward's kernel 1 at NW, states[c] = x^T (w o B), and
 //      dS_in[c] = sum_i exp(cum_i) g_i (x) C_i, the same product with
 //      exp(cum) weights and g and C in the places of x and B;
 //   2. the state passing, one thread per state element: forward over the
@@ -105,7 +105,7 @@
 //      as rows), M = (C B^T) o L and G o L, dx += M^T g and dB += (G o L)^T C
 //      from the accumulators as kernel 3's P x takes them; ddt and the key
 //      side of dcum from the same tile; then the chunk state's backward with
-//      D = dS_loc[c]: dx += w D B (B D^T in two halves of P), dB += (w o x)
+//      D = dS_loc[c]: dx += w D B (at NW 64 B D^T in two halves of P), dB += (w o x)
 //      D, dw = x^T D B feeding ddt, dcum and the chunk total's term
 //      tw_j = dw_j w_j; the block of key tile 0 also writes
 //      lambda_c <D, S_in[c]>;
@@ -133,11 +133,15 @@
 // at NW 64 they run three blocks an SM (75 KB of shared memory and 168
 // registers each: cum and dt read through L1, the row kernel's x slots at
 // a stride of 68), at 128 two (the shared memory of the 64-key tile and two
-// query slots). Tried and not kept, each slower at both train scans: hi/lo
-// planes split once in shared memory (128-byte swizzle) with the score
-// products on mma.sync or on wgmma m64n32k8 in three passes (from straight-
-// line code, not serialised), also with two warpgroups a block taking the
-// query tiles in turns: the planes double the shared memory and its reads,
+// query slots); at 128 cum and dt stay in shared memory, since reading them
+// through L1 there took 0.8051 ms against 0.7856 at mamba2-130m's train scan
+// (kernel_ab.py --kernels B3bwd, H100 80GB HBM3 at 700 W), and B D^T stays
+// whole (its two halves timed the same, 0.7850). Tried and not kept, each
+// slower at both train scans: hi/lo planes split once in shared memory
+// (128-byte swizzle) with the score products on mma.sync or on wgmma
+// m64n32k8 in three passes (from straight-line code, not serialised), also
+// with two warpgroups a block taking the query tiles in turns: the planes
+// double the shared memory and its reads,
 // leave one block an SM at NW 128, and a 64 x 32 score tile reads its
 // 64-row operand three times a tile (bound by shared memory); D and S_in
 // split once in halves (two more barriers a block); the blocks ordered by
@@ -158,15 +162,10 @@ constexpr int SP_THREADS = 256;  // state passing: one element a thread
 constexpr int CO_THREADS = 128;  // chunk output: 4 warps, 16 rows each
 // padded shared-memory row strides, in floats (16-byte aligned rows)
 constexpr int S_K = MAX_N + 16;     // C, B, S_in read 16 bytes a lane in kernel 3
-constexpr int S_COL_N = MAX_N + 8;  // B read as [k][n] in kernel 1
 constexpr int S_COL_P = MAX_P + 8;  // x read as [k][m] in kernel 1
 constexpr int S_PERM_P = MAX_P + 4; // x read in row pairs (2q, 2q+1), kernel 3
 
 __host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
-
-__host__ __device__ inline int chunk_state_smem_floats(int Q) {
-  return 2 * KT * (S_COL_P + S_COL_N) + round_up(Q, KT);
-}
 
 __host__ __device__ inline int chunk_output_smem_floats(int Q) {
   return RT * S_K + 2 * KT * S_K + 2 * KT * S_PERM_P + 2 * Q;
@@ -326,22 +325,31 @@ __device__ __forceinline__ void product_rows(float (*d)[4], const float* a, int 
 
 // ---- 1. chunk state --------------------------------------------------------
 
-// grid (nc, BH); warp w owns S rows p in [16 (w % 4), +16), columns n in
-// [64 (w / 4), +64).
+// grid (nc, BH, 1), at state width NW (the forward's MAX_N); warp w owns S
+// rows p in [16 (w % 4), +16), columns n in [NW/2 (w / 4), +NW/2). BWD: the
+// backward's launch 1, with the backward's split (split_trunc) and grid z 2:
+// z = 1 writes dstates[c] = dS_in[c] = (exp(cum) o g)^T C, g and C in the
+// places of x and B.
+template <int NW, bool BWD>
 __global__ void __launch_bounds__(CS_THREADS)
 ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ b,
+                       const float* __restrict__ dy, const float* __restrict__ c,
                        const float* __restrict__ dt, const float* __restrict__ cum,
-                       float* __restrict__ states, int nc, int Q, int P, int N, int vec) {
+                       float* __restrict__ states, float* __restrict__ dstates, int nc, int Q,
+                       int P, int N, int vec) {
+  constexpr int SCN = NW + 8;  // B read as [k][n]: 8 mod 32
+  constexpr int NT = NW / 16;  // n-tiles of a warp
   extern __shared__ __align__(16) float smem[];
   float* Xs = smem;                   // [2][KT][S_COL_P]
-  float* Bs = Xs + 2 * KT * S_COL_P;  // [2][KT][S_COL_N]
-  float* ws = Bs + 2 * KT * S_COL_N;  // w of the chunk, 0 past Q
+  float* Bs = Xs + 2 * KT * S_COL_P;  // [2][KT][SCN]
+  float* ws = Bs + 2 * KT * SCN;      // w of the chunk, 0 past Q
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
+  const bool grad = BWD && blockIdx.z != 0;
   const size_t chunk = (size_t)blockIdx.y * nc + blockIdx.x;
-  const float* xg = x + chunk * Q * P;
-  const float* bg = b + chunk * Q * N;
+  const float* xg = (grad ? dy : x) + chunk * Q * P;
+  const float* bg = (grad ? c : b) + chunk * Q * N;
   const float* cg = cum + chunk * Q;
   const float* dg = dt + chunk * Q;
   const int nkt = (Q + KT - 1) / KT;
@@ -349,19 +357,19 @@ ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ b,
   auto load_tile = [&](int kt) {
     const int j0 = kt * KT;
     load_rows(Xs + (kt & 1) * KT * S_COL_P, S_COL_P, xg + (size_t)j0 * P, P, KT, Q - j0, vec);
-    load_rows(Bs + (kt & 1) * KT * S_COL_N, S_COL_N, bg + (size_t)j0 * N, N, KT, Q - j0, vec);
+    load_rows(Bs + (kt & 1) * KT * SCN, SCN, bg + (size_t)j0 * N, N, KT, Q - j0, vec);
     cp_async_commit();
   };
   load_tile(0);
   const float total = cg[Q - 1];
   for (int j = threadIdx.x; j < nkt * KT; j += CS_THREADS)
-    ws[j] = j >= Q ? 0.f : expf(total - cg[j]) * dg[j];
+    ws[j] = j >= Q ? 0.f : grad ? expf(cg[j]) : expf(total - cg[j]) * dg[j];
 
-  const int m0 = 16 * (warp & 3), n0 = 64 * (warp >> 2);
+  const int m0 = 16 * (warp & 3), n0 = (NW / 2) * (warp >> 2);
   const bool active = m0 < P && n0 < N;
-  float acc[8][4];
+  float acc[NT][4];
 #pragma unroll
-  for (int t = 0; t < 8; ++t)
+  for (int t = 0; t < NT; ++t)
 #pragma unroll
     for (int r = 0; r < 4; ++r) acc[t][r] = 0.f;
 
@@ -375,7 +383,7 @@ ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ b,
     __syncthreads();  // tile kt (and, the first time, ws) is in place
     if (active) {
       const float* xs = Xs + (kt & 1) * KT * S_COL_P;
-      const float* bs = Bs + (kt & 1) * KT * S_COL_N;
+      const float* bs = Bs + (kt & 1) * KT * SCN;
       const float* w = ws + kt * KT;
 #pragma unroll
       for (int k0 = 0; k0 < KT; k0 += 8) {
@@ -384,16 +392,16 @@ ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ b,
         const float* x0 = xs + (k0 + q) * S_COL_P + m0 + g;
         const float* x1 = x0 + 4 * S_COL_P;
         uint32_t ah[4], al[4];
-        split(x0[0] * w0, ah[0], al[0]);
-        split(x0[8] * w0, ah[1], al[1]);
-        split(x1[0] * w1, ah[2], al[2]);
-        split(x1[8] * w1, ah[3], al[3]);
-        const float* b0 = bs + (k0 + q) * S_COL_N + n0 + g;
+        split_as<BWD>(x0[0] * w0, ah[0], al[0]);
+        split_as<BWD>(x0[8] * w0, ah[1], al[1]);
+        split_as<BWD>(x1[0] * w1, ah[2], al[2]);
+        split_as<BWD>(x1[8] * w1, ah[3], al[3]);
+        const float* b0 = bs + (k0 + q) * SCN + n0 + g;
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
+        for (int t = 0; t < NT; ++t) {
           uint32_t bh[1][2], bl[1][2];
-          split(b0[8 * t], bh[0][0], bl[0][0]);
-          split(b0[8 * t + 4 * S_COL_N], bh[0][1], bl[0][1]);
+          split_as<BWD>(b0[8 * t], bh[0][0], bl[0][0]);
+          split_as<BWD>(b0[8 * t + 4 * SCN], bh[0][1], bl[0][1]);
           mma_3xtf32<1>(acc + t, ah, al, bh, bl);
         }
       }
@@ -402,9 +410,9 @@ ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ b,
   }
 
   if (!active) return;
-  float* sg = states + chunk * P * N;
+  float* sg = (grad ? dstates : states) + chunk * P * N;
 #pragma unroll
-  for (int t = 0; t < 8; ++t)
+  for (int t = 0; t < NT; ++t)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int p = m0 + g + 8 * h, n = n0 + 8 * t + 2 * q;
@@ -414,7 +422,28 @@ ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ b,
     }
 }
 
+template <int NW>
+__host__ __device__ inline int chunk_state_smem_floats(int Q) {
+  return 2 * KT * (S_COL_P + NW + 8) + round_up(Q, KT);
+}
+
 // ---- 2. state passing ------------------------------------------------------
+
+// One state element s[c PN] of every chunk c, in place, in order over the
+// chunks: s[c PN] becomes the state entering chunk c (zero for c = 0), and
+// the state after the last chunk is returned. total[c Q]: chunk c's total.
+__device__ __forceinline__ float pass_states(float* s, const float* total, int nc, int Q,
+                                             int PN) {
+  float S = 0.f;
+  float next = s[0];
+  for (int c = 0; c < nc; ++c) {
+    const float local = next;
+    if (c + 1 < nc) next = s[(size_t)(c + 1) * PN];
+    s[(size_t)c * PN] = S;  // the state entering chunk c
+    S = expf(total[(size_t)c * Q]) * S + local;
+  }
+  return S;
+}
 
 // grid (ceil(P N / SP_THREADS), BH): in place over the scratch, chunk by
 // chunk; `final_state` (BH, P, N) may be null.
@@ -424,16 +453,7 @@ ssd_state_passing_kernel(float* __restrict__ states, const float* __restrict__ c
   const int e = blockIdx.x * SP_THREADS + threadIdx.x;
   if (e >= PN) return;
   const size_t bh = blockIdx.y;
-  float* s = states + bh * nc * PN + e;
-  const float* total = cum + bh * nc * Q + (Q - 1);
-  float S = 0.f;
-  float next = s[0];
-  for (int c = 0; c < nc; ++c) {
-    const float local = next;
-    if (c + 1 < nc) next = s[(size_t)(c + 1) * PN];
-    s[(size_t)c * PN] = S;  // the state entering chunk c
-    S = expf(total[(size_t)c * Q]) * S + local;
-  }
+  const float S = pass_states(states + bh * nc * PN + e, cum + bh * nc * Q + (Q - 1), nc, Q, PN);
   if (final_state != nullptr) final_state[bh * PN + e] = S;
 }
 
@@ -587,8 +607,9 @@ struct BwdStrides {
   // x rows of the row kernel's key tiles: 16-byte reads free of conflicts at
   // 80, two-way at 68 (which three blocks an SM need)
   static constexpr int SX = NW == 64 ? MAX_P + 4 : MAX_P + 16;
-  // the chunk's cum and dt in shared memory (at NW 128), or read through L1
-  // (at NW 64, where three blocks an SM leave no room for them)
+  // the chunk's cum and dt in shared memory (at NW 128, where reads through
+  // L1 are slower), or read through L1 (at NW 64, where three blocks an SM
+  // leave no room for them)
   static constexpr bool CUM_SMEM = NW != 64;
   static constexpr int SK = NW + 16;  // rows read 16 bytes a lane over N
   static constexpr int SC = NW + 4;   // C (key side) and B (row side) tiles: 16-byte
@@ -821,8 +842,10 @@ ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
   __syncthreads();
   const float total = cum_s[Q - 1];
   if (rows_live) {
-    // B D^T (keys ja, jb x p = 8u + 2q, + 1) in two halves of p, each
-    // added to dx and to dw as soon as it is done
+    // B D^T (keys ja, jb x p = 8u + 2q, + 1), at NW 64 in two halves of p
+    // (fewer live registers), each part added to dx and to dw as soon as it
+    // is done
+    constexpr int PARTS = NW == 64 ? 2 : 1, TU = 8 / PARTS;
     float w[2], dws[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -831,25 +854,25 @@ ssd_bwd_key_kernel(const float* __restrict__ x, const float* __restrict__ b,
       w[r] = j < Q ? expf(total - cum_s[jc]) * dt_s[jc] : 0.f;
     }
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float dbt[4][4];
+    for (int hf = 0; hf < PARTS; ++hf) {
+      float dbt[TU][4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int u = 0; u < TU; ++u)
 #pragma unroll
         for (int r = 0; r < 4; ++r) dbt[u][r] = 0.f;
-      product_rows<4, NW, S_K, S_C, true>(dbt, Bs, m0 + g, Ds, g + 32 * hf, q);
+      product_rows<TU, NW, S_K, S_C, true>(dbt, Bs, m0 + g, Ds, g + 8 * TU * hf, q);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float* xr = Xs + (m0 + g + 8 * r) * S_P + 32 * hf;
+        const float* xr = Xs + (m0 + g + 8 * r) * S_P + 8 * TU * hf;
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
+        for (int u = 0; u < TU; ++u)
 #pragma unroll
           for (int h = 0; h < 2; ++h) dws[r] += xr[8 * u + 2 * q + h] * dbt[u][2 * r + h];
       }
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int u = 0; u < TU; ++u)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dx_acc[4 * hf + u][e] += w[e >> 1] * dbt[u][e];
+        for (int e = 0; e < 4; ++e) dx_acc[TU * hf + u][e] += w[e >> 1] * dbt[u][e];
     }
     const float dw[2] = {quad_sum(dws[0]), quad_sum(dws[1])};
     // dB += (w o x) D, A read [j][p] from x, B [p][n] from D
@@ -1105,109 +1128,6 @@ ssd_bwd_row_kernel(const float* __restrict__ x, const float* __restrict__ b,
   }
 }
 
-// ---- backward 1. the chunk states and dS_in ------------------------------------
-
-// grid (nc, BH, 2): z = 0 is kernel 1, states[c] = x^T (w o B) with
-// w_j = exp(total - cum_j) dt_j; z = 1 writes dstates[c] = dS_in[c] =
-// (exp(cum) o g)^T C, g and C in the places of x and B. As kernel 1, at state
-// width NW: warp w owns rows p in [16 (w % 4), +16) and columns n in
-// [NW/2 (w / 4), +NW/2).
-template <int NW>
-__global__ void __launch_bounds__(CS_THREADS)
-ssd_bwd_states_kernel(const float* __restrict__ x, const float* __restrict__ b,
-                      const float* __restrict__ dy, const float* __restrict__ c,
-                      const float* __restrict__ dt, const float* __restrict__ cum,
-                      float* __restrict__ states, float* __restrict__ dstates, int nc, int Q,
-                      int P, int N, int vec) {
-  constexpr int SCN = NW + 8;  // B (or C) read as [k][n]: 8 mod 32
-  constexpr int NT = NW / 16;  // n-tiles of a warp
-  extern __shared__ __align__(16) float smem[];
-  float* Xs = smem;                   // [2][KT][S_COL_P]
-  float* Bs = Xs + 2 * KT * S_COL_P;  // [2][KT][SCN]
-  float* ws = Bs + 2 * KT * SCN;      // the weights of the chunk, 0 past Q
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const bool grad = blockIdx.z != 0;
-  const size_t chunk = (size_t)blockIdx.y * nc + blockIdx.x;
-  const float* xg = (grad ? dy : x) + chunk * Q * P;
-  const float* bg = (grad ? c : b) + chunk * Q * N;
-  const float* cg = cum + chunk * Q;
-  const float* dg = dt + chunk * Q;
-  const int nkt = (Q + KT - 1) / KT;
-
-  auto load_tile = [&](int kt) {
-    const int j0 = kt * KT;
-    load_rows(Xs + (kt & 1) * KT * S_COL_P, S_COL_P, xg + (size_t)j0 * P, P, KT, Q - j0, vec);
-    load_rows(Bs + (kt & 1) * KT * SCN, SCN, bg + (size_t)j0 * N, N, KT, Q - j0, vec);
-    cp_async_commit();
-  };
-  load_tile(0);
-  const float total = cg[Q - 1];
-  for (int j = threadIdx.x; j < nkt * KT; j += CS_THREADS)
-    ws[j] = j >= Q ? 0.f : grad ? expf(cg[j]) : expf(total - cg[j]) * dg[j];
-
-  const int m0 = 16 * (warp & 3), n0 = (NW / 2) * (warp >> 2);
-  const bool active = m0 < P && n0 < N;
-  float acc[NT][4];
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[t][r] = 0.f;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) {
-      load_tile(kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile kt (and, the first time, ws) is in place
-    if (active) {
-      const float* xs = Xs + (kt & 1) * KT * S_COL_P;
-      const float* bs = Bs + (kt & 1) * KT * SCN;
-      const float* w = ws + kt * KT;
-#pragma unroll
-      for (int k0 = 0; k0 < KT; k0 += 8) {
-        const float w0 = w[k0 + q], w1 = w[k0 + q + 4];
-        const float* x0 = xs + (k0 + q) * S_COL_P + m0 + g;
-        const float* x1 = x0 + 4 * S_COL_P;
-        uint32_t ah[4], al[4];
-        split_trunc(x0[0] * w0, ah[0], al[0]);
-        split_trunc(x0[8] * w0, ah[1], al[1]);
-        split_trunc(x1[0] * w1, ah[2], al[2]);
-        split_trunc(x1[8] * w1, ah[3], al[3]);
-        const float* b0 = bs + (k0 + q) * SCN + n0 + g;
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          uint32_t bh[1][2], bl[1][2];
-          split_trunc(b0[8 * t], bh[0][0], bl[0][0]);
-          split_trunc(b0[8 * t + 4 * SCN], bh[0][1], bl[0][1]);
-          mma_3xtf32<1>(acc + t, ah, al, bh, bl);
-        }
-      }
-    }
-    __syncthreads();  // slot kt & 1 is free for tile kt + 2
-  }
-
-  if (!active) return;
-  float* sg = (grad ? dstates : states) + chunk * P * N;
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = m0 + g + 8 * h, n = n0 + 8 * t + 2 * q;
-      if (p >= P) continue;
-      if (n < N) sg[(size_t)p * N + n] = acc[t][2 * h];
-      if (n + 1 < N) sg[(size_t)p * N + n + 1] = acc[t][2 * h + 1];
-    }
-}
-
-template <int NW>
-__host__ __device__ inline int bwd_states_smem_floats(int Q) {
-  return 2 * KT * (S_COL_P + NW + 8) + round_up(Q, KT);
-}
-
 // ---- backward 2. the state passing, forward then in reverse ---------------------
 
 // grid (ceil(P N / SP_THREADS), BH), one thread per state element, in place:
@@ -1220,19 +1140,11 @@ ssd_bwd_passing_kernel(float* __restrict__ states, float* __restrict__ dstates,
   const int e = blockIdx.x * SP_THREADS + threadIdx.x;
   if (e >= PN) return;
   const size_t bh = blockIdx.y;
-  float* s = states + bh * nc * PN + e;
   float* ds = dstates + bh * nc * PN + e;
   const float* total = cum + bh * nc * Q + (Q - 1);
-  float S = 0.f;
-  float next = s[0];
-  for (int c = 0; c < nc; ++c) {
-    const float local = next;
-    if (c + 1 < nc) next = s[(size_t)(c + 1) * PN];
-    s[(size_t)c * PN] = S;
-    S = expf(total[(size_t)c * Q]) * S + local;
-  }
+  pass_states(states + bh * nc * PN + e, total, nc, Q, PN);
   float R = 0.f;
-  next = ds[(size_t)(nc - 1) * PN];
+  float next = ds[(size_t)(nc - 1) * PN];
   for (int c = nc - 1; c >= 0; --c) {
     const float d_in = next;
     if (c > 0) next = ds[(size_t)(c - 1) * PN];
@@ -1278,14 +1190,14 @@ extern "C" int ssd_chunk_state(const void* x, const void* b, const void* dt,
                                const void* cum, void* states, int BH, int nc, int Q,
                                int P, int N, void* stream) {
   if (bad_shape(BH, nc, Q, P, N)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * static_cast<size_t>(chunk_state_smem_floats(Q));
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(ssd_chunk_state_kernel), smem);
+  const size_t smem = sizeof(float) * static_cast<size_t>(chunk_state_smem_floats<MAX_N>(Q));
+  const auto kernel = ssd_chunk_state_kernel<MAX_N, false>;
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_state_kernel<<<dim3(nc, BH), CS_THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(b),
+  kernel<<<dim3(nc, BH), CS_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(b), nullptr, nullptr,
       static_cast<const float*>(dt), static_cast<const float*>(cum),
-      static_cast<float*>(states), nc, Q, P, N, vector_loads(P, N, x, b, x));
+      static_cast<float*>(states), nullptr, nc, Q, P, N, vector_loads(P, N, x, b, x));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1335,20 +1247,36 @@ extern "C" int ssd_chunk_scan_staged(const void* x, const void* b, const void* c
   return err;
 }
 
-// The backward's key and row kernels (launches 3 and 4) at state width NW.
+// The backward at state width NW: the chunk states and dS_in (launch 1), the
+// state passing (2), the key and row kernels (3 and 4).
 template <int NW>
-int bwd_sides(const float* const (&f)[6], const float* states, const float* dstates, float* tw,
-              float* lam_dot, float* dx, float* db, float* dc, float* ddt, float* dcum,
-              int BH, int nc, int Q, int P, int N, int vec, cudaStream_t st) {
+int bwd_launches(const float* const (&f)[6], float* states, float* dstates, float* tw,
+                 float* lam_dot, float* dx, float* db, float* dc, float* ddt, float* dcum,
+                 int BH, int nc, int Q, int P, int N, cudaStream_t st) {
   const int n_t = (Q + RT - 1) / RT;
   if (static_cast<long long>(n_t) * nc * BH > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto states_kernel = ssd_chunk_state_kernel<NW, true>;
+  const size_t st_smem = sizeof(float) * static_cast<size_t>(chunk_state_smem_floats<NW>(Q));
   const size_t key_smem = sizeof(float) * static_cast<size_t>(bwd_key_smem_floats<NW>(Q));
   const size_t row_smem = sizeof(float) * static_cast<size_t>(bwd_row_smem_floats<NW>(Q));
-  cudaError_t e = set_smem(reinterpret_cast<const void*>(ssd_bwd_key_kernel<NW>), key_smem);
+  cudaError_t e = set_smem(reinterpret_cast<const void*>(states_kernel), st_smem);
+  if (e == cudaSuccess)
+    e = set_smem(reinterpret_cast<const void*>(ssd_bwd_key_kernel<NW>), key_smem);
   if (e == cudaSuccess)
     e = set_smem(reinterpret_cast<const void*>(ssd_bwd_row_kernel<NW>), row_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
+  const int svec = vector_loads(P, N, f[0], f[1], f[2]) && aligned16(f[5]);
+  states_kernel<<<dim3(nc, BH, 2), CS_THREADS, st_smem, st>>>(
+      f[0], f[1], f[5], f[2], f[3], f[4], states, dstates, nc, Q, P, N, svec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int PN = P * N;
+  ssd_bwd_passing_kernel<<<dim3((PN + SP_THREADS - 1) / SP_THREADS, BH), SP_THREADS, 0, st>>>(
+      states, dstates, f[4], nc, Q, PN);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int vec = svec && aligned16(states) && aligned16(dstates);
   ssd_bwd_key_kernel<NW><<<n_t * nc * BH, CO_THREADS, key_smem, st>>>(
       f[0], f[1], f[2], f[3], f[4], f[5], states, dstates, dx, db, ddt, dcum, tw, lam_dot, nc,
       Q, P, N, n_t, vec);
@@ -1361,55 +1289,27 @@ int bwd_sides(const float* const (&f)[6], const float* states, const float* dsta
 
 // The backward of the scan, from its five inputs and dy (the shape of y):
 // dx, dy-shaped; db, dc (BH, nc, Q, N); ddt, dcum (BH, nc, Q). Scratch:
-// states and dstates (BH, nc, P, N), tw (BH, nc, Q), lam_dot (BH, nc).
-// `width` is the state width the kernels are instantiated on, 64 or 128, at
-// least N (the wrapper's `_bwd_width`). Launch 1 writes each chunk's own
-// state into `states` and dS_in = (exp(cum) o g)^T C into `dstates`; launch 2
-// turns them in place into the states entering each chunk and dS_loc; launch
-// 3 (per key tile) writes dx, db, ddt and dcum's key side, launch 4 (per
-// query tile) dc and the rest of dcum.
+// states and dstates (BH, nc, P, N), tw (BH, nc, Q), lam_dot (BH, nc). The
+// kernels run at state width 64 where N <= 64, else 128. Launch 1 writes
+// each chunk's own state into `states` and dS_in = (exp(cum) o g)^T C into
+// `dstates`; launch 2 turns them in place into the states entering each
+// chunk and dS_loc; launch 3 (per key tile) writes dx, db, ddt and dcum's
+// key side, launch 4 (per query tile) dc and the rest of dcum.
 extern "C" int ssd_chunk_scan_bwd(const void* x, const void* b, const void* c,
                                   const void* dt, const void* cum, const void* dy,
                                   void* states, void* dstates, void* tw, void* lam_dot,
                                   void* dx, void* db, void* dc, void* ddt, void* dcum,
-                                  int BH, int nc, int Q, int P, int N, int width,
-                                  void* stream) {
-  if (bad_shape(BH, nc, Q, P, N) || (width != 64 && width != 128) || N > width)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* cm = static_cast<const float*>(cum);
-  const int svec = vector_loads(P, N, x, b, c) && aligned16(dy);
-  const size_t st_smem = sizeof(float) * static_cast<size_t>(
-      width == 64 ? bwd_states_smem_floats<64>(Q) : bwd_states_smem_floats<128>(Q));
-  auto states_kernel = width == 64 ? ssd_bwd_states_kernel<64> : ssd_bwd_states_kernel<128>;
-  cudaError_t e = set_smem(reinterpret_cast<const void*>(states_kernel), st_smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  states_kernel<<<dim3(nc, BH, 2), CS_THREADS, st_smem, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(b),
-      static_cast<const float*>(dy), static_cast<const float*>(c),
-      static_cast<const float*>(dt), cm, static_cast<float*>(states),
-      static_cast<float*>(dstates), nc, Q, P, N, svec);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int PN = P * N;
-  ssd_bwd_passing_kernel<<<dim3((PN + SP_THREADS - 1) / SP_THREADS, BH), SP_THREADS, 0, st>>>(
-      static_cast<float*>(states), static_cast<float*>(dstates), cm, nc, Q, PN);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int vec = vector_loads(P, N, x, b, c) && aligned16(dy) && aligned16(states) &&
-                  aligned16(dstates);
-  const float* const f[6] = {static_cast<const float*>(x), static_cast<const float*>(b),
-                             static_cast<const float*>(c), static_cast<const float*>(dt), cm,
-                             static_cast<const float*>(dy)};
-  auto sides = width == 64 ? bwd_sides<64> : bwd_sides<128>;
-  return sides(f, static_cast<const float*>(states), static_cast<const float*>(dstates),
-               static_cast<float*>(tw), static_cast<float*>(lam_dot), static_cast<float*>(dx),
-               static_cast<float*>(db), static_cast<float*>(dc), static_cast<float*>(ddt),
-               static_cast<float*>(dcum), BH, nc, Q, P, N, vec, st);
+                                  int BH, int nc, int Q, int P, int N, void* stream) {
+  if (bad_shape(BH, nc, Q, P, N)) return static_cast<int>(cudaErrorInvalidValue);
+  const float* const f[6] = {static_cast<const float*>(x),  static_cast<const float*>(b),
+                             static_cast<const float*>(c),  static_cast<const float*>(dt),
+                             static_cast<const float*>(cum), static_cast<const float*>(dy)};
+  const auto launches = N <= 64 ? bwd_launches<64> : bwd_launches<MAX_N>;
+  return launches(f, static_cast<float*>(states), static_cast<float*>(dstates),
+                  static_cast<float*>(tw), static_cast<float*>(lam_dot), static_cast<float*>(dx),
+                  static_cast<float*>(db), static_cast<float*>(dc), static_cast<float*>(ddt),
+                  static_cast<float*>(dcum), BH, nc, Q, P, N, static_cast<cudaStream_t>(stream));
 }
-
-// The interface of ssd_chunk_scan_bwd: 2 since it takes `width`.
-extern "C" int ssd_bwd_interface() { return 2; }
 
 extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -41,8 +41,6 @@ BWD_LAUNCHES = 0
 #: (mamba2-130m: 64 and 128).
 MAX_HEADDIM = 64
 MAX_STATE = 128
-#: The state widths the backward kernels are instantiated on.
-BWD_WIDTHS = (64, 128)
 
 
 def reset_launches() -> None:
@@ -302,12 +300,12 @@ def _checked(xc, bc, *tensors) -> tuple[int, ...]:
 
 def _call(entry: str, pointers, dims, device) -> None:
     """One C entry point of the library: pointers (tensors or None), then
-    the ints (the five dims, and the backward's width), then the stream."""
+    the five ints, then the stream."""
     lib = _build.load("ssd_scan")
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(
-        dims) + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
     stream = torch.cuda.current_stream(device).cuda_stream
     code = fn(*(None if t is None else t.data_ptr() for t in pointers), *dims,
               stream)
@@ -406,24 +404,12 @@ def _launch(xc, bc, cc, dtc, cum) -> torch.Tensor:
     return y
 
 
-def _bwd_width(N: int) -> int:
-    """The state width the backward kernels run at for state dim N: the
-    smaller of :data:`BWD_WIDTHS` that holds N (columns past N are zero in
-    every tile, so a smaller width does fewer products)."""
-    for width in BWD_WIDTHS:
-        if N <= width:
-            return width
-    raise ValueError(f"ssd_chunk_scan backward: no kernel for N={N} > "
-                     f"{BWD_WIDTHS[-1]}")
-
-
 def _launch_bwd(xc, bc, cc, dtc, cum, dy):
     """Launch the backward kernels (``ssd_chunk_scan_bwd``) on the scan's
     five inputs and ``dy``: (dx, dB, dC, ddt, dcum), the five inputs'
     gradients. The wrapper allocates the kernels' scratch: the states
     entering each chunk and their gradients (B, H, nc, P, N), and per
-    position and per chunk the chunk total's terms; and picks the state
-    width the kernels are instantiated on (:func:`_bwd_width`)."""
+    position and per chunk the chunk total's terms."""
     global BWD_LAUNCHES
     dims = _checked(xc, bc, cc, dtc, cum)
     if tuple(dy.shape) != tuple(xc.shape) or dy.dtype != torch.float32:
@@ -441,8 +427,7 @@ def _launch_bwd(xc, bc, cc, dtc, cum, dy):
                                           dstates, tw, lam_dot, *grads)
         return grads
     _call("ssd_chunk_scan_bwd", (xc, bc, cc, dtc, cum, dy, states, dstates,
-                                 tw, lam_dot, *grads),
-          (*dims, _bwd_width(dims[4])), xc.device)
+                                 tw, lam_dot, *grads), dims, xc.device)
     BWD_LAUNCHES += 1
     return grads
 

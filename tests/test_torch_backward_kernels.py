@@ -206,11 +206,16 @@ def test_ptxas_spills_reads_each_kernels_line(chip_smoke):
         _TCB[0]: (0, 0), _FFMA: (28, 28), _TCB[1]: (16, 16)}
 
 
-_SSD_BWD = [f"_ZN55_GLOBAL__N__0b1c2d3e_11_ssd_scan_cu{k}ILi{w}EEEvPKf"
-            for k in ("18ssd_bwd_key_kernel", "18ssd_bwd_row_kernel",
-                      "21ssd_bwd_states_kernel") for w in (64, 128)] + [
-    "_ZN55_GLOBAL__N__0b1c2d3e_11_ssd_scan_cu22ssd_bwd_passing_kernelEPfS0_PKfiii"]
-_SSD_FWD = "_ZN55_GLOBAL__N__0b1c2d3e_11_ssd_scan_cu23ssd_chunk_output_kernelEPKf"
+_SSD = "_ZN55_GLOBAL__N__0b1c2d3e_11_ssd_scan_cu"
+_SSD_BWD = [f"{_SSD}{k}ILi{w}E{b}EEvPKf"
+            for k, b in (("18ssd_bwd_key_kernel", ""),
+                         ("18ssd_bwd_row_kernel", ""),
+                         ("22ssd_chunk_state_kernel", "Lb1E"))
+            for w in (64, 128)] + [f"{_SSD}22ssd_bwd_passing_kernelEPfS0_PKfiii"]
+# the forward's kernels, which may spill: its chunk-state instantiation
+# (bool false) and its chunk output
+_SSD_FWD = [f"{_SSD}22ssd_chunk_state_kernelILi128ELb0EEEvPKf",
+            f"{_SSD}23ssd_chunk_output_kernelEPKf"]
 
 
 @pytest.mark.parametrize("case,passes", [
@@ -234,8 +239,9 @@ def test_bwd_build_check(chip_smoke, monkeypatch, case, passes):
     if case == "serialised":
         log = _SERIALISED + log
     ssd_names = _SSD_BWD[1:] if case == "ssd_missing" else _SSD_BWD
-    ssd_log = "".join(_entry(n, 4 if case == "ssd_spills" and i == 2 else 0)
-                      for i, n in enumerate(ssd_names)) + _entry(_SSD_FWD, 16)
+    ssd_log = "".join(_entry(n, 4 if case == "ssd_spills" and i == 4 else 0)
+                      for i, n in enumerate(ssd_names)) + "".join(
+        _entry(n, 16) for n in _SSD_FWD)
     if case == "ssd_serialised":
         ssd_log = _SERIALISED.replace(_TCB[0], _SSD_BWD[0]) + ssd_log
     monkeypatch.setattr(_build, "BUILD_LOG",
@@ -311,28 +317,20 @@ def test_b3_bwd_argument_checks(no_launch):
         ssd._launch_bwd(wide, b, c, dt, cum, wide)
 
 
-@pytest.mark.parametrize("N,width", [(1, 64), (20, 64), (64, 64), (65, 128),
-                                     (72, 128), (128, 128)])
-def test_b3_bwd_width_rule(N, width):
-    """The backward kernels run at the smaller of the two state widths
-    they are instantiated on that holds N; past 128 there is none."""
-    assert ssd._bwd_width(N) == width
-
-
 def test_b3_bwd_refuses_a_wide_state(no_launch):
-    """N past the widest instantiation raises before any launch, in the
-    wrapper's checks and in the width rule."""
+    """N past the widest instantiation raises before any launch."""
     x, b, c, dt, cum = _b3_chunks(N=12)
     wide = torch.zeros((*b.shape[:4], 136))
     with pytest.raises(ValueError, match="N <= 128"):
         ssd._launch_bwd(x, wide, wide, dt, cum, x)
-    with pytest.raises(ValueError, match="N=136"):
-        ssd._bwd_width(136)
 
 
-@pytest.mark.parametrize("P,N,Q", [(40, 72, 20), (30, 20, 48), (64, 128, 64)])
+@pytest.mark.parametrize("P,N,Q", [(40, 72, 20), (30, 20, 48), (64, 128, 64),
+                                   (1, 1, 1), (64, 64, 256), (8, 65, 33),
+                                   (64, 128, 256)])
 def test_b3_bwd_traced_route_shapes(no_launch, P, N, Q):
-    """At ragged shapes and at each width, the traced route on fake CUDA
+    """At ragged shapes, at the smallest, and at N on both sides of 64
+    (the kernels' two state widths), the traced route on fake CUDA
     tensors gives the five gradients of their inputs' shapes, one
     registered backward op with the kernels' operation count, and the
     scratch (the states and their gradients) in the trace's memory."""
@@ -399,14 +397,13 @@ def test_b3_bwd_launches_count_one_per_backward(monkeypatch):
     the plain staged scan and the backward's C entry point by the plain
     stage-by-stage backward written into the kernels' outputs: each
     backward counts one launch, and gives those gradients; the scratch is
-    handed to the entry point with the gradients after it, and the ints
-    are the five dims and the state width."""
+    handed to the entry point with the gradients after it."""
     seen = []
 
     def fake_call(entry, pointers, dims, device):
         if entry == "ssd_chunk_scan_bwd":
             ins, dy, grads = pointers[:5], pointers[5], pointers[10:]
-            seen.append((tuple(t.shape for t in pointers[6:10]), dims))
+            seen.append(tuple(t.shape for t in pointers[6:10]))
             for out, g in zip(grads, ssd.ssd_bwd_staged_plain(*ins, dy)):
                 out.copy_(g)
         else:
@@ -425,8 +422,8 @@ def test_b3_bwd_launches_count_one_per_backward(monkeypatch):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     B, H_, nc, Q, P = chunks[0].shape
     N = chunks[1].shape[-1]
-    assert seen[0] == (((B, H_, nc, P, N), (B, H_, nc, P, N), (B, H_, nc, Q),
-                        (B, H_, nc)), (B * H_, nc, Q, P, N, 64))
+    assert seen[0] == ((B, H_, nc, P, N), (B, H_, nc, P, N), (B, H_, nc, Q),
+                       (B, H_, nc))
 
 
 def test_b3_bwd_fused_plain_launches():
