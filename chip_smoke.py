@@ -33,7 +33,7 @@ Phases (any failed check raises and exits non-zero):
      the one-loop oracle; and two planted faults: a plain version that drops
      one chunk's carry update, and the oracle run in single-pass TF32;
      the three kernels and the scan at zamba2-1.2b's shape too;
-  4. the streaming executor over 12-stage granite-8b-width matmul and
+  4. the streaming executor over 6-stage granite-8b-width matmul and
      attention chains (bf16) — untiered oracle, unpaced probe, balanced
      throttle, best of 3 runs with prefetch on and off, every output
      ``torch.equal`` to the oracle, the kernels' launch counters matching
@@ -41,8 +41,8 @@ Phases (any failed check raises and exits non-zero):
      the mean stage compute beside the unpaced copy of one stage's bytes,
      then the simulator calibrated and replayed;
   5. the model paths at full width in bf16, through ``get_model``'s entry
-     points: mamba2-130m (24 layers), granite-8b (``[dense]``: 36 layers,
-     8.05 B parameters, B2 in every layer) and zamba2-1.2b (``[hybrid]``: 38
+     points: mamba2-130m (24 layers), granite-8b (``[dense]``: 12 of its
+     36 layers, ``DENSE``, B2 in every layer) and zamba2-1.2b (``[hybrid]``: 38
      Mamba2 layers and the shared attention block after every 6, so B3 and
      B2 in one forward). For each: the weights drawn on the card from a
      seed and kept on the host; ``forward`` over 4 x 2048 tokens with every
@@ -53,7 +53,7 @@ Phases (any failed check raises and exits non-zero):
      ``ServingEngine.generate``, at 0.5 through the hand loop ``greedy``
      over ``decode_step``; tokens equal); each kernel's
      launches equal to its count a forward times the forwards (granite-8b:
-     36 B2; zamba2-1.2b: 6 B2 and 38 B3; mamba2-130m: 24 B3), every B2
+     12 B2; zamba2-1.2b: 6 B2 and 38 B3; mamba2-130m: 24 B3), every B2
      launch through wgmma and each SSD kernel once a scan. Then the path
      check: the same forward with the kernels' plain versions (the plain
      SSD, the models' plain flash), in bf16 printed beside its floor (the
@@ -193,7 +193,9 @@ Three checks ride along. ``[serving-bench]`` (after ``[hpc]``):
 the port, the reduced granite-8b engine in float32 on the card, must give
 ``BENCH_pr5.json``'s and ``BENCH_pr9.json``'s values exactly (``latency_us``
 printed, not compared), with autoscaled tokens equal to untiered ones and
-lanes to the sequential oracle. ``[hpc]`` (after the build): DOLMA's runtime and
+lanes to the sequential oracle. ``[hpc]`` (after the build; both run in a
+child process beside the card's phases, their output printed before
+``[done]``): DOLMA's runtime and
 its eight HPC workloads through the port, on this machine's Python and
 numpy: ``benchmarks/run.py --bench-json``'s loop must give
 ``BENCH_pr3.json``'s simulated microseconds exactly (an InfiniBand-100G
@@ -208,6 +210,7 @@ It imports nothing of JAX or the reference package ``repro``.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
@@ -338,10 +341,12 @@ NEEDS_TENSOR_CORES = {"streaming_matmul": ("HGMMA",),
 # ptxas's note when it serialises a kernel's wgmma (C7512 to C7518)
 WGMMA_SERIALISED = "wgmma.mma_async instructions are serialized"
 # the backward kernels of each library, by a pattern of their mangled names,
-# and how many ptxas must report: B2's 8 wgmma kernels (namespace tcb); B3's
+# and how many ptxas must report: B2's 12 wgmma kernels (namespace tcb: dk/dv
+# and dq at (D, Dv) padded to (64, 64), (64, 128), (128, 64), (128, 128),
+# (192, 64) and (192, 128)); B3's
 # key and row kernels and its chunk-state kernel's backward instantiation
 # (its bool true) at widths 64 and 128, and its state passing
-BWD_KERNELS = {"flash_attention_bwd": ("_ZN3tcb", 8),
+BWD_KERNELS = {"flash_attention_bwd": ("_ZN3tcb", 12),
                "ssd_scan": (r"ssd_bwd_|ssd_chunk_state_kernelILi\d+ELb1E", 7)}
 # the reference's SSD tolerance (tests/test_kernels.py::TestSSDKernel);
 # L, chunk, G with B 2, H 4, P 32, N 32, then one chunk and L < chunk
@@ -379,12 +384,16 @@ BEST_OF = 3
 # float32's bound for decode against forward; why the check is held in
 # float32 is written where it is used (phase_mamba)
 PATH_BOUND = 1e-3
+# [dense]: granite-8b at full width, its depth cut to 12 of 36 layers for
+# the script's time limit (2.85 B parameters; whole, the phase took 288 s)
+DENSE = dict(n_layers=12)
 # [engine]: granite-8b served through ServingEngine at full width: waves of 4
-# prompts of 64 tokens and 16 new ones in a 128-slot cache; a budget of 32
-# MiB demotes every parameter and then the K and V caches (37.7 MB each)
+# prompts of 64 tokens and 16 new ones in a 128-slot cache; a budget of 8
+# MiB demotes every parameter and then the K and V caches (12.6 MB each at
+# 12 layers)
 ENGINE = dict(max_batch=4, max_len=128)
 ENGINE_NEW = 16
-ENGINE_TIERED = dict(hbm_budget_bytes=32 << 20, pool_nodes=2,
+ENGINE_TIERED = dict(hbm_budget_bytes=8 << 20, pool_nodes=2,
                      pool_replication=2)
 # the lanes: two tenants, 6 requests of 16-token prompts and 16 new tokens,
 # joining in three pairs while earlier ones decode
@@ -396,22 +405,22 @@ PROFILE_STEPS = 16
 # one card holds (a deepseek-v3 MoE layer alone holds 256 x 3 x 7168 x 2048
 # routed parameters, 22.5 GB in bf16; mixtral's 32 layers ~90 GB of
 # experts): deepseek-v3's 3 first_k_dense MLA + MLP layers, 1 MoE layer and
-# the mtp block, mixtral's first 4 layers. Paging oversubscribes the expert
-# bytes 4x (resident 64 of 256, 2 of 8). The float32 checks run at the
+# the mtp block, mixtral's first 2 layers (cut for the script's time
+# limit). Paging oversubscribes the expert bytes 4x (resident 64 of 256, 2
+# of 8). The float32 checks run at the
 # depth float32 weights fit (deepseek-v3: 1 dense + 1 MoE layer, 52 GB);
 # decode against forward without drops (capacity factor 8, one dispatch
 # group; deepseek-v3 on one lane: two lanes would share capacity 1)
 MOE_MODELS = {
     "deepseek-v3-671b": dict(n_layers=4, resident=64, depth32=2, dense32=1,
                              lanes32=1, tokens32=64),
-    "mixtral-8x7b": dict(n_layers=4, resident=2, depth32=4, dense32=0,
+    "mixtral-8x7b": dict(n_layers=2, resident=2, depth32=2, dense32=0,
                          lanes32=2, tokens32=128),
 }
 MOE_PROMPT, MOE_NEW = 64, 16
-# the executor chains' depth at granite-8b's width: 12 of its 36 layers,
-# cut for the script's time limit (drawing their host data on the CPU took
-# most of the chains' time at 36)
-CHAIN_STAGES = 12
+# the executor chains' depth at granite-8b's width: 6 of its 36 layers,
+# cut for the script's time limit
+CHAIN_STAGES = 6
 # [train]: granite-8b trained at full width (d_model 4096, 32 heads with 8
 # KV heads of 128, d_ff 14336, vocab 49152, tied embedding, bf16), its depth
 # cut to 4 of its 36 layers: 1.07 B parameters, 2.1 GB of weights and as
@@ -448,22 +457,37 @@ TRAIN_FLASH = dict(B=2, H=32, KV=8, S=2048, D=128)
 # the restart check at the reduced float32 size (a full-width checkpoint
 # holds 13 GB): 10 steps, a checkpoint every 5, the run killed after step 7
 TRAIN_RESTART = dict(steps=10, ckpt_every=5, kill_at=7, batch=4, seq=64)
-# B2's backward under a sliding window, which no train step here reaches:
-# mixtral-8x7b's attention widths and window (4096) over 8192 positions
+# B2's backward under a sliding window alone: mixtral-8x7b's attention
+# widths and window (4096) over 8192 positions, the shape of its train leg
+# (TRAIN_MODELS)
 TRAIN_FLASH_WINDOW = dict(B=1, H=32, KV=8, S=8192, D=128, window=4096)
 # B2's VJP at the other attention shapes the train steps run: zamba2-1.2b's
-# shared block (D 64) and seamless-m4t-medium's cross attention (Sq != Sk,
-# full), at the train batch of 2
+# shared block (D 64), seamless-m4t-medium's cross attention (Sq != Sk,
+# full) and deepseek-v3's MLA (D 128 nope + 64 rope, Dv 128), at the train
+# batch of 2; at MLA's the wgmma backward must take below a quarter of the
+# FFMA kernels' time on the same inputs
 TRAIN_FLASH_MORE = {
     "zamba2-1.2b shared block": dict(B=2, H=32, KV=32, S=2048, D=64),
     "seamless-m4t-medium cross": dict(B=2, H=16, KV=16, S=512, Sk=1024,
-                                      D=64, causal=False)}
-# the SSM, hybrid and enc-dec families trained at full width and full
-# depth, one step per placement (parameters and moments in the plan at
-# 0.5), remat "full": mamba2-130m and zamba2-1.2b over 2 x 2048 tokens,
-# seamless-m4t-medium over 2 x (1024 frames, 512 tokens)
+                                      D=64, causal=False),
+    "deepseek-v3-671b MLA": dict(B=2, H=128, KV=128, S=2048, D=192, Dv=128,
+                                 ffma_below=0.25)}
+# the SSM, hybrid, enc-dec and MoE families trained at full width, one step
+# per placement (parameters and moments in the plan at 0.5), remat "full":
+# mamba2-130m and zamba2-1.2b whole over 2 x 2048 tokens, seamless-m4t-medium
+# whole over 2 x (1024 frames, 512 tokens); deepseek-v3-671b at its first 2
+# of 61 layers, both dense (a MoE layer's 11.3 B routed parameters with
+# their gradients and float32 moments, 135 GB, fill no card), with the MTP
+# block, over 2 x 2048 tokens: MLA through B2 at D 192, Dv 128, 2.79 B
+# parameters; mixtral-8x7b at its first 2 of 32 layers over 1 x 8192
+# tokens, so that its window of 4096 cuts pairs: top-2 MoE dispatch under
+# autograd and B2's windowed backward, 3.04 B parameters. "batch" defaults
+# to TRAIN's; "n_layers" and "first_k_dense" cut the depth
 TRAIN_MODELS = {"mamba2-130m": dict(seq=2048), "zamba2-1.2b": dict(seq=2048),
-                "seamless-m4t-medium": dict(seq=512)}
+                "seamless-m4t-medium": dict(seq=512),
+                "deepseek-v3-671b": dict(seq=2048, n_layers=2,
+                                         first_k_dense=2),
+                "mixtral-8x7b": dict(seq=8192, batch=1, n_layers=2)}
 TRAIN_MODEL_PLACEMENTS = {
     "untiered": (TieringConfig(), "full"),
     "host_offload 0.5": (TieringConfig(mode="host_offload",
@@ -520,6 +544,14 @@ from repro_torch.launch import dryrun
 rec = dryrun.run_cell(sys.argv[1], sys.argv[2], multi_pod=False)
 rec["wall_s"] = time.perf_counter() - t0
 print(json.dumps(rec, default=str))
+"""
+# [hpc] and [serving-bench], host work (numpy simulation, a reduced engine
+# on the card), run in a process of their own beside the card's phases
+HOST_PHASES_CODE = """
+import chip_smoke as cs
+dev = cs.phase_device()
+cs.phase_hpc(dev)
+cs.phase_serving_bench(dev)
 """
 # the launcher over the one-rank mesh: reduced granite-8b (float32), whose
 # loss must fall in 3 steps
@@ -1637,11 +1669,11 @@ def phase_mamba() -> dict:
 
 
 def phase_dense(smi: str) -> dict:
-    """granite-8b at full width: 36 B2 launches a forward (B4 H32 KV8 S2048
-    D128 causal); the path checked against the plain flash in float32 on 8
+    """granite-8b at full width, ``DENSE``'s depth: a B2 launch a layer a
+    forward (B4 H32 KV8 S2048 D128 causal); the path checked against the plain flash in float32 on 8
     layers, the serving layer driven at full width (``[engine]``), and
     decode against forward on 2 layers."""
-    cfg = GRANITE_8B
+    cfg = dataclasses.replace(GRANITE_8B, **DENSE)
     run = drive_model("dense", cfg, {"flash_attention": cfg.n_layers})
     path_check("dense", cfg, run, {"flash": mflash.blocked_flash},
                {"flash": nudged_kernels()["flash"]}, "plain-flash",
@@ -1965,9 +1997,10 @@ def phase_moe(smi: str) -> dict:
 
 # -- [train]: granite-8b trained at full width ----------------------------------
 def b2_backward_bound(q, k, v, causal: bool = True) -> tuple[float, str]:
-    """The backward's bound over (B, H, Sq, D) q: five products against
-    the forward's two (S and dP recomputed, dV, dQ, dK), 2.5 x its
-    operations; q, k, v, o, do and the lse read once, dq, dk, dv written."""
+    """The backward's bound over (B, H, Sq, D) q: five products (S and dP
+    recomputed, dV, dQ, dK), three over D and two over Dv
+    (:func:`repro_torch.kernels.work.flash_bwd_work`); q, k, v, o, do and
+    the lse read once, dq, dk, dv written."""
     B, H, S, D = q.shape
     KV, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     return bound(*work.flash_bwd_work(B, H, S, Sk, KV, D, Dv, causal=causal,
@@ -2031,14 +2064,14 @@ def check_b2_vjp(dtype, sh: dict = TRAIN_FLASH) -> dict:
     kernels are timed beside their bound, the plain version, and SDPA's
     backward alone and with its forward."""
     B, H, KV, S, D = (sh[k] for k in ("B", "H", "KV", "S", "D"))
-    Sk, causal = sh.get("Sk", S), sh.get("causal", True)
+    Sk, causal, Dv = sh.get("Sk", S), sh.get("causal", True), sh.get("Dv", D)
     rng = np.random.default_rng(12)
     q, k, v, do = (rand(rng, shape, dtype) for shape in (
-        (B, S, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, S, H, D)))
+        (B, S, H, D), (B, Sk, KV, D), (B, Sk, KV, Dv), (B, S, H, Dv)))
     scale = 1.0 / math.sqrt(D)
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
     what = f"B2 {shape_label(q, k, v, causal)} {dtype} " \
-           f"{fa._variant(dtype, D, D)}"
+           f"{fa._variant(dtype, D, Dv)}"
 
     def launch(with_lse: bool):
         return fa._launch(qt, kt, vt, causal=causal, window=None,
@@ -2085,13 +2118,13 @@ def check_b2_vjp(dtype, sh: dict = TRAIN_FLASH) -> dict:
                                if extra is not None else ""), extra)
     # the backward kernels against their plain version, the same inputs
     kw = dict(causal=causal, window=None, scale=scale)
-    bwd_variant = fa._bwd_variant(dtype, D, D)
+    bwd_variant = fa._bwd_variant(dtype, D, Dv)
     kern = fa._launch_bwd(qt, kt, vt, o, lse, dot, **kw)
     again = fa._launch_bwd(qt, kt, vt, o, lse, dot, **kw)
     require(all(torch.equal(a, b) for a, b in zip(kern, again)),
             f"{what}: two launches of the backward kernels on the same "
             f"inputs differ")
-    print(f"[check] {what} backward kernels ({fa._bwd_variant(dtype, D, D)})"
+    print(f"[check] {what} backward kernels ({bwd_variant})"
           f": two launches on the same inputs torch.equal in dq, dk and dv")
     out["deterministic"] = True
     del again
@@ -2163,7 +2196,6 @@ def check_b2_vjp(dtype, sh: dict = TRAIN_FLASH) -> dict:
                         for t in gqa_repeated(qt, kt, vt))
         q_req = qt.detach().requires_grad_(True)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        o_sdpa = sdpa(q_req, k_rep, v_rep, is_causal=causal)
         # with and without the lse in turns: without, with, with, without
         turns = [time_ms(lambda: launch(w), 10)
                  for w in (False, True, True, False)]
@@ -2177,35 +2209,57 @@ def check_b2_vjp(dtype, sh: dict = TRAIN_FLASH) -> dict:
             "plain_backward_ms": time_ms(lambda: fa._plain_bwd(
                 qt, kt, vt, o, lse, dot, **kw), 3),
             "backward_bound_ms": bb, "backward_bound_by": bby,
-            "sdpa_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
-                sdpa(q_req, k_rep, v_rep, is_causal=causal),
-                [q_req, k_rep, v_rep], dot), 10),
-            "sdpa_bwd_ms": time_ms(lambda: torch.autograd.grad(
-                o_sdpa, [q_req, k_rep, v_rep], dot, retain_graph=True), 10),
-            "sdpa_backend": sdpa_backend(qt, k_rep, v_rep, causal),
             "shape": shape_label(q, k, v, causal) + " bf16",
         }
         t = out["times"]
+        if "ffma_below" in sh:  # the CUDA-core kernels on the same inputs
+            t["ffma_backward_ms"] = time_ms(lambda: fa._launch_bwd(
+                qt, kt, vt, o, lse, dot, variant="ffma", **kw), 3)
+            require(t["backward_ms"] < sh["ffma_below"]
+                    * t["ffma_backward_ms"],
+                    f"{what}: the backward kernels ({bwd_variant}) take "
+                    f"{t['backward_ms']:.4f} ms, not below "
+                    f"{sh['ffma_below']} of the FFMA kernels' "
+                    f"{t['ffma_backward_ms']:.4f} ms")
+            # each of the launch's kernels alone, under the profiler
+            t["launch_ms"] = {kernel_name(n): ms for n, (ms, _) in
+                              launch_times(lambda: fa._launch_bwd(
+                                  qt, kt, vt, o, lse, dot, **kw)).items()}
+        o_sdpa = sdpa(q_req, k_rep, v_rep, is_causal=causal)
+        t["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            o_sdpa, [q_req, k_rep, v_rep], dot, retain_graph=True), 10)
+        t["sdpa_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            sdpa(q_req, k_rep, v_rep, is_causal=causal),
+            [q_req, k_rep, v_rep], dot), 10)
+        t["sdpa_backend"] = sdpa_backend(qt, k_rep, v_rep, causal)
+        del o_sdpa
+        ffma = (f", the FFMA kernels on the same inputs "
+                f"{t['ffma_backward_ms']:.4f} ms (the {bwd_variant} kernels "
+                f"at {t['backward_ms'] / t['ffma_backward_ms']:.2%} of it, "
+                f"required below {sh['ffma_below']:.0%}; a launch's kernels "
+                + ", ".join(f"{k} {v:.4f}" for k, v in t["launch_ms"].items())
+                + " ms under the profiler)" if "ffma_backward_ms" in t else "")
         print(f"[time] B2 in the train step ({what}): forward with lse "
               f"{t['ms']:.4f} ms, without {t['no_lse_ms']:.4f} ms (in turns "
               f"{', '.join(f'{x:.4f}' for x in turns)}; bound {fb:.4f}, "
               f"{fby}); backward kernels ({bwd_variant}) "
               f"{t['backward_ms']:.4f} ms (bound {bb:.4f}, {bby}; the plain "
               f"_flash_bwd from the saved lse {t['plain_backward_ms']:.4f} "
-              f"ms); SDPA backward alone {t['sdpa_bwd_ms']:.4f} ms, forward "
-              f"+ backward {t['sdpa_fwd_bwd_ms']:.4f} ms "
+              f"ms{ffma}); SDPA backward alone {t['sdpa_bwd_ms']:.4f} ms, "
+              f"forward + backward {t['sdpa_fwd_bwd_ms']:.4f} ms "
               f"({t['sdpa_backend']})")
-        del o_sdpa
     torch.cuda.synchronize()
     return out
 
 
 def check_b2_window(sh: dict = TRAIN_FLASH_WINDOW) -> dict:
-    """B2's backward kernels under a causal sliding window (``sh``, bf16)
-    against ``_plain_bwd`` on the same o, lse and dO, within ``FLASH_TOL``
-    (dq's bound with delta's float32 sums, as :func:`check_b2_vjp`'s); two
-    launches ``torch.equal``; a planted fault (dk of KV head 0 without keys
-    4096..4223, which only queries inside the window see) must fail. Timed
+    """B2's backward kernels alone under a causal sliding window (``sh``,
+    bf16: mixtral-8x7b's, whose train leg in :func:`phase_train` runs the
+    same shape) against ``_plain_bwd`` on the same o, lse and dO, within
+    ``FLASH_TOL`` (dq's bound with delta's float32 sums, as
+    :func:`check_b2_vjp`'s); two launches ``torch.equal``; a planted fault
+    (dk of KV head 0 without keys 4096..4223, which only queries inside the
+    window see) must fail. Timed
     beside its bound, the plain version and SDPA's backward alone with the
     window as an explicit boolean mask (k and v expanded to every head; the
     backend that answered printed)."""
@@ -2363,23 +2417,34 @@ class backward_calls:
         return False
 
 
-def profile_step(label: str, step, state: tuple, batch, step_ms: float):
+def profile_step(label: str, step, state: list, batch, step_ms: float):
     """One step under ``torch.profiler`` (device time by category, idle
     share against ``step_ms``, the unprofiled step), after one unprofiled
     step in which CUDA events bracket every call of the whole backward of
     B2's and B3's autograd Functions (:class:`backward_calls`: each call
     launches its backward kernels, counted): their time in the step.
-    Returns the new state and the numbers."""
+    ``state`` is [params, opt], emptied here so that no older state than
+    a step's input stays on the card beside its output. Returns the new
+    state and the numbers."""
+    params, opt = state
+    state.clear()
     with backward_calls(f"[train] step {label}") as spans:
-        (params, opt, _), ms, _ = timed_ms(lambda: step(*state, batch))
+        (params, opt, _), ms, _ = timed_ms(lambda: step(params, opt, batch))
     bwd = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
     box = {}
     wall, kernels = profiled(
         lambda: box.update(out=step(params, opt, batch)))
     report(f"train step {label}", wall, kernels)
     dev_ms = sum(t for t, _ in kernels.values())
-    fwd = {"B2": sum(t for name, (t, _) in kernels.items() if "flash" in name),
-           "B3": sum(t for name, (t, _) in kernels.items() if "ssd_" in name)}
+    # the forward kernels: not the backward's (B3's first backward launch
+    # is the chunk-state kernel's instantiation with its flag true)
+    def forward(name: str, part: str) -> bool:
+        return part in name and "_bwd" not in name and "true>" not in name
+
+    fwd = {"B2": sum(t for name, (t, _) in kernels.items()
+                     if forward(name, "flash")),
+           "B3": sum(t for name, (t, _) in kernels.items()
+                     if forward(name, "ssd_"))}
     print(f"[train] step {label} taken apart: device {dev_ms:.3f} ms (sum of "
           f"kernels under the profiler) against the unprofiled {step_ms:.3f} "
           f"ms best step, idle share {max(0.0, 1 - dev_ms / step_ms):.2%}; "
@@ -2492,8 +2557,10 @@ def train_placement(label: str, cfg, host_params, batch, opt_cfg,
           + f"; {smi}")
     prof = None
     if profile:
-        (params, opt, metrics), prof = profile_step(tag, step, (params, opt),
-                                                    batch, best)
+        state = [params, opt]
+        del params, opt
+        (params, opt, metrics), prof = profile_step(tag, step, state, batch,
+                                                    best)
     del params, opt, metrics
     torch.cuda.empty_cache()
     return {"base": base, "ms": best, "host_ms": best_host,
@@ -2584,18 +2651,33 @@ def layers_run_in_a_step(n_layers: int) -> list[int]:
 
 def step_launches(cfg) -> dict:
     """B2 and B3 launches a remat "full" train step of ``cfg`` makes
-    (:func:`layers_run_in_a_step` over each layer loop): an SSM layer one
-    B3, the hybrid's shared block one B2 after every ``hybrid_attn_every``
-    layers, a dense or encoder layer one B2, a decoder layer two."""
+    (:func:`layers_run_in_a_step` over each layer loop: the MoE family's
+    dense layers and its MoE layers are two), and B2's backward launches:
+    an SSM layer one B3, the hybrid's shared block one B2 after every
+    ``hybrid_attn_every`` layers, a dense, MoE or encoder layer one B2, a
+    decoder layer two; deepseek-v3's MTP block one B2 (outside the layer
+    loops: run once, not recomputed). B2's backward runs once for each B2
+    of the forward alone, its recomputes add none."""
     run = layers_run_in_a_step(cfg.n_layers)
     if cfg.family == "encdec":
         enc = layers_run_in_a_step(cfg.n_encoder_layers)
-        return {"flash_attention": len(enc) + 2 * len(run), "ssd_scan": 0}
+        return {"flash_attention": len(enc) + 2 * len(run),
+                "flash_attention_bwd": cfg.n_encoder_layers
+                + 2 * cfg.n_layers, "ssd_scan": 0}
     if cfg.family in ("ssm", "hybrid"):
         every = cfg.hybrid_attn_every
-        shared = sum(1 for i in run if every and (i + 1) % every == 0)
-        return {"flash_attention": shared, "ssd_scan": len(run)}
-    return {"flash_attention": len(run), "ssd_scan": 0}
+
+        def shared(layers) -> int:
+            return sum(1 for i in layers if every and (i + 1) % every == 0)
+        return {"flash_attention": shared(run),
+                "flash_attention_bwd": shared(range(cfg.n_layers)),
+                "ssd_scan": len(run)}
+    loops = ((cfg.first_k_dense, cfg.n_layers - cfg.first_k_dense)
+             if cfg.family == "moe" else (cfg.n_layers,))
+    mtp = 1 if cfg.mtp_depth else 0
+    return {"flash_attention": sum(len(layers_run_in_a_step(n))
+                                   for n in loops) + mtp,
+            "flash_attention_bwd": cfg.n_layers + mtp, "ssd_scan": 0}
 
 
 def b3_grad_ratio(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -2728,6 +2810,45 @@ def check_learning(cfg, data) -> None:
     torch.cuda.empty_cache()
 
 
+def train_model(name: str, spec: dict, opt_cfg, smi: str) -> dict:
+    """One of ``TRAIN_MODELS`` (``spec``: its depth cut, batch and tokens)
+    through :func:`train_leg` under ``TRAIN_MODEL_PLACEMENTS``, the
+    untiered step profiled; B2 and B3 launches a step and backward calls as
+    :func:`step_launches` counts them; for mamba2-130m also
+    :func:`check_learning`. Returns the leg's rows."""
+    mcfg = dataclasses.replace(get_config(name), **{
+        k: v for k, v in spec.items() if k in ("n_layers", "first_k_dense")})
+    mdata = SyntheticTokenDataset(mcfg, spec.get("batch", TRAIN["batch"]),
+                                  spec["seq"], seed=0)
+    if mcfg.sliding_window:
+        require(mcfg.sliding_window < spec["seq"],
+                f"[train] {name}: the window cuts no pair")
+    mrows = train_leg(mcfg, TRAIN_MODEL_PLACEMENTS, to_device_fn(
+        "cuda", mcfg.dtype)(mdata.batch_at(0)), opt_cfg, smi,
+        profile="untiered")
+    got = mrows["untiered"]["launches"]
+    want = step_launches(mcfg)
+    require({k: got[k] for k in want} == want,
+            f"[train] {name}: launches a step {got}, expected {want}")
+    print(f"[train] {name}: launches a step {want} as counted (forward, "
+          f"each nested block's recompute up to its last layer, each "
+          f"layer's recompute; B2's backward once a B2 of the forward)")
+    # one backward call per SSM layer, however often its forward ran; one
+    # of B2's per attention of the forward
+    prof = mrows["untiered"]["profile"]
+    ssm_layers = mcfg.n_layers if want["ssd_scan"] else 0
+    require(prof["b3_backward_calls"] == ssm_layers
+            and prof["b2_backward_calls"] == want["flash_attention_bwd"],
+            f"[train] {name}: B3's and B2's backward ran "
+            f"{prof['b3_backward_calls']} and {prof['b2_backward_calls']} "
+            f"times in the profiled step, expected {ssm_layers} (one per SSM "
+            f"layer) and {want['flash_attention_bwd']}")
+    if name == "mamba2-130m":
+        check_learning(mcfg, mdata)
+    release_memory()
+    return mrows
+
+
 def phase_train(smi: str) -> dict:
     """``[train]``: B2's lse and VJP at granite-8b's attention shape (bf16
     and float32) with planted faults, and at ``TRAIN_FLASH_MORE``'s;
@@ -2736,10 +2857,15 @@ def phase_train(smi: str) -> dict:
     (12 layers, where remat nests: :func:`check_nesting`), each leg all
     ``torch.equal``; B3's backward at ``B3_VJP``'s scans with a planted
     fault, two launches ``torch.equal`` and each launch's time, and at
-    ``B3_VJP_RAGGED``'s shapes untimed; mamba2-130m, zamba2-1.2b and seamless-m4t-medium at full width
-    and full depth one step under each of ``TRAIN_MODEL_PLACEMENTS``, all
-    ``torch.equal``, B2 and B3 launches a step as
-    :func:`step_launches` counts them; 10 steps of ``train.loop.train`` on
+    ``B3_VJP_RAGGED``'s shapes untimed; ``TRAIN_MODELS`` at full width one
+    step under each of ``TRAIN_MODEL_PLACEMENTS``, all ``torch.equal``, B2
+    and B3 launches a step and backward calls as :func:`step_launches`
+    counts them: mamba2-130m, zamba2-1.2b and seamless-m4t-medium whole,
+    deepseek-v3-671b at 2 dense MLA layers and its MTP block (B2's
+    backward at D 192 on the tensor cores, also held alone at
+    ``TRAIN_FLASH_MORE``'s MLA shape), mixtral-8x7b at 2 MoE layers over
+    8192 tokens (top-2 dispatch under autograd, B2's backward under its
+    window of 4096); 10 steps of ``train.loop.train`` on
     a repeated batch must lower the loss (granite-8b, mamba2-130m); a run
     killed after its checkpoint resumes with equal losses, untiered and at
     host_offload 0.5 (the reduced float32 config); ``python -m
@@ -2782,31 +2908,8 @@ def phase_train(smi: str) -> dict:
     b3_vjp.update({label: check_b3_vjp(label, dims, timed=False)
                    for label, dims in B3_VJP_RAGGED.items()})
     release_memory()
-    model_rows = {}
-    for name, spec in TRAIN_MODELS.items():
-        mcfg = get_config(name)
-        mdata = SyntheticTokenDataset(mcfg, TRAIN["batch"], spec["seq"],
-                                      seed=0)
-        mrows = train_leg(mcfg, TRAIN_MODEL_PLACEMENTS, to_device_fn(
-            "cuda", mcfg.dtype)(mdata.batch_at(0)), opt_cfg, smi,
-            profile="untiered")
-        got = mrows["untiered"]["launches"]
-        want = step_launches(mcfg)
-        require({k: got[k] for k in want} == want,
-                f"[train] {name}: launches a step {got}, expected {want}")
-        print(f"[train] {name}: launches a step {want} as counted "
-              f"(forward, each nested block's recompute up to its last "
-              f"layer, each layer's recompute)")
-        # one backward call per SSM layer, however often its forward ran
-        calls = mrows["untiered"]["profile"]["b3_backward_calls"]
-        ssm_layers = mcfg.n_layers if want["ssd_scan"] else 0
-        require(calls == ssm_layers,
-                f"[train] {name}: B3's backward ran {calls} times in the "
-                f"profiled step, expected {ssm_layers} (one per SSM layer)")
-        model_rows[name] = mrows
-        if name == "mamba2-130m":
-            check_learning(mcfg, mdata)
-        release_memory()
+    model_rows = {name: train_model(name, spec, opt_cfg, smi)
+                  for name, spec in TRAIN_MODELS.items()}
 
     small = reduced_config(GRANITE_8B, dtype=torch.float32)
     rs = TRAIN_RESTART
@@ -3503,12 +3606,46 @@ def phase_model_shape_times(fa_inputs: dict, ssd_inputs: dict) -> dict:
     return out
 
 
+def start_host_phases():
+    """``HOST_PHASES_CODE`` in a child process (after the build: it loads
+    the built libraries), its output to a file."""
+    out = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", HOST_PHASES_CODE], stdout=out,
+        stderr=subprocess.STDOUT, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def finish_host_phases(proc, out) -> None:
+    """Wait for the host phases' process, print what it printed, and fail
+    unless it exited 0."""
+    try:
+        code = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out.seek(0)
+    text = out.read()
+    out.close()
+    print(text, end="")
+    require(code == 0, f"[hpc] / [serving-bench] exited {code}")
+
+
 def main() -> None:
     dev = phase_device()
     t0 = time.perf_counter()
+    walls, last = {}, [t0]
+
+    def lap(name: str) -> None:  # wall seconds of the phase just ended
+        walls[name] = time.perf_counter() - last[0]
+        last[0] += walls[name]
+
     phase_build()
-    phase_hpc(dev)
-    phase_serving_bench(dev)
+    host = start_host_phases()
+    lap("build")
 
     cfg = GRANITE_8B
     L, d, heads, kv, hd = (CHAIN_STAGES, cfg.d_model, cfg.n_heads,
@@ -3521,7 +3658,8 @@ def main() -> None:
     print(f"[data] {cfg.name}: {L} matmul stages x0{tuple(mm_x0.shape)} "
           f"w{tuple(mm_stages[0].params['w'].shape)}, {L} attention stages "
           f"q{tuple(at_q0.shape)} k/v{tuple(at_stages[0].params['k'].shape)}, "
-          f"{cfg.dtype}, drawn in {time.perf_counter() - t0:.1f} s")
+          f"{cfg.dtype}, drawn in {time.perf_counter() - last[0]:.1f} s")
+    lap("chain data")
     mm_data = (mm_x0.cuda(), mm_stages[0].params["w"].cuda())
     fa_data = tuple(t.cuda().transpose(1, 2) for t in
                     (at_q0, at_stages[0].params["k"], at_stages[0].params["v"]))
@@ -3537,6 +3675,7 @@ def main() -> None:
                                              **SSD_ZAMBA), SSD_ZAMBA)}
     for name, err in phase_model_shape_checks(fa_models, ssd_models).items():
         errs[name] = max(errs[name], err)
+    lap("checks")
 
     torch.cuda.reset_peak_memory_stats()
     chains = {
@@ -3553,10 +3692,12 @@ def main() -> None:
                                      "ssd_scan_bwd")}
     for name, chain in chains.items():
         by_path[name][f"{name.split('_')[-1]} chain"] = chain["launches"]
+    lap("chains")
     for label, phase in (("mamba2-130m", phase_mamba),
                          ("granite-8b", lambda: phase_dense(dev["smi"])),
                          ("zamba2-1.2b", phase_hybrid)):
         run = phase()
+        lap(label)
         for name, n in run["launches"].items():
             if n:
                 by_path[name][label] = n
@@ -3567,22 +3708,27 @@ def main() -> None:
         for name, n in run["launches"].items():
             if n:
                 by_path[name][label] = n
+    lap("moe")
     for name, n in phase_encdec(dev["smi"])["launches"].items():
         if n:
             by_path[name]["seamless-m4t-medium"] = n
+    lap("encdec")
     times = phase_times(mm_data, fa_data, ssd_data)
     model_times = phase_model_shape_times(fa_models, ssd_models)
+    lap("time")
     # [train]'s 12-layer step peaks near 70 GiB: nothing else stays on the
     # card
     del mm_data, fa_data, ssd_data, fa_models, ssd_models
     release_memory()
     trained = phase_train(dev["smi"])
+    lap("train")
     cells = start_dryrun_cells()
     try:
         meshed = phase_mesh(dev["smi"])
         phase_dryrun(dev["smi"], cells)
     finally:
         stop_dryrun_cells(cells)
+    lap("mesh, dryrun")
     steps = {"granite-8b": trained["launches"],
              "granite-8b mesh": meshed["launches"], **{
         model: rows["untiered"]["launches"]
@@ -3594,8 +3740,11 @@ def main() -> None:
     for name, paths in by_path.items():
         print(f"[path] {name} launches by path: {paths}")
         require(sum(paths.values()) > 0, f"{name}: launched on no path")
-    print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
-          f"{dev['smi']}")
+    finish_host_phases(*host)
+    lap("host phases' wait")
+    print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f" s); {dev['smi']}")
     replaces = {
         "streaming_matmul": "src/repro/kernels/streaming_matmul.py:34",
         "flash_attention": "src/repro/kernels/flash_attention.py:36",
@@ -3644,9 +3793,10 @@ def main() -> None:
         "model_shapes": {label: {
             "max_abs_err": {str(dt).removeprefix("torch."): b2_err(r)
                             for dt, r in by_dtype.items()},
-            **{k: by_dtype[torch.bfloat16]["times"][k] for k in (
-                "backward_ms", "plain_backward_ms", "backward_bound_ms",
-                "sdpa_bwd_ms", "shape")}}
+            **{k: v for k, v in by_dtype[torch.bfloat16]["times"].items()
+               if k in ("backward_ms", "backward_variant", "ffma_backward_ms",
+                        "launch_ms", "plain_backward_ms", "backward_bound_ms",
+                        "sdpa_bwd_ms", "sdpa_backend", "shape")}}
             for label, by_dtype in trained["vjp_more"].items()},
         "window_case": {"max_abs_err": b2_err(trained["vjp_window"]),
                         **trained["vjp_window"]["times"]},

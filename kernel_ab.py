@@ -23,8 +23,8 @@ flash attention, B1 H32 KV8 S4096 D128, bf16, q/k/v strided as the executor
 passes them) and B3 (the SSD chunk scan at mamba2-130m's B4 H24 L2048 P64
 N128 chunk 256, float32), then ``torch.matmul`` and SDPA on B1's and B2's
 inputs. ``B2bwd`` (asked for by name) adds B2's backward kernels
-(``flash_attention_bwd``, bf16) at the train steps' three attention shapes,
-``BWD_SHAPES``: each tree's dq, dk and dv held against ``_plain_bwd`` on
+(``flash_attention_bwd``, bf16) at the train steps' four attention shapes,
+``BWD_SHAPES`` (MLA's D 192, Dv 128 among them): each tree's dq, dk and dv held against ``_plain_bwd`` on
 the same o, lse and dO, and two launches required ``torch.equal``; then
 SDPA's backward alone at each shape. ``B3bwd`` (by name) adds B3's
 backward kernels (``ssd_chunk_scan_bwd``, float32) at the train steps' two
@@ -75,6 +75,8 @@ BWD_SHAPES = {
                         causal=True),
     "seamless-m4t-medium cross": dict(B=2, H=16, KV=16, Sq=512, Sk=1024,
                                       D=64, causal=False),
+    "deepseek-v3-671b MLA": dict(B=2, H=128, KV=128, Sq=2048, Sk=2048,
+                                 D=192, Dv=128, causal=True),
 }
 
 
@@ -176,9 +178,9 @@ def bwd_case(draw, sh: dict):
     on the same inputs. q, k, v and dO are drawn in the models' (B, S, H,
     D) layout and passed transposed, o and lse come from B2's forward."""
     B, H, KV, Sq, Sk, D = (sh[k] for k in ("B", "H", "KV", "Sq", "Sk", "D"))
-    causal, scale = sh["causal"], D ** -0.5
-    q, do = draw(B, Sq, H, D), draw(B, Sq, H, D)
-    k, v = draw(B, Sk, KV, D), draw(B, Sk, KV, D)
+    causal, scale, Dv = sh["causal"], D ** -0.5, sh.get("Dv", D)
+    q, do = draw(B, Sq, H, D), draw(B, Sq, H, Dv)
+    k, v = draw(B, Sk, KV, D), draw(B, Sk, KV, Dv)
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
     o, lse = fa._launch(qt, kt, vt, causal=causal, window=None, scale=scale,
                         with_lse=True)

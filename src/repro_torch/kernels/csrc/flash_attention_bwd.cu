@@ -31,8 +31,8 @@
 // Two variants, picked by the wrapper's plain rule on dtype and shape
 // (kernels/flash_attention.py::_bwd_variant):
 //
-// (1) "wgmma", bf16 with D and Dv multiples of 16 and at most 128, three
-//   kernels launched back to back:
+// (1) "wgmma", bf16 with D and Dv multiples of 16, D at most 192 and Dv at
+//   most 128, three kernels launched back to back:
 //   * delta, the bf16 rows read 16 bytes a lane (dO . o in float32);
 //   * dk and dv: one CTA per (KV head, 128 keys, b); warpgroup 0 is the
 //     producer (one thread issues TMA, one warp stages each tile's lse and
@@ -81,10 +81,18 @@
 //   D = Dv = 128 the dk and dv accumulators (128 floats a thread) leave no
 //   room to run ahead, so each warpgroup drains its tensor-core queue at the
 //   end of every tile and relies on the other warpgroup to fill the gap.
+//   At D > 128 (MLA's 192, D padded to 192 by TMA's zeros in three 64-column
+//   boxes) the dk/dv accumulators do not fit one warpgroup beside its score
+//   tiles: a CTA owns 64 keys and its two consumer warpgroups split each
+//   tile's products, S^T, P^T and dV in one and dP^T, dS^T and dK in the
+//   other, P^T handed over through shared memory in float32
+//   (flash_bwd_dkdv_split); the dq kernel is the same at 64-key tiles, its
+//   dQ += dS K an n128 and an n64 product. Both grids put a head's tiles
+//   next to each other there, so that the stream they share stays in L2.
 //   PERF.md's Findings list the variants measured on the card and not kept.
 //
-// (2) "ffma", float32 and the shapes the first variant does not take (D up
-//   to 192), on the CUDA cores, in the forward's "ffma" layout: dq with one
+// (2) "ffma", float32 and the shapes the first variant does not take, on
+//   the CUDA cores, in the forward's "ffma" layout: dq with one
 //   256-thread block per (b, head, 64 query rows), each warp owning 8 rows
 //   and lane j computing key j of a 32-key tile; dk and dv with one block
 //   per (b, KV head, 64 keys), each warp owning 8 keys and lane i computing
@@ -562,17 +570,26 @@ __device__ __forceinline__ void ss_product(float (&acc)[N / 2], const unsigned c
 }
 
 // acc (64 x N) += A (registers, KS k-steps of 16) * B (an MN-major tile in
-// shared memory: KS * 16 rows of K; N = 64 or 128 in boxes of `box` bytes)
+// shared memory: KS * 16 rows of K; N = 64, 128 or 192 in boxes of `box`
+// bytes). N = 192 is an n128 product over the first two boxes and an n64
+// over the third: their accumulators are acc's first 64 and last 32 floats
+// in the layout of one n192 product.
 template <int N, int KS>
 __device__ __forceinline__ void rs_product(float (&acc)[N / 2], const uint32_t (&a)[KS][4],
                                            const unsigned char* tile, int box) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     const uint64_t db = hopper::smem_desc(tile + kk * 16 * 128, box, 1024);
-    if constexpr (N == 128)
+    if constexpr (N == 192) {
+      hopper::wgmma_rs_m64n128k16<1>(*reinterpret_cast<float(*)[64]>(&acc[0]), a[kk], db, 1);
+      hopper::wgmma_rs_m64n64k16<1>(*reinterpret_cast<float(*)[32]>(&acc[64]), a[kk],
+                                    hopper::smem_desc(tile + 2 * box + kk * 16 * 128, box, 1024),
+                                    1);
+    } else if constexpr (N == 128) {
       hopper::wgmma_rs_m64n128k16<1>(acc, a[kk], db, 1);
-    else
+    } else {
       hopper::wgmma_rs_m64n64k16<1>(acc, a[kk], db, 1);
+    }
   }
 }
 
@@ -862,6 +879,274 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// dk, dv at D > 128 (MLA's 192): one warpgroup would hold dK's 96 and dV's
+// 64 floats beside S^T's and dP^T's 32 each, past the registers where ptxas
+// serialises the wgmma. So a CTA owns 64 keys and its two consumer
+// warpgroups split the products of every tile: the first computes S^T = K
+// Q^T, P^T and dV += P^T dO, the second dP^T = V dO^T, dS^T and dK += dS^T
+// Q. P^T goes from the first to the second through shared memory in
+// float32 (a two-slot ring with a "full" and an "empty" mbarrier a slot,
+// each thread reading the 32 floats its twin in the other warpgroup
+// wrote), so dS^T is computed from the float32 probabilities as in the
+// kernel above. Each side runs ahead (its next score tile issued before
+// its last product is done): 112 and 144 live floats a thread.
+constexpr int P_STAGES = 2;
+
+template <int DP, int DVP>
+struct SplitLayout {
+  static constexpr int K_BYTES = BQ * DP * 2;
+  static constexpr int V_BYTES = BQ * DVP * 2;
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int O_BYTES = BQ * DVP * 2;
+  static constexpr int STAGE_BYTES = Q_BYTES + O_BYTES;
+  static constexpr int P_FLOATS = BQ * BQ;  // a tile's P^T, 32 floats a thread
+  static constexpr int ROWS = 2 * BQ;
+  static constexpr int BARRIERS = 1 + 2 * KV_STAGES + 2 * P_STAGES;
+  static constexpr int SMEM_BYTES = 1024 + K_BYTES + V_BYTES + KV_STAGES * STAGE_BYTES +
+                                    P_STAGES * P_FLOATS * 4 + KV_STAGES * ROWS * 4 +
+                                    BARRIERS * 8;
+  static_assert(SMEM_BYTES <= 232448, "the split dk/dv kernel's shared memory");
+};
+
+// grid (key tiles of 64, KV, B): a head's key tiles are adjacent, so the
+// stream of its query tiles (1.3 MB of q and dO a head at MLA's widths) is
+// read from L2 by all of them; heads fastest, the resident CTAs would span
+// ~132 heads and read it from HBM. Within a head the key tiles with the
+// most query tiles go first.
+template <int DP, int DVP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_split(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap domap,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                     TcArgs a) {
+  using L = SplitLayout<DP, DVP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  unsigned char* k_tile = smem;
+  unsigned char* v_tile = smem + L::K_BYTES;
+  unsigned char* ring = v_tile + L::V_BYTES;
+  auto q_tile = [&](int s) { return ring + s * L::STAGE_BYTES; };
+  auto do_tile = [&](int s) { return q_tile(s) + L::Q_BYTES; };
+  float* p_ring = reinterpret_cast<float*>(ring + KV_STAGES * L::STAGE_BYTES);
+  float* rows = p_ring + P_STAGES * L::P_FLOATS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rows + KV_STAGES * L::ROWS);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + KV_STAGES;
+  uint64_t* p_full = empty + KV_STAGES;
+  uint64_t* p_empty = p_full + P_STAGES;
+
+  const int kb = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.KV;
+  const int k_lo = kb * BQ;
+  const int k_max = min(k_lo + BQ, a.Sk) - 1;
+  int qt_lo = 0, qt_hi = (a.Sq + BQ - 1) / BQ;
+  if (a.mask.causal) qt_lo = k_lo / BQ;
+  if (a.mask.has_window) qt_hi = min(qt_hi, (k_max + a.mask.window - 1) / BQ + 1);
+  const int nq = max(qt_hi - qt_lo, 0);
+  const int n_tiles = G * nq;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < KV_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);  // the TMA thread's and the row warp's lanes
+      hopper::mbar_init(&empty[s], 8);      // one arrival per consumer warp
+    }
+    for (int s = 0; s < P_STAGES; ++s) {
+      hopper::mbar_init(&p_full[s], 128);   // every thread of the first consumer
+      hopper::mbar_init(&p_empty[s], 128);  // every thread of the second
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer, as the kernel above's
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      hopper::mbar_expect_tx(kv_full, L::K_BYTES + L::V_BYTES);
+#pragma unroll
+      for (int c = 0; c < DP / 64; ++c)
+        hopper::tma_load_4d(k_tile + c * BQ_BOX, &kmap, kv_full, c * 64, k_lo, kvh, b);
+#pragma unroll
+      for (int c = 0; c < DVP / 64; ++c)
+        hopper::tma_load_4d(v_tile + c * BQ_BOX, &vmap, kv_full, c * 64, k_lo, kvh, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % KV_STAGES;
+        const int h = kvh * G + it / nq;
+        const int q_lo = (qt_lo + it % nq) * BQ;
+        hopper::mbar_wait(&empty[s], ((it / KV_STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], L::STAGE_BYTES);
+#pragma unroll
+        for (int c = 0; c < DP / 64; ++c)
+          hopper::tma_load_4d(q_tile(s) + c * BQ_BOX, &qmap, &full[s], c * 64, q_lo, h, b);
+#pragma unroll
+        for (int c = 0; c < DVP / 64; ++c)
+          hopper::tma_load_4d(do_tile(s) + c * BQ_BOX, &domap, &full[s], c * 64, q_lo, h, b);
+      }
+    } else if (threadIdx.x / 32 == 1) {  // the row warp: each tile's lse and delta
+      const int lane = threadIdx.x % 32;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % KV_STAGES;
+        const int h = kvh * G + it / nq;
+        const int q_lo = (qt_lo + it % nq) * BQ;
+        const long long base = ((long long)b * a.H + h) * a.Sq;
+        hopper::mbar_wait(&empty[s], ((it / KV_STAGES) & 1) ^ 1);
+        float* r = rows + s * L::ROWS;
+        for (int i = lane; i < BQ; i += 32) {
+          const int qi = min(q_lo + i, a.Sq - 1);
+          r[i] = a.lse[base + qi] * LOG2E;
+          r[BQ + i] = a.delta[base + qi];
+        }
+        hopper::mbar_arrive(&full[s]);
+      }
+    }
+  } else {  // consumers: both own the CTA's 64 keys, keys as the rows of every tile
+    hopper::regs_alloc<240>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int k0 = k_lo + (t / 32) * 16 + lane / 4;  // this thread's keys
+    const int k1 = k0 + 8;
+    const int col = 2 * (lane % 4);                  // + 8 j (+ 1): its queries
+    auto wait_full = [&](int it) {
+      hopper::mbar_wait(&full[it % KV_STAGES], (it / KV_STAGES) & 1);
+    };
+    auto release = [&](int it) {  // every product of this warpgroup that reads tile `it` is done
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[it % KV_STAGES]);
+    };
+    // this thread's 8 float4 of a P^T slot, interleaved by thread
+    auto p_slot = [&](int it) {
+      return reinterpret_cast<float4*>(p_ring + (it % P_STAGES) * L::P_FLOATS) + t;
+    };
+    if (n_tiles > 0) hopper::mbar_wait(kv_full, 0);
+    // No wgmma may sit under a branch inside a role: ptxas would serialise them.
+    if (wg == 1) {  // S^T -> P^T -> dV
+      float dv_acc[DVP / 2];
+      zero(dv_acc);
+      float st[BQ / 2];
+      uint32_t pa[BQ / 16][4];  // P^T, read by dV's product (into the next tile)
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % KV_STAGES;
+        wait_full(it);
+        hopper::wgmma_fence();
+        ss_product<BQ, DP>(st, k_tile, BQ_BOX, 0, q_tile(s), BQ_BOX);  // S^T = K Q^T
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the previous tile's dV is done
+        hopper::fence_regs(dv_acc);
+        hopper::fence_regs(pa);
+        if (it > 0) release(it - 1);
+        const int q_lo = (qt_lo + it % nq) * BQ;
+        const int q_hi = q_lo + BQ - 1;
+        const bool edge = q_hi >= a.Sq || k_lo + BQ > a.Sk ||
+                          (a.mask.causal && k_lo + BQ - 1 > q_lo) ||
+                          (a.mask.has_window && k_lo <= q_hi - a.mask.window);
+        const float* l2r = rows + s * L::ROWS;
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(st);
+        auto probs = [&](auto masked) {
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j) {
+            const float2 l2 = *reinterpret_cast<const float2*>(l2r + 8 * j + col);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int x = 4 * j + 2 * r + e;
+                float p = exp2_approx(st[x] * a.scale_log2 - (e ? l2.y : l2.x));
+                if constexpr (decltype(masked)::value)
+                  if (!a.mask.live(q_lo + 8 * j + col + e, r ? k1 : k0)) p = 0.f;
+                st[x] = p;
+              }
+            }
+          }
+        };
+        if (edge)
+          probs(std::true_type{});
+        else
+          probs(std::false_type{});
+        hopper::mbar_wait(&p_empty[it % P_STAGES], ((it / P_STAGES) & 1) ^ 1);
+        float4* pp = p_slot(it);
+#pragma unroll
+        for (int c = 0; c < BQ / 8; ++c)
+          pp[c * 128] = make_float4(st[4 * c], st[4 * c + 1], st[4 * c + 2], st[4 * c + 3]);
+        hopper::mbar_arrive(&p_full[it % P_STAGES]);
+        pack(pa, st);
+        hopper::wgmma_fence();
+        rs_product<DVP, BQ / 16>(dv_acc, pa, do_tile(s), BQ_BOX);  // dV += P^T dO
+        hopper::wgmma_commit();
+      }
+      hopper::wgmma_wait<0>();  // the last tile's slot needs no release
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(pa);
+      __nv_bfloat16* dvp = dv + b * a.dvs.b + kvh * a.dvs.h;
+#pragma unroll
+      for (int j = 0; j < DVP / 8; ++j) {
+        const int c = 8 * j + col;
+        if (c >= a.Dv) continue;
+        if (k0 < a.Sk)
+          *reinterpret_cast<__nv_bfloat162*>(dvp + k0 * a.dvs.s + c) =
+              __floats2bfloat162_rn(dv_acc[4 * j], dv_acc[4 * j + 1]);
+        if (k1 < a.Sk)
+          *reinterpret_cast<__nv_bfloat162*>(dvp + k1 * a.dvs.s + c) =
+              __floats2bfloat162_rn(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+      }
+    } else {  // dP^T -> dS^T -> dK
+      float dk_acc[DP / 2];
+      zero(dk_acc);
+      float dpt[BQ / 2];
+      uint32_t da[BQ / 16][4];  // dS^T, read by dK's product (into the next tile)
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % KV_STAGES;
+        wait_full(it);
+        hopper::wgmma_fence();
+        ss_product<BQ, DVP>(dpt, v_tile, BQ_BOX, 0, do_tile(s), BQ_BOX);  // dP^T = V dO^T
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the previous tile's dK is done
+        hopper::fence_regs(dk_acc);
+        hopper::fence_regs(da);
+        if (it > 0) release(it - 1);
+        const float* dlr = rows + s * L::ROWS + BQ;
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dpt);
+        hopper::mbar_wait(&p_full[it % P_STAGES], (it / P_STAGES) & 1);
+        const float4* pp = p_slot(it);
+#pragma unroll
+        for (int c = 0; c < BQ / 8; ++c) {  // x = 4c + 2r + e: query 8c + col + e
+          const float4 p = pp[c * 128];
+          const float2 dl = *reinterpret_cast<const float2*>(dlr + 8 * c + col);
+          dpt[4 * c] = p.x * (dpt[4 * c] - dl.x);  // dS^T / scale
+          dpt[4 * c + 1] = p.y * (dpt[4 * c + 1] - dl.y);
+          dpt[4 * c + 2] = p.z * (dpt[4 * c + 2] - dl.x);
+          dpt[4 * c + 3] = p.w * (dpt[4 * c + 3] - dl.y);
+        }
+        hopper::mbar_arrive(&p_empty[it % P_STAGES]);
+        pack(da, dpt);
+        hopper::wgmma_fence();
+        rs_product<DP, BQ / 16>(dk_acc, da, q_tile(s), BQ_BOX);  // dK += dS^T Q / scale
+        hopper::wgmma_commit();
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(da);
+      __nv_bfloat16* dkp = dk + b * a.dks.b + kvh * a.dks.h;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int c = 8 * j + col;
+        if (c >= a.D) continue;
+        if (k0 < a.Sk)
+          *reinterpret_cast<__nv_bfloat162*>(dkp + k0 * a.dks.s + c) =
+              __floats2bfloat162_rn(dk_acc[4 * j] * a.scale, dk_acc[4 * j + 1] * a.scale);
+        if (k1 < a.Sk)
+          *reinterpret_cast<__nv_bfloat162*>(dkp + k1 * a.dks.s + c) =
+              __floats2bfloat162_rn(dk_acc[4 * j + 2] * a.scale, dk_acc[4 * j + 3] * a.scale);
+      }
+    }
+  }
+}
+
 template <int DP, int DVP>
 struct QLayout {
   // keys of a tile: 128 where dQ's accumulator leaves room (D <= 64), else 64
@@ -877,7 +1162,9 @@ struct QLayout {
   static constexpr int SMEM_BYTES = 1024 + Q_BYTES + O_BYTES + Q_STAGES * STAGE_BYTES + BARRIERS * 8;
 };
 
-// dq: grid (H, query tiles of 128, B), the longest rows first
+// dq: grid (H, query tiles of 128, B), the longest rows first; at D > 128
+// (query tiles, H, B), a head's query tiles adjacent so that its K and V
+// stay in L2, as the split dk/dv kernel's key tiles
 template <int DP, int DVP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
@@ -901,8 +1188,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
   uint64_t* k_empty = v_full + Q_STAGES;
   uint64_t* v_empty = k_empty + Q_STAGES;
 
-  const int h = blockIdx.x, b = blockIdx.z;
-  const int qb = gridDim.y - 1 - blockIdx.y;
+  constexpr bool HEAD_MAJOR = DP > 128;
+  const int h = HEAD_MAJOR ? blockIdx.y : blockIdx.x, b = blockIdx.z;
+  const int qb = HEAD_MAJOR ? gridDim.x - 1 - blockIdx.x : gridDim.y - 1 - blockIdx.y;
   const int kvh = h / (a.H / a.KV);
   const int q_lo = qb * BIG;
   int kb_lo = 0, kb_hi = (a.Sk + BK - 1) / BK;
@@ -1062,31 +1350,41 @@ int launch(const void* q, const void* k, const void* v, const void* dout, void* 
            void* dk, void* dv, int B, Strides qs, Strides ks, Strides vs, Strides dos,
            const TcArgs& a, cudaStream_t stream) {
   constexpr int BK = QLayout<DP, DVP>::BK;
+  // D > 128: the dk/dv kernel whose warpgroups split the products, 64 keys a CTA
+  constexpr bool SPLIT = DP > 128;
+  constexpr int KEYS = SPLIT ? BQ : BIG;
   // _t: the dk/dv kernel's query tiles; _k: the dq kernel's key tiles
   CUtensorMap qm_t, dom_t, km, vm, qm, dom, km_k, vm_k;
   int err = head_map(&qm_t, q, B, a.H, a.Sq, a.D, qs, BQ);
   if (err == 0) err = head_map(&dom_t, dout, B, a.H, a.Sq, a.Dv, dos, BQ);
-  if (err == 0) err = head_map(&km, k, B, a.KV, a.Sk, a.D, ks, BIG);
-  if (err == 0) err = head_map(&vm, v, B, a.KV, a.Sk, a.Dv, vs, BIG);
+  if (err == 0) err = head_map(&km, k, B, a.KV, a.Sk, a.D, ks, KEYS);
+  if (err == 0) err = head_map(&vm, v, B, a.KV, a.Sk, a.Dv, vs, KEYS);
   if (err == 0) err = head_map(&qm, q, B, a.H, a.Sq, a.D, qs, BIG);
   if (err == 0) err = head_map(&dom, dout, B, a.H, a.Sq, a.Dv, dos, BIG);
   if (err == 0) err = head_map(&km_k, k, B, a.KV, a.Sk, a.D, ks, BK);
   if (err == 0) err = head_map(&vm_k, v, B, a.KV, a.Sk, a.Dv, vs, BK);
   if (err != 0) return err;
-  const int kv_smem = KvLayout<DP, DVP>::SMEM_BYTES;
+  // only the kernel of this width is instantiated (the other would not fit its registers)
+  auto kv_kernel = [] {
+    if constexpr (SPLIT) return flash_bwd_dkdv_split<DP, DVP>;
+    else return flash_bwd_dkdv_wgmma<DP, DVP>;
+  }();
+  const int kv_smem = SPLIT ? SplitLayout<DP, DVP>::SMEM_BYTES : KvLayout<DP, DVP>::SMEM_BYTES;
   const int q_smem = QLayout<DP, DVP>::SMEM_BYTES;
-  cudaError_t e = set_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_wgmma<DP, DVP>), kv_smem);
+  cudaError_t e = set_smem(reinterpret_cast<const void*>(kv_kernel), kv_smem);
   if (e == cudaSuccess)
     e = set_smem(reinterpret_cast<const void*>(flash_bwd_dq_wgmma<DP, DVP>), q_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkdv_wgmma<DP, DVP><<<dim3(a.KV, (a.Sk + BIG - 1) / BIG, B), THREADS, kv_smem,
-                                  stream>>>(qm_t, km, vm, dom_t,
-                                            static_cast<__nv_bfloat16*>(dk),
-                                            static_cast<__nv_bfloat16*>(dv), a);
+  // at D > 128 a head's tiles adjacent in both grids (see the kernels)
+  const int n_kt = (a.Sk + KEYS - 1) / KEYS, n_qt = (a.Sq + BIG - 1) / BIG;
+  const dim3 kv_grid = SPLIT ? dim3(n_kt, a.KV, B) : dim3(a.KV, n_kt, B);
+  const dim3 q_grid = SPLIT ? dim3(n_qt, a.H, B) : dim3(a.H, n_qt, B);
+  kv_kernel<<<kv_grid, THREADS, kv_smem, stream>>>(
+      qm_t, km, vm, dom_t, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq_wgmma<DP, DVP><<<dim3(a.H, (a.Sq + BIG - 1) / BIG, B), THREADS, q_smem,
-                                stream>>>(qm, km_k, vm_k, dom, static_cast<__nv_bfloat16*>(dq), a);
+  flash_bwd_dq_wgmma<DP, DVP><<<q_grid, THREADS, q_smem, stream>>>(
+      qm, km_k, vm_k, dom, static_cast<__nv_bfloat16*>(dq), a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1110,10 +1408,14 @@ int bwd_entry(int variant, int dtype, const void* q, const void* k, const void* 
       : launch_delta<__nv_bfloat16>(o, dout, delta, B, H, Sq, Dv, os, dos, stream);
   if (err != 0) return err;
   if (variant == 1) {
-    if (dtype != 1 || D % 16 || Dv % 16 || D > 128 || Dv > 128)
+    if (dtype != 1 || D % 16 || Dv % 16 || Dv > 128)
       return static_cast<int>(cudaErrorInvalidValue);
     const tcb::TcArgs a{H, KV, Sq, Sk, D, Dv, dqs, dks, dvs, lse, delta,
                         scale, scale * LOG2E, mask};
+    if (D > 128 && Dv <= 64)  // D padded to 192 by TMA's zeros, as the forward's
+      return tcb::launch<192, 64>(q, k, v, dout, dq, dk, dv, B, qs, ks, vs, dos, a, stream);
+    if (D > 128)
+      return tcb::launch<192, 128>(q, k, v, dout, dq, dk, dv, B, qs, ks, vs, dos, a, stream);
     if (D <= 64 && Dv <= 64)
       return tcb::launch<64, 64>(q, k, v, dout, dq, dk, dv, B, qs, ks, vs, dos, a, stream);
     if (D <= 64)
@@ -1136,7 +1438,7 @@ int bwd_entry(int variant, int dtype, const void* q, const void* k, const void* 
 // last dim contiguous); lse (B,H,Sq) float32 contiguous, the forward's;
 // delta (B,H,Sq) float32 contiguous, scratch the launch writes. D % 4 == 0,
 // D <= 192, Dv <= 128; the wgmma variant takes bf16 with D and Dv multiples
-// of 16 and at most 128, every stride of q, k, v, dout a multiple of 8
+// of 16, every stride of q, k, v, dout a multiple of 8
 // elements and those tensors 16-byte aligned (TMA). Launches the delta
 // pre-pass, the dk/dv kernel and the dq kernel on `stream`; returns 0, a
 // CUDA error code, or one above hopper::kTensorMapError.

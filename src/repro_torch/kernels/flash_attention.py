@@ -83,16 +83,9 @@ def _variant(dtype: torch.dtype, D: int, Dv: int) -> str:
     return "ffma"
 
 
-def _bwd_variant(dtype: torch.dtype, D: int, Dv: int) -> str:
-    """Which backward kernels compute the gradients: ``"wgmma"`` (tensor
-    cores, TMA) for bf16 with D and Dv multiples of 16 and at most 128 (the
-    dk/dv and dq accumulators held in registers beside the score tiles);
-    ``"ffma"`` (CUDA cores) for the rest, float32 and MLA's D 192
-    included."""
-    if (dtype == torch.bfloat16 and D % 16 == 0 and Dv % 16 == 0
-            and D <= 128 and Dv <= 128):
-        return "wgmma"
-    return "ffma"
+#: Which backward kernels compute the gradients: the forward's rule. At D
+#: past 128 (MLA's 192) the dk/dv kernel's two warpgroups split the products.
+_bwd_variant = _variant
 
 
 def _signature(lib: ctypes.CDLL, variant: str):
@@ -171,13 +164,15 @@ def _launch(q, k, v, *, causal, window, scale, variant: str | None = None,
     return (o, lse) if with_lse else o
 
 
-def _launch_bwd(q, k, v, o, lse, do, *, causal, window, scale):
+def _launch_bwd(q, k, v, o, lse, do, *, causal, window, scale,
+                variant: str | None = None):
     """Launch the backward kernels on the forward's saved (q, k, v, o,
     lse) and the output's gradient ``do``, the variant
-    :func:`_bwd_variant` picks. Returns (dq, dk, dv) in the inputs' type
-    and layout. ``do`` is
-    copied to a contiguous tensor first where its layout does not suit the
-    kernels (autograd may hand over an expanded gradient)."""
+    :func:`_bwd_variant` picks, or ``variant`` where a measurement names
+    one (to time both on the same inputs). Returns (dq, dk, dv) in the
+    inputs' type and layout. ``do`` is copied to a contiguous tensor first
+    where its layout does not suit the kernels (autograd may hand over an
+    expanded gradient)."""
     global BWD_LAUNCHES
     B, H, Sq, D = q.shape
     KV, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -198,7 +193,7 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, window, scale):
             f"{tuple(o.shape)} and lse (B, H, Sq) float32 contiguous; got "
             f"{tuple(do.shape)} and {tuple(lse.shape)} {lse.dtype}")
     traced = is_traced(q, k, v, o, do)
-    variant = _bwd_variant(q.dtype, D, Dv)
+    variant = variant or _bwd_variant(q.dtype, D, Dv)
     st = do.stride()
     if st[3] != 1 or variant == "wgmma" and (
             any(x % 8 for x in st[:3]) or not traced and do.data_ptr() % 16):

@@ -49,12 +49,13 @@ def flash_work(B: int, H: int, Sq: int, Sk: int, KV: int, D: int, Dv: int,
 def flash_bwd_work(B: int, H: int, Sq: int, Sk: int, KV: int, D: int,
                    Dv: int, *, causal: bool, window: int | None,
                    itemsize: int) -> tuple[float, int]:
-    """B2's backward: five products over the live pairs (S and dP
-    recomputed, then dV, dQ and dK) against the forward's two, 2.5 x its
-    operations; q, k, v, o, do and the float32 lse read, dq, dk and dv
+    """B2's backward: five products over the live pairs, ``2·(3D + 2Dv)``
+    operations a pair and head: S = q kᵀ recomputed, dQ = dS k and dK =
+    dSᵀ q over D; dP = dO vᵀ and dV = Pᵀ dO over Dv (2.5 x the forward's
+    at D = Dv); q, k, v, o, do and the float32 lse read, dq, dk and dv
     written."""
-    flops = 2.5 * flash_work(B, H, Sq, Sk, KV, D, Dv, causal=causal,
-                             window=window, itemsize=itemsize)[0]
+    flops = (B * H * live_pairs(Sq, Sk, causal, window)
+             * 2.0 * (3 * D + 2 * Dv))
     elems = 2 * (B * H * Sq * D + B * KV * Sk * (D + Dv) + B * H * Sq * Dv)
     return flops, elems * itemsize + B * H * Sq * 4
 

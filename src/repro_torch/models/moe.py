@@ -92,11 +92,30 @@ def expert_tensors(p: Params) -> tuple[torch.Tensor, torch.Tensor,
     return p["w_gate"], p["w_up"], p["w_down"]
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
+class _Silu(torch.autograd.Function):
     """``x * sigmoid(x)`` rounded as the reference computes it: the
     sigmoid as ``1 / (1 + exp(-x))``, each operation rounded to x's type
-    (XLA lowers ``jax.nn.silu`` so; torch's fused silu rounds once)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    (XLA lowers ``jax.nn.silu`` so; torch's fused silu rounds once). The
+    backward is JAX's for ``jax.nn.silu``, ``g s + (x g) s (1 - s)`` (the
+    derivative of ``lax.logistic`` is ``s (1 - s)``), not autograd of the
+    formula: where ``exp(-x)`` overflows (x below about -88, which a
+    full-width expert's gate reaches), that multiplies 0 by inf."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (x * g) * (s * (1.0 - s))
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """The reference's silu (:class:`_Silu`)."""
+    return _Silu.apply(x)
 
 
 def _mlp(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -171,16 +171,18 @@ class _Store:
 
 
 #: Most elements of one leaf the update takes at once: a larger leaf (a
-#: stacked layer weight) is updated in slices of whole rows along its first
-#: dim, so AdamW's float32 temporaries stay this size (256 MB each) and not
-#: the leaf's. The math is elementwise: the slices give the same bits.
+#: stacked layer weight) is updated in slices of whole rows of its last dim,
+#: so AdamW's float32 temporaries stay this size (256 MB each) and not the
+#: leaf's, nor one layer's (a stacked expert weight's layer can hold 470 M
+#: elements). The math is elementwise: the slices give the same bits.
 UPDATE_SLICE = 1 << 26
 
 
 def _row_slices(t: torch.Tensor) -> list[slice]:
     """Ranges of whole rows of ``t`` along dim 0 of at most
     :data:`UPDATE_SLICE` elements each (one row at least); one range for a
-    leaf that small or 0-d."""
+    leaf that small or 0-d. The update hands it a leaf of more than two
+    dims as the matrix of its last dim's rows."""
     if t.ndim == 0 or t.numel() <= UPDATE_SLICE:
         return [slice(None)]
     rows = max(1, UPDATE_SLICE // (t.numel() // t.shape[0]))
@@ -420,22 +422,31 @@ def make_train_step(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
             news = update_leaf(names, [local_part(t) for t in olds],
                                local_part(g), s, store)
             return [like_global(x, t) for x, t in zip(news, olds)]
-        parts = _row_slices(olds[0])
-        if len(parts) == 1 or any(isinstance(t, QTensor) for t in olds):
+        quantized = any(isinstance(t, QTensor) for t in olds)
+        # a leaf of more than two dims as the matrix of its last dim's rows
+        flat = not quantized and all(t.ndim > 2 and t.is_contiguous()
+                                     for t in olds)
+
+        def rows(t):
+            return t.reshape(-1, t.shape[-1]) if flat else t
+
+        parts = [slice(None)] if quantized else _row_slices(rows(olds[0]))
+        if len(parts) == 1:
             cur = [store.get(n, t) for n, t in zip(names, olds)]
             new = adamw.leaf_update(opt_cfg, cur[0], g, cur[1], cur[2], s)
             return [store.put(n, t, x) for n, t, x in zip(names, olds, new)]
         outs = [t if n in store.remote else torch.empty_like(t)
                 for n, t in zip(names, olds)]
+        g = rows(g)
         for sl in parts:
-            cur = [store.get(n, t[sl]) for n, t in zip(names, olds)]
+            cur = [store.get(n, rows(t)[sl]) for n, t in zip(names, olds)]
             new = adamw.leaf_update(opt_cfg, cur[0], g[sl], cur[1], cur[2],
                                     s)
             for n, o, x in zip(names, outs, new):
                 if n in store.remote:
-                    store.put(n, o[sl], x)
+                    store.put(n, rows(o)[sl], x)
                 else:
-                    o[sl] = x
+                    rows(o)[sl] = x
         return outs
 
     def update(params, opt_state, grads, store: _Store):

@@ -50,13 +50,35 @@ def no_launch(monkeypatch):
 
 @pytest.mark.parametrize("dtype,D,Dv,want", [
     (torch.bfloat16, 128, 128, "wgmma"), (torch.bfloat16, 64, 64, "wgmma"),
-    (torch.bfloat16, 64, 128, "wgmma"), (torch.bfloat16, 192, 128, "ffma"),
+    (torch.bfloat16, 64, 128, "wgmma"), (torch.bfloat16, 192, 128, "wgmma"),
+    (torch.bfloat16, 192, 64, "wgmma"), (torch.bfloat16, 176, 128, "wgmma"),
     (torch.bfloat16, 96, 64, "wgmma"), (torch.bfloat16, 72, 64, "ffma"),
     (torch.float32, 128, 128, "ffma"), (torch.float32, 64, 64, "ffma")])
 def test_b2_bwd_variant_rule(dtype, D, Dv, want):
-    """bf16 with D and Dv multiples of 16 and at most 128 takes the tensor
-    cores; MLA's D 192, other widths and float32 the CUDA-core kernels."""
+    """The forward's rule: bf16 with D and Dv multiples of 16, D at most
+    192 (MLA's; 176 padded to 192 as the forward pads it) and Dv at most
+    128 takes the tensor cores; other widths and float32 the CUDA-core
+    kernels."""
     assert fa._bwd_variant(dtype, D, Dv) == want
+    assert fa._bwd_variant(dtype, D, Dv) == fa._variant(dtype, D, Dv)
+
+
+@pytest.mark.parametrize("D,Dv,gflop", [(128, 128, 171.9), (192, 128, 893.8)])
+def test_b2_bwd_work_counts_each_product_over_its_width(D, Dv, gflop):
+    """The backward's operations at granite-8b's train shape (B 2, H 32,
+    KV 8) and MLA's (B 2, H 128, KV 128), S 2048 causal: S = q kᵀ, dQ =
+    dS k and dK = dSᵀ q over D, dP = dO vᵀ and dV = Pᵀ dO over Dv, two
+    operations a live pair and width each; 2.5 x the forward's at D = Dv."""
+    H, KV = (32, 8) if D == Dv else (128, 128)
+    kw = dict(causal=True, window=None, itemsize=2)
+    flops, nbytes = work.flash_bwd_work(2, H, 2048, 2048, KV, D, Dv, **kw)
+    live = 2 * H * 2048 * 2049 / 2
+    assert flops == sum(2.0 * live * w for w in (D, D, D, Dv, Dv))
+    assert round(flops / 1e9, 1) == gflop
+    fwd = work.flash_work(2, H, 2048, 2048, KV, D, Dv, **kw)[0]
+    assert (flops == 2.5 * fwd) == (D == Dv)
+    assert nbytes == 2 * 2 * (2 * H * 2048 * (D + Dv) + 2 * KV * 2048
+                              * (D + Dv)) + 2 * H * 2048 * 4
 
 
 def _b2_tensors(B=1, H=4, KV=2, S=64, D=32, Dv=32, dtype=torch.bfloat16,
@@ -177,9 +199,13 @@ def _entry(name: str, spill: int) -> str:
             f"ptxas info    : Used 168 registers, used 1 barriers\n")
 
 
+# B2's 12 wgmma backward kernels: dk/dv and dq at D, Dv in 64 and 128, the
+# dk/dv kernel whose warpgroups split the products and dq at D 192
 _TCB = [f"_ZN3tcb{len(k)}{k}ILi{dp}ELi{dv}EEEv14CUtensorMap_st"
-        for k in ("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma")
-        for dp in (64, 128) for dv in (64, 128)]
+        for k, dps in (("flash_bwd_dkdv_wgmma", (64, 128)),
+                       ("flash_bwd_dq_wgmma", (64, 128, 192)),
+                       ("flash_bwd_dkdv_split", (192,)))
+        for dp in dps for dv in (64, 128)]
 _FFMA = "_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu17flash_bwd_dq_ffmaIfEEv"
 _SERIALISED = ("ptxas info    : (C7512) Potential Performance Loss: "
                "wgmma.mma_async instructions are serialized due to "
@@ -219,17 +245,17 @@ _SSD_FWD = [f"{_SSD}22ssd_chunk_state_kernelILi128ELb0EEEvPKf",
 
 
 @pytest.mark.parametrize("case,passes", [
-    ("clean", True),          # 8 wgmma kernels, none spills; ffma may
+    ("clean", True),          # 12 wgmma kernels, none spills; ffma may
     ("wgmma_spills", False),  # one wgmma kernel spills
     ("serialised", False),    # ptxas serialised a wgmma
-    ("missing", False),       # fewer than the 8 wgmma kernels reported
+    ("missing", False),       # fewer than the 12 wgmma kernels reported
     ("ssd_spills", False),    # one of B3's backward kernels spills
     ("ssd_serialised", False),  # ptxas serialised a wgmma of B3's library
     ("ssd_missing", False),   # fewer than B3's 7 backward kernels reported
 ])
 def test_bwd_build_check(chip_smoke, monkeypatch, case, passes):
     """``check_bwd_build`` passes B2's backward library only with every
-    one of its 8 wgmma kernels at 0 spill bytes and no wgmma serialised,
+    one of its 12 wgmma kernels at 0 spill bytes and no wgmma serialised,
     and the SSD library only with B3's 7 backward kernels (key, row and
     states at widths 64 and 128, the state passing) at 0 spill bytes and
     none of its wgmma serialised; the forward's kernels may spill."""

@@ -201,3 +201,27 @@ def test_moe_init_shapes_match_the_reference():
         assert got == want
         stacked = MOE.moe_init(torch.Generator(), cfg, stack=3)
         assert stacked["w_gate"].shape == (3, *p["w_gate"].shape)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_silu_gradient_is_jax_silus(dtype):
+    """The experts' silu and its gradient against ``jax.grad`` of
+    ``jax.nn.silu`` (the reference's), past exp(-x)'s overflow too: there
+    autograd of ``x / (1 + exp(-x))`` op by op multiplies 0 by inf, and
+    JAX's derivative of ``lax.logistic`` (``s (1 - s)``) stays finite.
+    float32 within ``F32_TOL``, bf16 within two units of its last place."""
+    jdt, tdt = DTYPES[dtype]
+    x = np.array([-1000.0, -120.0, -89.5, -30.0, -2.5, -0.25, 0.0, 0.5, 3.0,
+                  40.0, 95.0, 1000.0], np.float32)
+    g = np.linspace(-2.0, 3.0, x.size).astype(np.float32)
+    want_y, vjp = jax.vjp(jax.nn.silu, jnp.asarray(x, jdt))
+    want_dx = np.asarray(vjp(jnp.asarray(g, jdt))[0].astype(jnp.float32))
+    xt = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    y = MOE._silu(xt)
+    (dx,) = torch.autograd.grad(y, xt, torch.from_numpy(g).to(tdt))
+    assert bool(torch.isfinite(dx).all())
+    tol = F32_TOL if dtype == "float32" else 2.0 ** -6
+    for got, want in ((y, np.asarray(want_y.astype(jnp.float32))),
+                      (dx, want_dx)):
+        np.testing.assert_allclose(got.detach().float().numpy(), want,
+                                   rtol=tol, atol=tol)

@@ -1,7 +1,8 @@
 """The port's loss and gradients on the CPU: ``loss_fn`` under every remat
 policy against ``jax.value_and_grad`` of the reference's on the same
 inputs (reduced granite-8b, at a depth that takes ``_block_split``'s blocks,
-in bf16, deepseek-v3 with aux and MTP, mamba2-130m, zamba2-1.2b with its
+in bf16, deepseek-v3 with aux and MTP, mixtral-8x7b with its window and
+top-2 experts, mamba2-130m, zamba2-1.2b with its
 shared block under remat); the flash backward against ``jax.grad`` of the
 reference's flash; B3's backward on a card (the fused scan's Function) and
 the per-stage kernels' refusal. The train step,
@@ -84,6 +85,25 @@ def test_deepseek_nll_aux_and_mtp_match_reference(deepseek, remat):
     loss, metrics, grads = ref.port_loss_and_grads(remat)
     assert set(metrics) == {"nll", "aux", "mtp_nll"}
     assert "['mtp']['proj']" in grads
+    check_f32(ref, loss, metrics, grads)
+
+
+@pytest.fixture(scope="module")
+def mixtral():
+    return Ref("mixtral-8x7b", seq=32)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_mixtral_windowed_moe_matches_reference(mixtral, remat):
+    """Reduced mixtral-8x7b: top-2 MoE dispatch and combine under autograd,
+    and the sliding window (16 at this size) over 32 tokens, so that the
+    window cuts pairs from every row past the 16th."""
+    ref = mixtral
+    assert ref.cfg.sliding_window == 16 < ref.batch["tokens"].shape[1]
+    assert ref.cfg.top_k == 2 and ref.cfg.first_k_dense == 0
+    loss, metrics, grads = ref.port_loss_and_grads(remat)
+    assert set(metrics) == {"nll", "aux"}
+    assert any("w_gate" in k and "layers" in k for k in grads)
     check_f32(ref, loss, metrics, grads)
 
 

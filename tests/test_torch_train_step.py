@@ -177,6 +177,7 @@ def _clone(tree):
 @pytest.mark.parametrize("arch,n_layers", [
     pytest.param("granite-8b", 2, id="granite-8b"),
     pytest.param("deepseek-v3-671b", 2, id="deepseek-v3-671b"),
+    pytest.param("mixtral-8x7b", 2, id="mixtral-8x7b"),
     pytest.param("granite-8b", 12, id="granite-8b-12-layers")])
 def test_placements_and_prefetch_are_bit_equal(arch, n_layers):
     """Untiered, prefetch off and host_offload at 0.5 and 0.0 (params and
@@ -245,6 +246,45 @@ def test_update_in_row_slices_is_bit_equal(monkeypatch, moment_style,
         out.append({**{"params" + k: t for k, t in _leaves_with_keys(p)},
                     **{"opt" + k: t for k, t in _leaves_with_keys(o)}})
     assert out[0].keys() == out[1].keys()
+    for k in out[0]:
+        assert torch.equal(out[0][k], out[1][k]), k
+
+
+@pytest.mark.parametrize("placement", ["untiered", "host_offload_0.0"])
+def test_update_slices_cut_inside_a_stacked_layer(monkeypatch, placement):
+    """Reduced mixtral-8x7b's stacked expert leaves (2, 4, 64, 32) hold
+    8192 elements a layer; with ``UPDATE_SLICE`` at 512 AdamW takes them
+    in slices of whole rows of the last dim, 512 elements each and never a
+    whole layer (a full-width expert weight's layer holds 470 M), and the
+    bits are the whole-leaf update's."""
+    cfg = reduced_config(get_config("mixtral-8x7b"), dtype=torch.float32)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+    p0, o0 = init_train_state(torch.Generator().manual_seed(0), cfg,
+                              TrainStepConfig(), opt_cfg, device="cpu")
+    assert tuple(p0["layers"]["moe"]["w_gate"].shape) == (2, 4, 64, 32)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32))
+    batch = {"tokens": tokens, "labels": tokens}
+    tiering = PLACEMENTS[placement]
+    leaf_update = step_mod.adamw.leaf_update
+    sizes = []
+
+    def recorded(opt_cfg, p, g, m, v, s):
+        sizes.append(p.numel())
+        return leaf_update(opt_cfg, p, g, m, v, s)
+
+    monkeypatch.setattr(step_mod.adamw, "leaf_update", recorded)
+    out = []
+    for slice_elems in (step_mod.UPDATE_SLICE, 512):
+        monkeypatch.setattr(step_mod, "UPDATE_SLICE", slice_elems)
+        sizes.clear()
+        p, o, plan = place_state(_clone(p0), _clone(o0), tiering,
+                                 device="cpu")
+        p, o, _ = make_train_step(cfg, TrainStepConfig.from_tiering(tiering),
+                                  opt_cfg, plan=plan)(p, o, batch)
+        out.append({**{"params" + k: t for k, t in _leaves_with_keys(p)},
+                    **{"opt" + k: t for k, t in _leaves_with_keys(o)}})
+    assert max(sizes) == 512 and sizes.count(512) >= 3 * 2 * 8192 // 512
     for k in out[0]:
         assert torch.equal(out[0][k], out[1][k]), k
 
