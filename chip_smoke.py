@@ -41,10 +41,10 @@ Phases (any failed check raises and exits non-zero):
      the mean stage compute beside the unpaced copy of one stage's bytes,
      then the simulator calibrated and replayed;
   5. the model paths at full width in bf16, through ``get_model``'s entry
-     points: mamba2-130m (24 layers), granite-8b (``[dense]``: 12 of its
-     36 layers, ``DENSE``, B2 in every layer) and zamba2-1.2b (``[hybrid]``: 38
-     Mamba2 layers and the shared attention block after every 6, so B3 and
-     B2 in one forward). For each: the weights drawn on the card from a
+     points: mamba2-130m (24 layers), granite-8b (``[dense]``: 6 of its
+     36 layers, ``DENSE``, B2 in every layer) and zamba2-1.2b (``[hybrid]``: 18
+     of its 38 Mamba2 layers, ``HYBRID``, and the shared attention block
+     after every 6, so B3 and B2 in one forward). For each: the weights drawn on the card from a
      seed and kept on the host; ``forward`` over 4 x 2048 tokens with every
      weight on the card (the oracle), then placed by ``host_offload`` at
      local fractions 0.5 and 0.0, prefetch on and off, every logits tensor
@@ -53,15 +53,20 @@ Phases (any failed check raises and exits non-zero):
      ``ServingEngine.generate``, at 0.5 through the hand loop ``greedy``
      over ``decode_step``; tokens equal); each kernel's
      launches equal to its count a forward times the forwards (granite-8b:
-     12 B2; zamba2-1.2b: 6 B2 and 38 B3; mamba2-130m: 24 B3), every B2
+     6 B2; zamba2-1.2b: 3 B2 and 18 B3; mamba2-130m: 24 B3), every B2
      launch through wgmma and each SSD kernel once a scan. Then the path
      check: the same forward with the kernels' plain versions (the plain
      SSD, the models' plain flash), in bf16 printed beside its floor (the
      plain forward with one plain version's output nudged) and held to
-     ``PATH_BOUND`` in float32 (granite-8b on 8 layers); and decode against
+     ``PATH_BOUND`` in float32 (granite-8b on its 6 layers); and decode against
      forward in float32 over 512 tokens (granite-8b on 2 layers,
      zamba2-1.2b on 12). On granite-8b's weights, ``[engine]``: the port's
-     serving layer at full width (below). Then ``[moe]`` (below):
+     serving layer at full width (below). Then ``[configs]``: the four
+     configurations no other phase runs (``CONFIGS``, each at a cut
+     depth: internvl2-1b, the vlm family with its 256 patches before the
+     text; glm4-9b, starcoder2-7b and granite-34b) through the same
+     ``drive_model`` and ``path_check``, a B2 launch a layer a forward at
+     GQA groups of 7, 16, 9 and 48; then ``[moe]`` (below):
      deepseek-v3-671b and mixtral-8x7b; ``[encdec]`` (below):
      seamless-m4t-medium whole; then ``[train]`` (below): granite-8b,
      mamba2-130m, zamba2-1.2b and seamless-m4t-medium trained at full
@@ -167,7 +172,11 @@ autograd's through ``ssd_staged_plain`` within the forward's tolerance
 scaled to each gradient, a planted fault (the kernels' dx without one
 chunk's carry term) rejected, timed beside their bound and the plain VJP;
 mamba2-130m, zamba2-1.2b and seamless-m4t-medium at full width and full
-depth, one step untiered and at host_offload 0.5, all ``torch.equal``,
+depth, the MoE family and ``CONFIGS``' four at their cut depths (B2's VJP
+first at each of the four's train shapes, where the backward splits a
+group's heads over more dk/dv CTAs wherever its grid is short of the card,
+the split timed in turns against one part), one step untiered and at
+host_offload 0.5, all ``torch.equal``,
 their B2 and B3 launches a step as ``step_launches`` counts them; 10
 mamba2-130m steps that must lower the loss; a run of the reduced float32
 config killed after its checkpoint must resume with the uninterrupted run's losses (``==``); and
@@ -275,6 +284,7 @@ from repro_torch.launch.mesh import (  # noqa: E402
 )
 from repro_torch.kernels.ref import (  # noqa: E402
     NEG_INF,
+    flash_dk_rounding_bound,
     flash_dq_rounding_bound,
     flash_ref,
     matmul_ref,
@@ -341,12 +351,13 @@ NEEDS_TENSOR_CORES = {"streaming_matmul": ("HGMMA",),
 # ptxas's note when it serialises a kernel's wgmma (C7512 to C7518)
 WGMMA_SERIALISED = "wgmma.mma_async instructions are serialized"
 # the backward kernels of each library, by a pattern of their mangled names,
-# and how many ptxas must report: B2's 12 wgmma kernels (namespace tcb: dk/dv
-# and dq at (D, Dv) padded to (64, 64), (64, 128), (128, 64), (128, 128),
-# (192, 64) and (192, 128)); B3's
+# and how many ptxas must report: B2's 13 kernels of namespace tcb (12
+# wgmma: dk/dv and dq at (D, Dv) padded to (64, 64), (64, 128), (128, 64),
+# (128, 128), (192, 64) and (192, 128); and the reduce of a split group's
+# parts); B3's
 # key and row kernels and its chunk-state kernel's backward instantiation
 # (its bool true) at widths 64 and 128, and its state passing
-BWD_KERNELS = {"flash_attention_bwd": ("_ZN3tcb", 12),
+BWD_KERNELS = {"flash_attention_bwd": ("_ZN3tcb", 13),
                "ssd_scan": (r"ssd_bwd_|ssd_chunk_state_kernelILi\d+ELb1E", 7)}
 # the reference's SSD tolerance (tests/test_kernels.py::TestSSDKernel);
 # L, chunk, G with B 2, H 4, P 32, N 32, then one chunk and L < chunk
@@ -378,22 +389,34 @@ FLASH_MODELS = {"granite-8b": dict(B=4, H=32, KV=8, S=2048, D=128),
                                                     D=64, f32=True),
                 "seamless-m4t-medium cross": dict(B=4, H=16, KV=16, S=512,
                                                   Sk=1024, D=64, causal=False,
-                                                  f32=True)}
+                                                  f32=True),
+                # [configs]' forward shapes: GQA groups of 7, 16, 9 and 48
+                # (multi-query attention), internvl2-1b over its 256 patches
+                # and 2048 tokens
+                "internvl2-1b": dict(B=4, H=14, KV=2, S=2304, D=64),
+                "glm4-9b": dict(B=4, H=32, KV=2, S=2048, D=128),
+                "starcoder2-7b": dict(B=4, H=36, KV=4, S=2048, D=128),
+                "granite-34b": dict(B=4, H=48, KV=1, S=2048, D=128)}
 BEST_OF = 3
 # the float32 plain-SSD forward's bound, as a share of max(1, max|logits|),
 # float32's bound for decode against forward; why the check is held in
 # float32 is written where it is used (phase_mamba)
 PATH_BOUND = 1e-3
-# [dense]: granite-8b at full width, its depth cut to 12 of 36 layers for
-# the script's time limit (2.85 B parameters; whole, the phase took 288 s)
-DENSE = dict(n_layers=12)
+# [dense]: granite-8b at full width, its depth cut to 6 of 36 layers for
+# the script's time limit (whole, the phase took 288 s; at 12 layers, with
+# [configs] beside it, the script came near its limit)
+DENSE = dict(n_layers=6)
+# [hybrid] and zamba2-1.2b's train leg: 18 of its 38 layers (the shared
+# attention block after layers 6, 12 and 18; remat "full" still nests at 12
+# layers and more), cut for the script's time limit
+HYBRID = dict(n_layers=18)
 # [engine]: granite-8b served through ServingEngine at full width: waves of 4
-# prompts of 64 tokens and 16 new ones in a 128-slot cache; a budget of 8
-# MiB demotes every parameter and then the K and V caches (12.6 MB each at
-# 12 layers)
+# prompts of 64 tokens and 16 new ones in a 128-slot cache; a budget of 4
+# MiB demotes every parameter and then the K and V caches (6.3 MB each at
+# 6 layers)
 ENGINE = dict(max_batch=4, max_len=128)
 ENGINE_NEW = 16
-ENGINE_TIERED = dict(hbm_budget_bytes=8 << 20, pool_nodes=2,
+ENGINE_TIERED = dict(hbm_budget_bytes=4 << 20, pool_nodes=2,
                      pool_replication=2)
 # the lanes: two tenants, 6 requests of 16-token prompts and 16 new tokens,
 # joining in three pairs while earlier ones decode
@@ -418,6 +441,18 @@ MOE_MODELS = {
                          lanes32=2, tokens32=128),
 }
 MOE_PROMPT, MOE_NEW = 64, 16
+# [configs]: the four configurations no other phase runs, at full width,
+# each at one depth for all its legs here and in [train] (TRAIN_MODELS):
+# internvl2-1b (the vlm family: 256 stub patch embeddings before the text)
+# at 8 of 24 layers, glm4-9b at 2 of 40, starcoder2-7b at 2 of 32 and
+# granite-34b at 2 of 88, cut for the train state (12 bytes a parameter,
+# held twice at the functional update's peak) and the script's time limit
+# (internvl2-1b whole and the other two at 4 layers took the script past
+# 950 s; whole, granite-34b's 47 B parameters fill neither the card nor the
+# host). The float32 path check runs at CONFIGS_DEPTH32 layers.
+CONFIGS = {"internvl2-1b": dict(n_layers=8), "glm4-9b": dict(n_layers=2),
+           "starcoder2-7b": dict(n_layers=2), "granite-34b": dict(n_layers=2)}
+CONFIGS_DEPTH32 = 2
 # the executor chains' depth at granite-8b's width: 6 of its 36 layers,
 # cut for the script's time limit
 CHAIN_STAGES = 6
@@ -471,23 +506,38 @@ TRAIN_FLASH_MORE = {
     "seamless-m4t-medium cross": dict(B=2, H=16, KV=16, S=512, Sk=1024,
                                       D=64, causal=False),
     "deepseek-v3-671b MLA": dict(B=2, H=128, KV=128, S=2048, D=192, Dv=128,
-                                 ffma_below=0.25)}
+                                 ffma_below=0.25),
+    # [configs]' train shapes; "parts": the split of each group's heads the
+    # dk/dv kernel takes there (fa._bwd_parts; 1 where absent), timed in
+    # turns against one part on the same inputs
+    "internvl2-1b": dict(B=2, H=14, KV=2, S=2304, D=64, parts=4),
+    "glm4-9b": dict(B=2, H=32, KV=2, S=2048, D=128, parts=4),
+    "starcoder2-7b": dict(B=2, H=36, KV=4, S=2048, D=128),
+    "granite-34b": dict(B=2, H=48, KV=1, S=2048, D=128, parts=8)}
 # the SSM, hybrid, enc-dec and MoE families trained at full width, one step
 # per placement (parameters and moments in the plan at 0.5), remat "full":
-# mamba2-130m and zamba2-1.2b whole over 2 x 2048 tokens, seamless-m4t-medium
+# mamba2-130m whole and zamba2-1.2b at HYBRID's depth over 2 x 2048
+# tokens, seamless-m4t-medium
 # whole over 2 x (1024 frames, 512 tokens); deepseek-v3-671b at its first 2
 # of 61 layers, both dense (a MoE layer's 11.3 B routed parameters with
 # their gradients and float32 moments, 135 GB, fill no card), with the MTP
 # block, over 2 x 2048 tokens: MLA through B2 at D 192, Dv 128, 2.79 B
-# parameters; mixtral-8x7b at its first 2 of 32 layers over 1 x 8192
-# tokens, so that its window of 4096 cuts pairs: top-2 MoE dispatch under
-# autograd and B2's windowed backward, 3.04 B parameters. "batch" defaults
-# to TRAIN's; "n_layers" and "first_k_dense" cut the depth
-TRAIN_MODELS = {"mamba2-130m": dict(seq=2048), "zamba2-1.2b": dict(seq=2048),
+# parameters; mixtral-8x7b at its first of 32 layers (cut for the
+# script's time limit) over 1 x 8192 tokens, so that its window of 4096
+# cuts pairs: top-2 MoE dispatch under autograd and B2's windowed
+# backward; CONFIGS' four at
+# their depths over 2 x 2048 tokens (internvl2-1b 2 x (256 patches + 2048
+# tokens)), where B2's backward meets groups of 7 to 48 heads. "batch"
+# defaults to TRAIN's; "n_layers" and "first_k_dense" cut the depth
+TRAIN_MODELS = {"mamba2-130m": dict(seq=2048),
+                "zamba2-1.2b": dict(seq=2048, **HYBRID),
                 "seamless-m4t-medium": dict(seq=512),
                 "deepseek-v3-671b": dict(seq=2048, n_layers=2,
                                          first_k_dense=2),
-                "mixtral-8x7b": dict(seq=8192, batch=1, n_layers=2)}
+                "mixtral-8x7b": dict(seq=8192, batch=1, n_layers=1),
+                # CONFIGS' four at their [configs] depths
+                **{name: dict(seq=2048, **spec)
+                   for name, spec in CONFIGS.items()}}
 TRAIN_MODEL_PLACEMENTS = {
     "untiered": (TieringConfig(), "full"),
     "host_offload 0.5": (TieringConfig(mode="host_offload",
@@ -1164,13 +1214,30 @@ def n_bytes(params) -> int:
                for _, t in _leaves_with_keys(params))
 
 
+def equal_to_host(got: torch.Tensor, host: torch.Tensor,
+                  chunk_bytes: int = 64 << 20) -> bool:
+    """``torch.equal(got, host)`` for a tensor on the card and one in
+    pinned host memory, compared on the card a chunk at a time: no copy of
+    the whole of ``host`` joins the card's peak, and none of ``got`` goes
+    through pageable host memory (a 151552-entry vocabulary's logits over 4
+    x 2048 tokens are 5 GB)."""
+    if got.shape != host.shape or got.dtype != host.dtype:
+        return False
+    a, b = got.reshape(-1), host.reshape(-1)
+    n = max(1, chunk_bytes // a.element_size())
+    return all(torch.equal(a[i:i + n], b[i:i + n].to(a.device,
+                                                     non_blocking=True))
+               for i in range(0, a.numel(), n))
+
+
 def drive_placements(tag: str, cfg, params, batch,
                      fractions=(1.0, 0.5, 0.0)) -> tuple:
     """The model's ``forward`` (``get_model(cfg)``) with every weight on
     the card (the oracle), then with the weights placed by
     ``host_offload`` at each of ``fractions`` below 1.0, prefetch on and
-    off; every logits tensor ``torch.equal`` to the oracle. Returns (the
-    oracle on the host, per-placement rows, forwards run)."""
+    off; every logits tensor ``torch.equal`` to the oracle
+    (:func:`equal_to_host`). Returns (the oracle in pinned host memory,
+    per-placement rows, forwards run)."""
     model = get_model(cfg)
     oracle = None  # on the host, so that no placement's peak includes it
     rows, n_fwd = {}, 0
@@ -1188,10 +1255,10 @@ def drive_placements(tag: str, cfg, params, batch,
                     placed, batch, cfg, prefetch=prefetch, plan=plan))
                 n_fwd += 1
                 runs.append((ms, host_ms))
-                logits = logits.cpu()
                 if oracle is None:
-                    oracle = logits
-                require(torch.equal(logits, oracle),
+                    oracle = torch.empty(logits.shape, dtype=logits.dtype,
+                                         pin_memory=True).copy_(logits)
+                require(equal_to_host(logits, oracle),
                         f"{tag} {mode} {frac} prefetch={prefetch}: logits != "
                         f"the all-local oracle")
                 del logits
@@ -1275,7 +1342,8 @@ def drive_model(tag: str, cfg, per_forward: dict[str, int]) -> dict:
     batch = make_batch(cfg, gen, 4, 2048)
     prompts = make_batch(cfg, gen, 4, 64)["tokens"]
     n_params = sum(t.numel() for _, t in _leaves_with_keys(params))
-    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} of "
+          f"{get_config(cfg.name).n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.4f} B parameters ({cfg.dtype}, "
           f"{n_bytes(params) / 1e9:.2f} GB), batch "
           f"{tuple(batch['tokens'].shape)}, made in "
@@ -1670,7 +1738,7 @@ def phase_mamba() -> dict:
 
 def phase_dense(smi: str) -> dict:
     """granite-8b at full width, ``DENSE``'s depth: a B2 launch a layer a
-    forward (B4 H32 KV8 S2048 D128 causal); the path checked against the plain flash in float32 on 8
+    forward (B4 H32 KV8 S2048 D128 causal); the path checked against the plain flash in float32 on its 6
     layers, the serving layer driven at full width (``[engine]``), and
     decode against forward on 2 layers."""
     cfg = dataclasses.replace(GRANITE_8B, **DENSE)
@@ -1687,11 +1755,12 @@ def phase_dense(smi: str) -> dict:
 
 
 def phase_hybrid() -> dict:
-    """zamba2-1.2b at full width: 38 SSD scans (B4 H64 L2048 P64 N64) and 6
-    B2 launches (B4 H32 KV32 S2048 D64 causal) a forward; the path checked
-    against the plain flash and SSD in float32 on all 38 layers, and decode
-    against forward on 12 (two passes through the shared block)."""
-    cfg = ZAMBA2_1_2B
+    """zamba2-1.2b at full width, ``HYBRID``'s depth: 18 SSD scans (B4 H64
+    L2048 P64 N64) and 3 B2 launches (B4 H32 KV32 S2048 D64 causal) a
+    forward; the path checked against the plain flash and SSD in float32
+    on all 18 layers, and decode against forward on 12 (two passes through
+    the shared block)."""
+    cfg = dataclasses.replace(ZAMBA2_1_2B, **HYBRID)
     run = drive_model("hybrid", cfg, {
         "ssd_scan": cfg.n_layers,
         "flash_attention": cfg.n_layers // cfg.hybrid_attn_every})
@@ -1705,6 +1774,36 @@ def phase_hybrid() -> dict:
     torch.cuda.empty_cache()
     decode_vs_forward("hybrid", cfg, 2 * cfg.hybrid_attn_every)
     return run
+
+
+def phase_configs(smi: str) -> dict:
+    """``[configs]``: ``CONFIGS``' four at full width and their depths,
+    each through :func:`drive_model` (forward over 4 x 2048 tokens at every
+    placement, ``torch.equal`` to the all-local one, a B2 launch a layer a
+    forward, all through wgmma; a served wave of 4 prompts) and
+    :func:`path_check` (the plain-flash forward in float32 at
+    ``CONFIGS_DEPTH32`` layers within ``PATH_BOUND``): internvl2-1b with its
+    4 x 256 patches (B2 at S 2304, H 14 over KV 2), glm4-9b (H 32 over KV
+    2), starcoder2-7b (H 36 over KV 4), granite-34b (H 48 over one KV
+    head). Returns each configuration's path numbers."""
+    t0 = time.perf_counter()
+    nudged = nudged_kernels()
+    out = {}
+    for name, spec in CONFIGS.items():
+        t1 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(name), **spec)
+        run = drive_model("configs", cfg, {"flash_attention": cfg.n_layers})
+        path_check("configs", cfg, run, {"flash": mflash.blocked_flash},
+                   {"flash": nudged["flash"]}, "plain-flash",
+                   "the attention output nudged by 2^-9", CONFIGS_DEPTH32)
+        del run["params"], run["batch"], run["oracle"], run["prompts"]
+        release_memory()
+        print(f"[configs] {name} ({cfg.n_layers} of "
+              f"{get_config(name).n_layers} layers) in "
+              f"{time.perf_counter() - t1:.1f} s")
+        out[name] = run
+    print(f"[configs] wall {time.perf_counter() - t0:.1f} s; {smi}")
+    return out
 
 
 # -- [encdec]: seamless-m4t-medium ---------------------------------------------
@@ -2081,7 +2180,8 @@ def check_b2_vjp(dtype, sh: dict = TRAIN_FLASH) -> dict:
     require(torch.equal(o, launch(False)),
             f"{what}: o with the lse differs from o without it")
     spec = mflash.MaskSpec(causal=causal)
-    block_k = min(mflash.DEFAULT_BLOCK_K, Sk)
+    # whole blocks of keys (internvl2-1b's 2304 in blocks of 256)
+    block_k = math.gcd(mflash.DEFAULT_BLOCK_K, Sk)
     _, lse32 = mflash._fwd_all(
         qt.float().reshape(B, KV, H // KV, S, D), kt.float(), vt.float(),
         spec, scale, block_k, mflash.DEFAULT_STRIPS)
@@ -2098,18 +2198,24 @@ def check_b2_vjp(dtype, sh: dict = TRAIN_FLASH) -> dict:
     got = grads(lambda a, b, c: mflash.flash_attention(a, b, c,
                                                        causal=causal))
     want = grads(lambda a, b, c: mflash.blocked_flash(a, b, c, causal=causal))
-    dq_extra = None
+    dq_extra = dk_extra = None
     if dtype == torch.bfloat16:
         # the plain side's own o and lse, in its (B,H,S,·) layout
         o_p, lse_p = (t.reshape(B, H, S, *t.shape[4:]) for t in
                       mflash._fwd_all(qt.reshape(B, KV, H // KV, S, D), kt,
                                       vt, spec, scale, block_k,
                                       mflash.DEFAULT_STRIPS))
-        # dq also carries o's rounding through delta = sum(do * o)
+        # dq and dk also carry o's rounding through delta = sum(do * o);
+        # dk sums it over the group's rows (C10)
         dq_extra = flash_dq_rounding_bound(q, k, o_p.transpose(1, 2), do,
                                            causal=causal, scale=scale)
+        dk_extra = flash_dk_rounding_bound(q, k, o_p.transpose(1, 2), do,
+                                           causal=causal, scale=scale)
+        bare = tolerance_ratio(got[1], want[1], FLASH_TOL[dtype]).max()
+        print(f"[check] {what} VJP dk without o's rounding through delta in "
+              f"its bound: worst element at {bare.item():.3f} of it")
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        extra = dq_extra if name == "dq" else None
+        extra = {"dq": dq_extra, "dk": dk_extra}.get(name)
         out[name] = max_err(g, w, FLASH_TOL[dtype],
                             f"{what} VJP {name}: the B2 Function (its "
                             f"backward kernels from B2's lse) against "
@@ -2119,6 +2225,18 @@ def check_b2_vjp(dtype, sh: dict = TRAIN_FLASH) -> dict:
     # the backward kernels against their plain version, the same inputs
     kw = dict(causal=causal, window=None, scale=scale)
     bwd_variant = fa._bwd_variant(dtype, D, Dv)
+    parts = (fa._bwd_parts(B, KV, Sk, H // KV, fa._sm_count(qt), D)
+             if bwd_variant == "wgmma" else 1)
+    require(parts == (sh.get("parts", 1) if bwd_variant == "wgmma" else 1),
+            f"{what}: the backward splits each group's heads into {parts} "
+            f"parts, expected {sh.get('parts', 1)}")
+    if parts > 1:
+        print(f"[check] {what} backward: each group's {H // KV} heads in "
+              f"{parts} parts of "
+              f"{[len(r) for r in fa.part_heads(H // KV, parts)]} heads, "
+              f"{B * KV * -(-Sk // fa.BWD_KEYS) * parts} dk/dv CTAs on "
+              f"{fa._sm_count(qt)} SMs (one part: "
+              f"{B * KV * -(-Sk // fa.BWD_KEYS)})")
     kern = fa._launch_bwd(qt, kt, vt, o, lse, dot, **kw)
     again = fa._launch_bwd(qt, kt, vt, o, lse, dot, **kw)
     require(all(torch.equal(a, b) for a, b in zip(kern, again)),
@@ -2174,7 +2292,7 @@ def check_b2_vjp(dtype, sh: dict = TRAIN_FLASH) -> dict:
         out["dq_gap"] = share
         tile = slice(128, 256)
         for name, faulty, w, extra in (
-                ("dk", got[1].clone(), want[1], None),
+                ("dk", got[1].clone(), want[1], dk_extra),
                 ("dq", dq_dropping_tile(got[0], qt, kt, vt, o, lse, dot,
                                         scale, tile), want[0], dq_extra)):
             if name == "dk":
@@ -2189,7 +2307,7 @@ def check_b2_vjp(dtype, sh: dict = TRAIN_FLASH) -> dict:
                   + f": {bad} of {faulty.numel()} elements beyond the "
                   f"bound, rejected")
     if dtype == torch.bfloat16:
-        del dq_extra, o_p, lse_p
+        del dq_extra, dk_extra, o_p, lse_p
         fb, fby = flash_bound(qt, kt, vt, causal)
         bb, bby = b2_backward_bound(qt, kt, vt, causal)
         k_rep, v_rep = (t.detach().requires_grad_(True)
@@ -2212,6 +2330,29 @@ def check_b2_vjp(dtype, sh: dict = TRAIN_FLASH) -> dict:
             "shape": shape_label(q, k, v, causal) + " bf16",
         }
         t = out["times"]
+        t["parts"] = parts
+        if parts > 1:  # the split against one part, in turns on one input
+            part_turns = [(p, time_ms(lambda: fa._launch_bwd(
+                qt, kt, vt, o, lse, dot, parts=p, **kw), 10))
+                for p in (1, parts, parts, 1, 1, parts, parts, 1)]
+            t["one_part_ms"] = float(np.median(
+                [ms for p, ms in part_turns if p == 1]))
+            t["parts_ms"] = float(np.median(
+                [ms for p, ms in part_turns if p > 1]))
+            t["launch_ms"], t["one_part_launch_ms"] = (
+                {kernel_name(n): ms for n, (ms, _) in launch_times(
+                    lambda: fa._launch_bwd(qt, kt, vt, o, lse, dot, parts=p,
+                                           **kw)).items()}
+                for p in (parts, 1))
+            print(f"[time] B2 backward kernels at {what}: {parts} parts "
+                  f"{t['parts_ms']:.4f} ms, one part {t['one_part_ms']:.4f} "
+                  f"ms (medians of 4 in turns: "
+                  + ", ".join(f"P{p} {ms:.4f}" for p, ms in part_turns)
+                  + "); a launch's kernels under the profiler, ms: "
+                  + "; ".join(f"{n} part(s) " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in lt.items())
+                      for n, lt in ((parts, t["launch_ms"]),
+                                    (1, t["one_part_launch_ms"]))))
         if "ffma_below" in sh:  # the CUDA-core kernels on the same inputs
             t["ffma_backward_ms"] = time_ms(lambda: fa._launch_bwd(
                 qt, kt, vt, o, lse, dot, variant="ffma", **kw), 3)
@@ -2873,11 +3014,18 @@ def phase_train(smi: str) -> dict:
     mamba2-130m). Returns the untiered steps' launches and the backward
     numbers of B2 and B3."""
     t0 = time.perf_counter()
+    walls, last = {}, [t0]
+
+    def lap(name: str) -> None:  # wall seconds of the part just ended
+        walls[name] = time.perf_counter() - last[0]
+        last[0] += walls[name]
+
     print(f"[train] on the card before the phase: "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
     vjp = {dt: check_b2_vjp(dt) for dt in (torch.bfloat16, torch.float32)}
     vjp_window = check_b2_window()
     release_memory()
+    lap("B2 VJP at granite-8b's shape and the window")
     cfg = dataclasses.replace(GRANITE_8B, n_layers=TRAIN["n_layers"])
     data = SyntheticTokenDataset(cfg, TRAIN["batch"], TRAIN["seq"], seed=0)
     batch = to_device_fn("cuda", cfg.dtype)(data.batch_at(0))
@@ -2894,22 +3042,30 @@ def phase_train(smi: str) -> dict:
             f"[train] B2's backward kernels launched "
             f"{rows['untiered']['launches']['flash_attention_bwd']} times a "
             f"step, expected {cfg.n_layers} (one a layer)")
+    lap("granite-8b, 4 layers")
     deep = dataclasses.replace(GRANITE_8B, n_layers=TRAIN_DEEP["n_layers"])
     deep_rows = train_leg(deep, TRAIN_DEEP_PLACEMENTS, batch, opt_cfg, smi)
     check_nesting(deep, deep_rows)
+    lap("granite-8b, 12 layers")
     check_learning(cfg, data)
     del batch
+    lap("learning")
 
-    vjp_more = {label: {dt: check_b2_vjp(dt, sh)
-                        for dt in (torch.bfloat16, torch.float32)}
-                for label, sh in TRAIN_FLASH_MORE.items()}
+    vjp_more = {}
+    for label, sh in TRAIN_FLASH_MORE.items():
+        vjp_more[label] = {dt: check_b2_vjp(dt, sh)
+                           for dt in (torch.bfloat16, torch.float32)}
+        lap(f"B2 VJP at {label}'s shape")
     b3_vjp = {label: check_b3_vjp(label, dims)
               for label, dims in B3_VJP.items()}
     b3_vjp.update({label: check_b3_vjp(label, dims, timed=False)
                    for label, dims in B3_VJP_RAGGED.items()})
     release_memory()
-    model_rows = {name: train_model(name, spec, opt_cfg, smi)
-                  for name, spec in TRAIN_MODELS.items()}
+    lap("B3 VJP")
+    model_rows = {}
+    for name, spec in TRAIN_MODELS.items():
+        model_rows[name] = train_model(name, spec, opt_cfg, smi)
+        lap(name)
 
     small = reduced_config(GRANITE_8B, dtype=torch.float32)
     rs = TRAIN_RESTART
@@ -2964,7 +3120,10 @@ def phase_train(smi: str) -> dict:
     print(f"[train] python -m repro_torch.launch.train --device cuda "
           f"--steps 3: {run.stdout.strip().splitlines()[-1]} "
           f"({time.perf_counter() - t_l:.1f} s with the process start)")
-    print(f"[train] done in {time.perf_counter() - t0:.1f} s; {smi}")
+    lap("restart and launcher")
+    print(f"[train] done in {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f" s); {smi}")
     return {"launches": rows["untiered"]["launches"], "rows": rows,
             "deep_rows": deep_rows, "vjp": vjp, "vjp_more": vjp_more,
             "vjp_window": vjp_window,
@@ -3704,6 +3863,11 @@ def main() -> None:
         if "engine" in run:  # the serving layer's path: decode, no kernel
             for name, n in run["engine"]["launches"].items():
                 by_path[name][f"{label} engine"] = n
+    for label, run in phase_configs(dev["smi"]).items():
+        for name, n in run["launches"].items():
+            if n:
+                by_path[name][label] = n
+    lap("configs")
     for label, run in phase_moe(dev["smi"]).items():
         for name, n in run["launches"].items():
             if n:
@@ -3796,7 +3960,8 @@ def main() -> None:
             **{k: v for k, v in by_dtype[torch.bfloat16]["times"].items()
                if k in ("backward_ms", "backward_variant", "ffma_backward_ms",
                         "launch_ms", "plain_backward_ms", "backward_bound_ms",
-                        "sdpa_bwd_ms", "sdpa_backend", "shape")}}
+                        "sdpa_bwd_ms", "sdpa_backend", "shape", "parts",
+                        "one_part_ms", "parts_ms", "one_part_launch_ms")}}
             for label, by_dtype in trained["vjp_more"].items()},
         "window_case": {"max_abs_err": b2_err(trained["vjp_window"]),
                         **trained["vjp_window"]["times"]},

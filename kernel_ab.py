@@ -23,8 +23,11 @@ flash attention, B1 H32 KV8 S4096 D128, bf16, q/k/v strided as the executor
 passes them) and B3 (the SSD chunk scan at mamba2-130m's B4 H24 L2048 P64
 N128 chunk 256, float32), then ``torch.matmul`` and SDPA on B1's and B2's
 inputs. ``B2bwd`` (asked for by name) adds B2's backward kernels
-(``flash_attention_bwd``, bf16) at the train steps' four attention shapes,
-``BWD_SHAPES`` (MLA's D 192, Dv 128 among them): each tree's dq, dk and dv held against ``_plain_bwd`` on
+(``flash_attention_bwd``, bf16) at the train steps' attention shapes,
+``BWD_SHAPES`` (MLA's D 192, Dv 128 among them, and the three short dk/dv
+grids of internvl2-1b, glm4-9b and granite-34b, where this tree splits each
+group's heads and a tree from before the split, called through its own C
+interface, does not): each tree's dq, dk and dv held against ``_plain_bwd`` on
 the same o, lse and dO, and two launches required ``torch.equal``; then
 SDPA's backward alone at each shape. ``B3bwd`` (by name) adds B3's
 backward kernels (``ssd_chunk_scan_bwd``, float32) at the train steps' two
@@ -77,7 +80,14 @@ BWD_SHAPES = {
                                       D=64, causal=False),
     "deepseek-v3-671b MLA": dict(B=2, H=128, KV=128, Sq=2048, Sk=2048,
                                  D=192, Dv=128, causal=True),
+    # the short dk/dv grids, where a tree may split each group's heads
+    "internvl2-1b": dict(B=2, H=14, KV=2, Sq=2304, Sk=2304, D=64,
+                         causal=True),
+    "glm4-9b": dict(B=2, H=32, KV=2, Sq=2048, Sk=2048, D=128, causal=True),
+    "granite-34b": dict(B=2, H=48, KV=1, Sq=2048, Sk=2048, D=128,
+                        causal=True),
 }
+_CALL_BWD = fa._call_bwd
 
 
 def time_ms(fn) -> float:
@@ -96,9 +106,33 @@ def time_ms(fn) -> float:
 
 
 def use(tree: Path) -> None:
-    """Point the kernel wrappers at ``tree``'s libraries."""
+    """Point the kernel wrappers at ``tree``'s libraries, B2's backward
+    through the C interface ``tree`` exports."""
     _build.CSRC = tree
     _build._libs.clear()
+    split = "int parts, float* part" in (
+        tree / "flash_attention_bwd.cu").read_text()
+    fa._call_bwd = _CALL_BWD if split else call_bwd_whole_groups
+
+
+def call_bwd_whole_groups(variant: str, tensors, B, H, KV, Sq, Sk, D, Dv,
+                          parts, part, *, causal, window, scale) -> None:
+    """``flash_attention._call_bwd`` for a tree from before the split of
+    a group's heads, whose ``flash_attention_bwd`` takes no part count and
+    no scratch: its one part."""
+    q, k, v, o, do, lse, delta, dq, dk, dv = tensors
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    fn.argtypes = [i, i] + [p] * 10 + [i] * 7 + [ll] * 24 + [
+        ctypes.c_float, i, i, i, p]
+    fn.restype = ctypes.c_int
+    strides = [x for t in (q, k, v, o, do, dq, dk, dv) for x in t.stride()[:3]]
+    code = fn(int(variant == "wgmma"), fa._DTYPE_CODE[q.dtype],
+              *(t.data_ptr() for t in tensors), B, H, KV, Sq, Sk, D, Dv,
+              *strides, float(scale), int(causal), int(window is not None),
+              int(window or 0), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code, f"flash_attention backward ({variant})")
 
 
 def ssd_scan(xc, bc, cc, dtc, cum) -> torch.Tensor:

@@ -65,6 +65,15 @@
 //     two commit groups, then dQ += dS K (register A, K MN-major); always
 //     running ahead: the next tile's S and dP queue behind this tile's dQ.
 //     Its rows' lse and delta are read once.
+//   Where the dk/dv grid is short of the card (few KV heads: glm4-9b's 2,
+//   granite-34b's 1, at a train batch of 2 that is 64 and 32 CTAs for 132
+//   SMs, each CTA over a group of 16 or 48 heads) the wrapper splits each
+//   group's query heads into parts (kernels/flash_attention.py::_bwd_parts,
+//   about two CTAs an SM): a CTA a (KV head, part, 128 keys, b) sums its
+//   part's heads into a float32 scratch, and flash_bwd_dkdv_reduce adds the
+//   parts in order, scales dk and writes both in bf16. At one part (every
+//   grid of 88 CTAs or more) no scratch is used and dk, dv are written as
+//   before.
 //   p and ds are float32 until they are packed to bf16 as wgmma's A operand
 //   (the plain version multiplies them in float32: a rounding of 2^-9 per
 //   element, averaged over the keys); exp2 on the special-function unit
@@ -95,15 +104,21 @@
 //   the CUDA cores, in the forward's "ffma" layout: dq with one
 //   256-thread block per (b, head, 64 query rows), each warp owning 8 rows
 //   and lane j computing key j of a 32-key tile; dk and dv with one block
-//   per (b, KV head, 64 keys), each warp owning 8 keys and lane i computing
-//   query i of a 32-row tile, over the group's heads. float32 scores and
-//   exp as the plain version; its sums run in another order.
+//   per (b, KV head, 32 keys), each warp owning 4 keys and lane i computing
+//   query i of a 32-row tile, over the group's heads. The sums run in
+//   three levels: a tile's 32 rows, then the head's tiles (in registers),
+//   then the group's heads (in shared memory): one float32 chain over all
+//   G x Sq query rows loses the plain version's accuracy from a group of 9
+//   heads on (C10), and 32 keys a block leave registers for the tile's
+//   sums. float32
+//   scores and exp as the plain version; its sums run in another order.
 //
 // Deterministic: every output element is summed by one thread in one fixed
 // order (the query tiles and heads of a key tile, or the key tiles of a
-// query tile, each walked in increasing order); no atomics, no split of a
-// sum over CTAs, and the order does not depend on timing, so two launches on
-// the same inputs give the same bits.
+// query tile, each walked in increasing order; a split group's parts each
+// so, then added in part order by one thread of the reduce kernel); no
+// atomics, and the order does not depend on timing, so two launches on the
+// same inputs give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -192,7 +207,7 @@ constexpr int FB_WARPS = FB_THREADS / 32;
 constexpr int FQ_ROWS = 64;               // query rows of a dq block
 constexpr int FQ_KT = 32;                 // keys of a tile (one per lane)
 constexpr int FQ_PER_WARP = FQ_ROWS / FB_WARPS;
-constexpr int FK_KEYS = 64;               // keys of a dk/dv block
+constexpr int FK_KEYS = 32;               // keys of a dk/dv block
 constexpr int FK_QT = 32;                 // query rows of a tile (one per lane)
 constexpr int FK_PER_WARP = FK_KEYS / FB_WARPS;
 constexpr int MAX_D = 192;
@@ -332,12 +347,13 @@ flash_bwd_dkdv_ffma(const T* __restrict__ q, const T* __restrict__ k,
                     T* __restrict__ dk, T* __restrict__ dv, Args a) {
   extern __shared__ __align__(16) float smem[];
   const int D = a.D, Dv = a.Dv;
-  float* ksm = smem;                        // [64][D]
-  float* vsm = ksm + FK_KEYS * D;           // [64][Dv]
+  float* ksm = smem;                        // [32][D]
+  float* vsm = ksm + FK_KEYS * D;           // [32][Dv]
   float* qsm = vsm + FK_KEYS * Dv;          // [32][D + 1]
   float* dosm = qsm + FK_QT * (D + 1);      // [32][Dv + 1]
-  float* ps = dosm + FK_QT * (Dv + 1);      // [64][32]
-  float* dss = ps + FK_KEYS * FK_QT;        // [64][32]
+  float* ps = dosm + FK_QT * (Dv + 1);      // [32][32]
+  float* dss = ps + FK_KEYS * FK_QT;        // [32][32]
+  float* tot = dss + FK_KEYS * FK_QT;       // [32][D + Dv]: the heads done
 
   const int k_lo = blockIdx.x * FK_KEYS, kvh = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.KV;
@@ -353,7 +369,26 @@ flash_bwd_dkdv_ffma(const T* __restrict__ q, const T* __restrict__ k,
     const int key = k_lo + e / Dv;
     vsm[e] = key < a.Sk ? to_f32(vp[key * a.vs.s + e % Dv]) : 0.f;
   }
+  // this head's sums; a thread's (key, column) elements of tot are its own
   float dk_acc[FK_PER_WARP][D_PER_LANE], dv_acc[FK_PER_WARP][DV_PER_LANE];
+  auto head_done = [&](bool first) {  // tot (=)+= the head's sums, which restart
+#pragma unroll
+    for (int i = 0; i < FK_PER_WARP; ++i) {
+      float* t = tot + (row0 + i) * (D + Dv);
+#pragma unroll
+      for (int j = 0; j < D_PER_LANE; ++j) {
+        const int c = lane + 32 * j;
+        if (c < D) t[c] = first ? dk_acc[i][j] : t[c] + dk_acc[i][j];
+        dk_acc[i][j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < DV_PER_LANE; ++j) {
+        const int c = lane + 32 * j;
+        if (c < Dv) t[D + c] = first ? dv_acc[i][j] : t[D + c] + dv_acc[i][j];
+        dv_acc[i][j] = 0.f;
+      }
+    }
+  };
 #pragma unroll
   for (int i = 0; i < FK_PER_WARP; ++i) {
 #pragma unroll
@@ -420,6 +455,15 @@ flash_bwd_dkdv_ffma(const T* __restrict__ q, const T* __restrict__ k,
         dss[(row0 + i) * FK_QT + lane] = p * (dp[i] - delta_q) * a.scale;
       }
       __syncwarp();
+      // the tile's 32 rows summed apart, then added to the head's sums
+      float tk[FK_PER_WARP][D_PER_LANE], tv[FK_PER_WARP][DV_PER_LANE];
+#pragma unroll
+      for (int i = 0; i < FK_PER_WARP; ++i) {
+#pragma unroll
+        for (int j = 0; j < D_PER_LANE; ++j) tk[i][j] = 0.f;
+#pragma unroll
+        for (int j = 0; j < DV_PER_LANE; ++j) tv[i][j] = 0.f;
+      }
       for (int qq = 0; qq < FK_QT; ++qq) {
 #pragma unroll
         for (int j = 0; j < DV_PER_LANE; ++j) {
@@ -427,7 +471,7 @@ flash_bwd_dkdv_ffma(const T* __restrict__ q, const T* __restrict__ k,
           const float dov = c < Dv ? dosm[qq * (Dv + 1) + c] : 0.f;
 #pragma unroll
           for (int i = 0; i < FK_PER_WARP; ++i)
-            dv_acc[i][j] = fmaf(ps[(row0 + i) * FK_QT + qq], dov, dv_acc[i][j]);
+            tv[i][j] = fmaf(ps[(row0 + i) * FK_QT + qq], dov, tv[i][j]);
         }
 #pragma unroll
         for (int j = 0; j < D_PER_LANE; ++j) {
@@ -435,10 +479,18 @@ flash_bwd_dkdv_ffma(const T* __restrict__ q, const T* __restrict__ k,
           const float qv = c < D ? qsm[qq * (D + 1) + c] : 0.f;
 #pragma unroll
           for (int i = 0; i < FK_PER_WARP; ++i)
-            dk_acc[i][j] = fmaf(dss[(row0 + i) * FK_QT + qq], qv, dk_acc[i][j]);
+            tk[i][j] = fmaf(dss[(row0 + i) * FK_QT + qq], qv, tk[i][j]);
         }
       }
+#pragma unroll
+      for (int i = 0; i < FK_PER_WARP; ++i) {
+#pragma unroll
+        for (int j = 0; j < D_PER_LANE; ++j) dk_acc[i][j] += tk[i][j];
+#pragma unroll
+        for (int j = 0; j < DV_PER_LANE; ++j) dv_acc[i][j] += tv[i][j];
+      }
     }
+    head_done(g == 0);
   }
 
   T* dkp = dk + b * a.dks.b + kvh * a.dks.h;
@@ -447,15 +499,16 @@ flash_bwd_dkdv_ffma(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < FK_PER_WARP; ++i) {
     const int ki = k_lo + row0 + i;
     if (ki >= a.Sk) continue;
+    const float* t = tot + (row0 + i) * (D + Dv);
 #pragma unroll
     for (int j = 0; j < D_PER_LANE; ++j) {
       const int c = lane + 32 * j;
-      if (c < D) store_out(dkp + ki * a.dks.s + c, dk_acc[i][j]);
+      if (c < D) store_out(dkp + ki * a.dks.s + c, t[c]);
     }
 #pragma unroll
     for (int j = 0; j < DV_PER_LANE; ++j) {
       const int c = lane + 32 * j;
-      if (c < Dv) store_out(dvp + ki * a.dvs.s + c, dv_acc[i][j]);
+      if (c < Dv) store_out(dvp + ki * a.dvs.s + c, t[D + c]);
     }
   }
 }
@@ -498,7 +551,7 @@ int launch_ffma(const void* q, const void* k, const void* v, const void* dout,
       (size_t)(FQ_ROWS * D + FQ_ROWS * Dv + FQ_KT * (D + 1) + FQ_KT * (Dv + 1) + FQ_ROWS * FQ_KT);
   const size_t kv_smem = sizeof(float) *
       (size_t)(FK_KEYS * D + FK_KEYS * Dv + FK_QT * (D + 1) + FK_QT * (Dv + 1) +
-               2 * FK_KEYS * FK_QT);
+               2 * FK_KEYS * FK_QT + FK_KEYS * (D + Dv));
   cudaError_t err = set_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_ffma<T>), kv_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = set_smem(reinterpret_cast<const void*>(flash_bwd_dq_ffma<T>), dq_smem);
@@ -625,6 +678,10 @@ struct TcArgs {
   const float* delta;
   float scale, scale_log2;
   Mask mask;
+  // the parts a group's query heads are split into (dk/dv at D <= 128), and
+  // where parts > 1 their float32 scratch (parts, B, Sk, KV, D + Dv)
+  int parts;
+  float* part;
 };
 
 // Whether a consumer runs ahead: issues the next tile's S^T and dP^T (S and
@@ -650,8 +707,11 @@ struct KvLayout {
                                     KV_STAGES * ROWS * 4 + BARRIERS * 8;
 };
 
-// dk, dv: grid (KV, key tiles of 128, B), the key tiles with the most
-// query tiles (the first, under the causal mask) launched first
+// dk, dv: grid (KV x parts, key tiles of 128, B), the key tiles with the
+// most query tiles (the first, under the causal mask) launched first. A
+// CTA streams the query heads of its part of the group (all of them at one
+// part); with more than one part it writes its unscaled float32 sums to the
+// scratch, which flash_bwd_dkdv_reduce adds up.
 template <int DP, int DVP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
@@ -675,15 +735,19 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
   uint64_t* full = bars + 1;
   uint64_t* empty = full + KV_STAGES;
 
-  const int kvh = blockIdx.x, kb = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.x / a.parts, part = blockIdx.x % a.parts;
+  const int kb = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.KV;
+  // this part's heads of the group, g_lo .. g_hi - 1 (all G at one part)
+  const int g_lo = part * G / a.parts, g_hi = (part + 1) * G / a.parts;
+  const int h_lo = kvh * G + g_lo;
   const int k_lo = kb * BIG;
   const int k_max = min(k_lo + BIG, a.Sk) - 1;
   int qt_lo = 0, qt_hi = (a.Sq + BQ - 1) / BQ;
   if (a.mask.causal) qt_lo = k_lo / BQ;
   if (a.mask.has_window) qt_hi = min(qt_hi, (k_max + a.mask.window - 1) / BQ + 1);
   const int nq = max(qt_hi - qt_lo, 0);
-  const int n_tiles = G * nq;
+  const int n_tiles = (g_hi - g_lo) * nq;
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(kv_full, 1);
@@ -708,7 +772,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
         hopper::tma_load_4d(v_tile + c * BIG_BOX, &vmap, kv_full, c * 64, k_lo, kvh, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % KV_STAGES;
-        const int h = kvh * G + it / nq;
+        const int h = h_lo + it / nq;
         const int q_lo = (qt_lo + it % nq) * BQ;
         hopper::mbar_wait(&empty[s], ((it / KV_STAGES) & 1) ^ 1);
         hopper::mbar_expect_tx(&full[s], L::STAGE_BYTES);
@@ -723,7 +787,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
       const int lane = threadIdx.x % 32;
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % KV_STAGES;
-        const int h = kvh * G + it / nq;
+        const int h = h_lo + it / nq;
         const int q_lo = (qt_lo + it % nq) * BQ;
         const long long base = ((long long)b * a.H + h) * a.Sq;
         hopper::mbar_wait(&empty[s], ((it / KV_STAGES) & 1) ^ 1);
@@ -852,6 +916,34 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
       hopper::fence_regs(da);
     }
 
+    if (a.part != nullptr) {  // this part's unscaled sums, in float32
+      const int W = a.D + a.Dv;
+      const long long row = (long long)a.KV * W;  // a key's stride
+      float* pp = a.part + ((long long)part * gridDim.z + b) * a.Sk * row + kvh * W;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int c = 8 * j + col;
+        if (c >= a.D) continue;
+        if (k0 < a.Sk)
+          *reinterpret_cast<float2*>(pp + k0 * row + c) =
+              make_float2(dk_acc[4 * j], dk_acc[4 * j + 1]);
+        if (k1 < a.Sk)
+          *reinterpret_cast<float2*>(pp + k1 * row + c) =
+              make_float2(dk_acc[4 * j + 2], dk_acc[4 * j + 3]);
+      }
+#pragma unroll
+      for (int j = 0; j < DVP / 8; ++j) {
+        const int c = 8 * j + col;
+        if (c >= a.Dv) continue;
+        if (k0 < a.Sk)
+          *reinterpret_cast<float2*>(pp + k0 * row + a.D + c) =
+              make_float2(dv_acc[4 * j], dv_acc[4 * j + 1]);
+        if (k1 < a.Sk)
+          *reinterpret_cast<float2*>(pp + k1 * row + a.D + c) =
+              make_float2(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+      }
+      return;
+    }
     __nv_bfloat16* dkp = dk + b * a.dks.b + kvh * a.dks.h;
     __nv_bfloat16* dvp = dv + b * a.dvs.b + kvh * a.dvs.h;
 #pragma unroll
@@ -877,6 +969,54 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
             __floats2bfloat162_rn(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
     }
   }
+}
+
+// dk and dv from the parts' float32 sums (the scratch (parts, B, Sk, KV, D
+// + Dv)): four columns a thread, the parts added in the order 0 .. parts -
+// 1 (no atomics: two launches give the same bits), dk scaled once, both
+// written in bf16 into their strided (B, S, KV, .) layout. D and Dv are
+// multiples of 16, so no four columns straddle dk and dv. Bound by bytes:
+// it reads the scratch once and writes dk and dv.
+constexpr int REDUCE_THREADS = 256;
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+flash_bwd_dkdv_reduce(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int parts, int B, int Sk, int KV,
+                      int D, int Dv, Strides dks, Strides dvs, float scale) {
+  const int W4 = (D + Dv) / 4;
+  const long long n = (long long)B * Sk * KV * W4;  // groups of four columns
+  const long long i = (long long)blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const float4* p4 = reinterpret_cast<const float4*>(part);
+  float4 s = p4[i];
+  for (int p = 1; p < parts; ++p) {
+    const float4 x = p4[p * n + i];
+    s.x += x.x;
+    s.y += x.y;
+    s.z += x.z;
+    s.w += x.w;
+  }
+  const int c = 4 * static_cast<int>(i % W4);
+  const long long r = i / W4;  // (b, key, KV head)
+  const int kvh = static_cast<int>(r % KV);
+  const int k = static_cast<int>((r / KV) % Sk);
+  const long long b = r / ((long long)KV * Sk);
+  __nv_bfloat16* out;
+  if (c < D) {
+    out = dk + b * dks.b + kvh * dks.h + k * dks.s + c;
+    s.x *= scale;
+    s.y *= scale;
+    s.z *= scale;
+    s.w *= scale;
+  } else {
+    out = dv + b * dvs.b + kvh * dvs.h + k * dvs.s + (c - D);
+  }
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(s.z, s.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(out) = packed;
 }
 
 // dk, dv at D > 128 (MLA's 192): one warpgroup would hold dK's 96 and dV's
@@ -1375,14 +1515,24 @@ int launch(const void* q, const void* k, const void* v, const void* dout, void* 
   if (e == cudaSuccess)
     e = set_smem(reinterpret_cast<const void*>(flash_bwd_dq_wgmma<DP, DVP>), q_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // at D > 128 a head's tiles adjacent in both grids (see the kernels)
+  // at D > 128 a head's tiles adjacent in both grids (see the kernels); at
+  // D <= 128 the parts of a KV head's group next to each other
   const int n_kt = (a.Sk + KEYS - 1) / KEYS, n_qt = (a.Sq + BIG - 1) / BIG;
-  const dim3 kv_grid = SPLIT ? dim3(n_kt, a.KV, B) : dim3(a.KV, n_kt, B);
+  const dim3 kv_grid = SPLIT ? dim3(n_kt, a.KV, B) : dim3(a.KV * a.parts, n_kt, B);
   const dim3 q_grid = SPLIT ? dim3(n_qt, a.H, B) : dim3(a.H, n_qt, B);
   kv_kernel<<<kv_grid, THREADS, kv_smem, stream>>>(
       qm_t, km, vm, dom_t, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (a.parts > 1) {
+    const long long groups = (long long)B * a.Sk * a.KV * ((a.D + a.Dv) / 4);
+    flash_bwd_dkdv_reduce<<<(unsigned)((groups + REDUCE_THREADS - 1) / REDUCE_THREADS),
+                            REDUCE_THREADS, 0, stream>>>(
+        a.part, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.parts, B,
+        a.Sk, a.KV, a.D, a.Dv, a.dks, a.dvs, a.scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   flash_bwd_dq_wgmma<DP, DVP><<<q_grid, THREADS, q_smem, stream>>>(
       qm, km_k, vm_k, dom, static_cast<__nv_bfloat16*>(dq), a);
   return static_cast<int>(cudaGetLastError());
@@ -1396,11 +1546,16 @@ int bwd_entry(int variant, int dtype, const void* q, const void* k, const void* 
               const void* o, const void* dout, const float* lse, float* delta, void* dq,
               void* dk, void* dv, int B, int H, int KV, int Sq, int Sk, int D, int Dv,
               const long long* st, float scale, int causal, int has_window, int window,
-              cudaStream_t stream) {
+              int parts, float* part, cudaStream_t stream) {
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]},
       os{st[9], st[10], st[11]}, dos{st[12], st[13], st[14]}, dqs{st[15], st[16], st[17]},
       dks{st[18], st[19], st[20]}, dvs{st[21], st[22], st[23]};
   if (D % 4 || D > MAX_D || Dv > MAX_DV || dtype < 0 || dtype > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a split of each group's heads: the wgmma dk/dv kernel at D <= 128
+  // alone, at most a part a head, with its scratch
+  if (parts < 1 || parts > H / KV ||
+      (parts > 1 && (variant != 1 || D > 128 || part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Mask mask{Sq, Sk, causal, has_window, window};
   int err = dtype == 0
@@ -1411,7 +1566,7 @@ int bwd_entry(int variant, int dtype, const void* q, const void* k, const void* 
     if (dtype != 1 || D % 16 || Dv % 16 || Dv > 128)
       return static_cast<int>(cudaErrorInvalidValue);
     const tcb::TcArgs a{H, KV, Sq, Sk, D, Dv, dqs, dks, dvs, lse, delta,
-                        scale, scale * LOG2E, mask};
+                        scale, scale * LOG2E, mask, parts, parts > 1 ? part : nullptr};
     if (D > 128 && Dv <= 64)  // D padded to 192 by TMA's zeros, as the forward's
       return tcb::launch<192, 64>(q, k, v, dout, dq, dk, dv, B, qs, ks, vs, dos, a, stream);
     if (D > 128)
@@ -1436,11 +1591,16 @@ int bwd_entry(int variant, int dtype, const void* q, const void* k, const void* 
 // the gradients dq, dk, dv (the shapes of q, k, v), each given by its base
 // pointer and the element strides of its batch, head and sequence dims (the
 // last dim contiguous); lse (B,H,Sq) float32 contiguous, the forward's;
-// delta (B,H,Sq) float32 contiguous, scratch the launch writes. D % 4 == 0,
+// delta (B,H,Sq) float32 contiguous, scratch the launch writes; `parts`
+// (1, or up to H / KV for the wgmma variant at D <= 128) splits each group's
+// query heads over that many dk/dv CTAs, which write their sums to `part`,
+// float32 contiguous (parts, B, Sk, KV, D + Dv) (NULL at one part), and a
+// reduce kernel adds them up in order. D % 4 == 0,
 // D <= 192, Dv <= 128; the wgmma variant takes bf16 with D and Dv multiples
 // of 16, every stride of q, k, v, dout a multiple of 8
 // elements and those tensors 16-byte aligned (TMA). Launches the delta
-// pre-pass, the dk/dv kernel and the dq kernel on `stream`; returns 0, a
+// pre-pass, the dk/dv kernel (then the reduce) and the dq kernel on
+// `stream`; returns 0, a
 // CUDA error code, or one above hopper::kTensorMapError.
 extern "C" int flash_attention_bwd(
     int variant, int dtype, const void* q, const void* k, const void* v, const void* o,
@@ -1451,12 +1611,12 @@ extern "C" int flash_attention_bwd(
     long long osh, long long oss, long long dosb, long long dosh, long long doss,
     long long dqsb, long long dqsh, long long dqss, long long dksb, long long dksh,
     long long dkss, long long dvsb, long long dvsh, long long dvss, float scale,
-    int causal, int has_window, int window, void* stream) {
+    int causal, int has_window, int window, int parts, float* part, void* stream) {
   const long long st[24] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
                             dosb, dosh, doss, dqsb, dqsh, dqss, dksb, dksh, dkss,
                             dvsb, dvsh, dvss};
   return bwd_entry(variant, dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq,
-                   Sk, D, Dv, st, scale, causal, has_window, window,
+                   Sk, D, Dv, st, scale, causal, has_window, window, parts, part,
                    static_cast<cudaStream_t>(stream));
 }
 

@@ -28,7 +28,10 @@ its backward launches the backward kernels of
 :func:`_bwd_variant`) from the saved (q, k, v, o, lse). Their plain
 version is :func:`_plain_bwd`, the blocked backward
 (:func:`repro_torch.models.flash._flash_bwd`), as the reference's is its
-blocked jnp flash's VJP: the backward of CPU tensors.
+blocked jnp flash's VJP: the backward of CPU tensors. Where the wgmma
+dk/dv grid (a CTA per KV head, 128 keys and batch row) would leave the
+card short of CTAs, :func:`_bwd_parts` splits each GQA group's heads into
+parts whose float32 sums a reduce kernel adds up in order.
 """
 from __future__ import annotations
 
@@ -86,6 +89,44 @@ def _variant(dtype: torch.dtype, D: int, Dv: int) -> str:
 #: Which backward kernels compute the gradients: the forward's rule. At D
 #: past 128 (MLA's 192) the dk/dv kernel's two warpgroups split the products.
 _bwd_variant = _variant
+
+#: Keys of a dk/dv CTA of the wgmma backward at D <= 128.
+BWD_KEYS = 128
+
+
+def _bwd_parts(B: int, KV: int, Sk: int, G: int, sms: int, D: int) -> int:
+    """Into how many parts the wgmma dk/dv kernel (D <= 128) splits each
+    GQA group's ``G`` query heads. Its grid is a CTA per (KV head, 128
+    keys, batch row), each streaming the whole group; with few KV heads
+    that leaves SMs idle (granite-34b's one KV head at a train batch of 2
+    and 2048 keys: 32 CTAs over 48 heads each on ``sms`` = 132). Where the
+    grid fills less than two thirds of the SMs the group is cut into
+    ``round(2 sms / CTAs)`` parts (about two CTAs an SM), at most ``G``;
+    else 1, and the kernel runs as it would unsplit (no scratch, no
+    reduce). The D > 128 kernel takes 1, as do the FFMA kernels (the
+    wrapper asks this rule for the wgmma variant alone)."""
+    ctas = B * KV * -(-Sk // BWD_KEYS)
+    if D > 128 or G == 1 or 3 * ctas >= 2 * sms:
+        return 1
+    return min(G, max(2, round(2 * sms / ctas)))
+
+
+def part_heads(G: int, parts: int) -> list[range]:
+    """The heads of a group of ``G`` that each part's dk/dv CTA streams,
+    as ``flash_bwd_dkdv_wgmma`` computes them: part p takes heads
+    ``p G / parts`` up to ``(p + 1) G / parts`` (integer division), so the
+    parts differ by at most one head."""
+    return [range(p * G // parts, (p + 1) * G // parts)
+            for p in range(parts)]
+
+
+def _sm_count(t: torch.Tensor) -> int:
+    """The streaming multiprocessors of ``t``'s card, or of the card the
+    dry-run models (``launch/mesh.py``'s constants) for a traced tensor."""
+    if is_traced(t):
+        from repro_torch.launch.mesh import SMS
+        return SMS
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def _signature(lib: ctypes.CDLL, variant: str):
@@ -165,13 +206,16 @@ def _launch(q, k, v, *, causal, window, scale, variant: str | None = None,
 
 
 def _launch_bwd(q, k, v, o, lse, do, *, causal, window, scale,
-                variant: str | None = None):
+                variant: str | None = None, parts: int | None = None):
     """Launch the backward kernels on the forward's saved (q, k, v, o,
     lse) and the output's gradient ``do``, the variant
     :func:`_bwd_variant` picks, or ``variant`` where a measurement names
-    one (to time both on the same inputs). Returns (dq, dk, dv) in the
-    inputs' type and layout. ``do`` is copied to a contiguous tensor first
-    where its layout does not suit the kernels (autograd may hand over an
+    one (to time both on the same inputs), each group's query heads split
+    into the parts :func:`_bwd_parts` picks, or ``parts`` where a
+    measurement names them (above 1, a float32 scratch (parts, B, Sk, KV,
+    D + Dv) holds the parts' sums). Returns (dq, dk, dv) in the inputs'
+    type and layout. ``do`` is copied to a contiguous tensor first where
+    its layout does not suit the kernels (autograd may hand over an
     expanded gradient)."""
     global BWD_LAUNCHES
     B, H, Sq, D = q.shape
@@ -210,35 +254,43 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, window, scale,
                               device=t.device).transpose(1, 2)
                   for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if parts is None:
+        parts = (_bwd_parts(B, KV, Sk, H // KV, _sm_count(q), D)
+                 if variant == "wgmma" else 1)
+    part = (torch.empty((parts, B, Sk, KV, D + Dv), dtype=torch.float32,
+                        device=q.device) if parts > 1 else None)
     if traced:  # shapes only: the op in the kernels' place
         torch.ops.repro_torch.b2_flash_bwd(q, k, v, o, lse, do, delta, dq,
                                            dk, dv, bool(causal), window,
-                                           float(scale))
+                                           float(scale), part)
         return dq, dk, dv
     _call_bwd(variant, (q, k, v, o, do, lse, delta, dq, dk, dv), B, H, KV,
-              Sq, Sk, D, Dv, causal=causal, window=window, scale=scale)
+              Sq, Sk, D, Dv, parts, part, causal=causal, window=window,
+              scale=scale)
     BWD_LAUNCHES += 1
     BWD_VARIANT_LAUNCHES[variant] += 1
     return dq, dk, dv
 
 
-def _call_bwd(variant: str, tensors, B, H, KV, Sq, Sk, D, Dv, *, causal,
-              window, scale) -> None:
+def _call_bwd(variant: str, tensors, B, H, KV, Sq, Sk, D, Dv, parts, part,
+              *, causal, window, scale) -> None:
     """The C entry point ``flash_attention_bwd`` on (q, k, v, o, do, lse,
-    delta, dq, dk, dv); raises on a CUDA error."""
+    delta, dq, dk, dv), each group's heads in ``parts`` parts summed in the
+    scratch ``part`` (None at one part); raises on a CUDA error."""
     q, k, v, o, do, lse, delta, dq, dk, dv = tensors
     lib = _build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     fn.argtypes = [i, i] + [p] * 10 + [i] * 7 + [ll] * 24 + [
-        ctypes.c_float, i, i, i, p]
+        ctypes.c_float, i, i, i, i, p, p]
     fn.restype = ctypes.c_int
     strides = [x for t in (q, k, v, o, do, dq, dk, dv) for x in t.stride()[:3]]
     code = fn(int(variant == "wgmma"), _DTYPE_CODE[q.dtype],
               *(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk,
                                        dv)),
               B, H, KV, Sq, Sk, D, Dv, *strides, float(scale), int(causal),
-              int(window is not None), int(window or 0),
+              int(window is not None), int(window or 0), int(parts),
+              None if part is None else part.data_ptr(),
               torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, f"flash_attention backward ({variant})")
 

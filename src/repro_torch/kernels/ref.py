@@ -126,6 +126,39 @@ def flash_dq_rounding_bound(q, k, o, do, *, causal=True, window=None,
     return scale * delta_err * kbar.abs()
 
 
+def flash_dk_rounding_bound(q, k, o, do, *, causal=True, window=None,
+                            scale=None) -> torch.Tensor:
+    """Per element of dk (B,Sk,KV,D), the same error of each row's
+    ``delta`` (:func:`flash_dq_rounding_bound`: o rounded to its type on
+    either side of a comparison) as dk receives it: ``dk_j`` sums ``scale
+    p_ij delta_i q_i`` over the query rows of every head of its group, so
+    the bound is ``scale sum_i p_ij delta_err_i |q_i|``. It grows with the
+    group: at granite-34b's 48 heads over one KV head a key's sum runs over
+    98304 rows. p is the float32 softmax of the scaled scores under the
+    masks; the layout is the models' (B,S,H,D), one head at a time."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    delta_err = 2.0 ** -8 * (do.float() * o.float()).abs().sum(-1)  # (B,Sq,H)
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Sk, device=q.device)[None, :]
+    live = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        live &= j <= i
+    if window is not None:
+        live &= j > i - window
+    out = torch.zeros((B, Sk, KV, D), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        for h in range(H):
+            qh = q[b, :, h].float()
+            s = (qh @ k[b, :, h // G].float().T) * scale
+            p = torch.softmax(s.masked_fill(~live, float("-inf")), dim=-1)
+            p = torch.nan_to_num(p)  # a row with no live key
+            out[b, :, h // G] += p.T @ (delta_err[b, :, h, None] * qh.abs())
+    return scale * out
+
+
 def ssd_grad_ratio(got: torch.Tensor, want: torch.Tensor,
                    tol: float) -> torch.Tensor:
     """``|got - want|`` over B3's backward bound, per element (above 1, or

@@ -73,27 +73,32 @@ def _b2_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, causal, window,
 
 
 @torch.library.custom_op("repro_torch::b2_flash_bwd",
-                         mutates_args=("delta", "dq", "dk", "dv"))
+                         mutates_args=("delta", "dq", "dk", "dv", "part"))
 def b2_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                  delta: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
                  dv: torch.Tensor, causal: bool, window: int | None,
-                 scale: float) -> None:
+                 scale: float, part: torch.Tensor | None) -> None:
     """B2's backward (``csrc/flash_attention_bwd.cu``): dq, dk, dv (and
-    the delta scratch) from the forward's (q, k, v, o, lse) and do."""
+    the delta scratch, and where a group's heads are split the parts'
+    scratch ``part``, None at one part) from the forward's (q, k, v, o,
+    lse) and do. ``part`` has no default: a dispatcher that drops a
+    trailing argument equal to its default (torch 2.11's) would leave the
+    mutated-argument bookkeeping an argument short."""
     raise RuntimeError("b2_flash_bwd: a traced op; real tensors launch the "
                        "kernels through flash_attention._launch_bwd")
 
 
 @b2_flash_bwd.register_fake
-def _(q, k, v, o, lse, do, delta, dq, dk, dv, causal, window, scale) -> None:
+def _(q, k, v, o, lse, do, delta, dq, dk, dv, causal, window, scale,
+      part) -> None:
     return None
 
 
 @register_flop_formula(torch.ops.repro_torch.b2_flash_bwd)
 def _b2_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
                   delta_shape, dq_shape, dk_shape, dv_shape, causal, window,
-                  scale, *, out_shape=None, **_kw) -> float:
+                  scale, part_shape, *, out_shape=None, **_kw) -> float:
     B, H, Sq, D = q_shape
     KV, Sk, Dv = k_shape[1], k_shape[2], v_shape[3]
     return work.flash_bwd_work(B, H, Sq, Sk, KV, D, Dv, causal=causal,

@@ -46,5 +46,6 @@ def make_smoke_mesh(shape=(1, 1), axes=("data", "model"), *,
 # load; its measured times are printed beside its power limit.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12         # HBM3, per card
+SMS = 132                         # streaming multiprocessors, per card
 NVLINK_BYTES_PER_S = 450e9        # NVLink 4, one direction, per card
 CARDS_PER_NODE = 8                # one NVLink domain (HGX H100)

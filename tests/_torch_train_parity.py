@@ -33,7 +33,8 @@ def as_np(t) -> np.ndarray:
 class Ref:
     """A reduced architecture in both packages: the reference's parameters
     (and the port's copy), one numpy batch (with the enc-dec family's
-    ``frames``), and the reference's loss, metrics and gradients
+    ``frames``, the vlm family's ``patches``), and the reference's loss,
+    metrics and gradients
     (``jax.value_and_grad`` of its ``loss_fn``, computed at their first
     use)."""
 
@@ -55,12 +56,14 @@ class Ref:
                           "labels": jnp.asarray(tokens)}
         self.batch = {"tokens": torch.from_numpy(tokens),
                       "labels": torch.from_numpy(tokens)}
-        if self.cfg.family in ("encdec", "audio"):
-            frames = rng.standard_normal(
+        stub = {"encdec": "frames", "audio": "frames", "vlm": "patches"}
+        if self.cfg.family in stub:
+            emb = rng.standard_normal(
                 (batch, self.cfg.frontend_len, self.cfg.d_model)).astype(
                 np.float32)
-            self.ref_batch["frames"] = jnp.asarray(frames).astype(jdt)
-            self.batch["frames"] = torch.from_numpy(frames).to(tdt)
+            self.ref_batch[stub[self.cfg.family]] = jnp.asarray(emb).astype(
+                jdt)
+            self.batch[stub[self.cfg.family]] = torch.from_numpy(emb).to(tdt)
 
     @functools.cached_property
     def _value_and_grad(self):

@@ -25,7 +25,7 @@ from repro.configs import get_config as ref_get_config
 from repro.configs import reduced_config as ref_reduced_config
 from repro.models import ssm as ref_ssm
 
-from repro_torch.kernels import _build, ops, work
+from repro_torch.kernels import _build, ops, ref, work
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch import hlo_analysis as H
@@ -189,6 +189,141 @@ def test_b2_bwd_launches_count_one_per_backward(monkeypatch):
     assert fa.BWD_LAUNCHES == 0
 
 
+# -- B2's dk/dv grid split by the heads of a group -------------------------------
+
+# (B, KV, Sk, G, D) of every B2 backward the card runs: the train steps'
+# attentions at a batch of 2 (mixtral's window at 1 x 8192) and the three
+# short grids of the configurations with few KV heads
+_GRIDS = {"granite-8b": (2, 8, 2048, 4, 128),
+          "zamba2-1.2b": (2, 32, 2048, 1, 64),
+          "seamless decoder": (2, 16, 512, 1, 64),
+          "seamless encoder and cross": (2, 16, 1024, 1, 64),
+          "mixtral-8x7b window": (1, 8, 8192, 4, 128),
+          "deepseek-v3 MLA": (2, 128, 2048, 1, 192),
+          "starcoder2-7b": (2, 4, 2048, 9, 128),
+          "internvl2-1b": (2, 2, 2304, 7, 64),
+          "glm4-9b": (2, 2, 2048, 16, 128),
+          "granite-34b": (2, 1, 2048, 48, 128)}
+_SPLIT = {"internvl2-1b": 4, "glm4-9b": 4, "granite-34b": 8}
+
+
+@pytest.mark.parametrize("name", list(_GRIDS))
+def test_b2_bwd_parts_rule(name):
+    """One part wherever the dk/dv grid fills two thirds of the 132 SMs
+    (128 CTAs and more) or the kernel is the D > 128 one; at the three
+    short grids (72, 64 and 32 CTAs) about two CTAs an SM."""
+    B, KV, Sk, G, D = _GRIDS[name]
+    parts = fa._bwd_parts(B, KV, Sk, G, 132, D)
+    assert parts == _SPLIT.get(name, 1)
+    ctas = B * KV * -(-Sk // fa.BWD_KEYS) * parts
+    assert parts == 1 or 1.5 * 132 <= ctas <= 2.5 * 132
+
+
+@pytest.mark.parametrize("G,parts", [(7, 4), (16, 4), (48, 8), (4, 1),
+                                     (9, 9), (5, 3)])
+def test_b2_bwd_parts_cover_each_head_once(G, parts):
+    """The parts' heads are a partition of the group, in order, each part
+    one head at least and at most one more than another."""
+    heads = fa.part_heads(G, parts)
+    assert [h for r in heads for h in r] == list(range(G))
+    sizes = [len(r) for r in heads]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+class _Ops(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records every op dispatched while open, with its arguments."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.calls.append((str(func), args))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("H_,KV,S,D,parts", [(48, 1, 2048, 128, 8),
+                                             (14, 2, 2304, 64, 4),
+                                             (32, 8, 2048, 128, 1)])
+def test_b2_bwd_traced_route_allocates_the_parts_scratch(no_launch, H_, KV,
+                                                         S, D, parts):
+    """On meta tensors at a train shape (batch 2) the wrapper picks the
+    parts with the modelled card's SM count and hands the traced op a
+    float32 scratch (parts, B, Sk, KV, D + Dv) on ``meta``, or none at one
+    part."""
+    ins = _b2_tensors(2, H_, KV, S, D, D, torch.bfloat16, "meta")
+    with _Ops() as rec:
+        fa._launch_bwd(*ins, causal=True, window=None, scale=0.1)
+    (args,) = [a for f, a in rec.calls if "b2_flash_bwd" in f]
+    part = args[13] if len(args) > 13 else None
+    if parts == 1:
+        assert part is None
+        return
+    assert part.device.type == "meta" and part.dtype == torch.float32
+    assert tuple(part.shape) == (parts, 2, S, KV, 2 * D)
+
+
+# -- sums over a GQA group's rows (C10) ---------------------------------------------
+
+def test_ffma_dkdv_sum_order_holds_float32_at_a_group_of_48():
+    """C10: B2's FFMA dk/dv kernel summed a key's dv over every row of
+    its group in one float32 chain (48 x 2048 rows at granite-34b), which
+    missed ``FLASH_TOL``'s float32 bound against the exact sum on the card
+    (2.5x it against float64; 1.2x against the plain version). Its repair
+    sums a 32-row tile, then a head's tiles, then the group's heads. The
+    same terms in float32 (a key's p = exp(s - lse) over causal rows, do
+    drawn as the card's check draws it), summed in either order, against
+    their float64 sum: the one chain misses the bound, the kernel's order
+    keeps well inside it."""
+    rng = np.random.default_rng(12)
+    G, S, T, J, D = 48, 2048, 32, 8, 16
+    rows = np.arange(1, S + 1, dtype=np.float64)
+    # keys seen by every row i with weight ~ 1 / (i + 1) (causal rows,
+    # scores of unit spread)
+    p = np.exp(rng.standard_normal((G, S, J))) / (np.e ** 0.5 * rows[:, None])
+    do = rng.standard_normal((G, S, D)).astype(np.float32)
+    p32 = p.astype(np.float32)[..., None]
+    t = p32 * do[:, :, None, :]  # (G, S, J, D) float32 terms
+    exact = (p32.astype(np.float64) * do[:, :, None, :]).sum((0, 1))
+
+    def ratio(x):
+        return np.max(np.abs(x - exact) / (2e-5 + 2e-5 * np.abs(exact)))
+
+    one_chain = np.add.accumulate(t.reshape(G * S, J, D), axis=0)[-1]
+    tiles = np.add.accumulate(t.reshape(G, S // T, T, J, D), axis=2)[:, :, -1]
+    heads = np.add.accumulate(tiles, axis=1)[:, -1]
+    three_levels = np.add.accumulate(heads, axis=0)[-1]
+    assert ratio(one_chain) > 2.0
+    assert ratio(three_levels) < 0.5
+
+
+def test_dk_rounding_bound_covers_o_rounded_through_delta():
+    """``flash_dk_rounding_bound``: dk from o and from o rounded to bf16
+    (the plain backward on the same q, k, v, lse and do, so only delta
+    moves) differ by no more than the bound, which sums each row's delta
+    error over every head of the group; a bound without the group's sum
+    (one head's share) would not hold."""
+    rng = np.random.default_rng(3)
+    B_, S, H_, KV, D = 1, 64, 8, 1, 16
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((B_, S, H_, D), (B_, S, KV, D), (B_, S, KV, D),
+                               (B_, S, H_, D)))
+    scale = D ** -0.5
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    o, lse = flash._fwd_all(qt.reshape(B_, KV, H_ // KV, S, D), kt, vt,
+                            flash.MaskSpec(causal=True), scale, S, 8)
+    o, lse = o.reshape(B_, H_, S, D), lse.reshape(B_, H_, S)
+    kw = dict(causal=True, window=None, scale=scale)
+    dk = fa._plain_bwd(qt, kt, vt, o, lse, dot, **kw)[1]
+    dk_r = fa._plain_bwd(qt, kt, vt, o.bfloat16().float(), lse, dot, **kw)[1]
+    bound = ref.flash_dk_rounding_bound(q, k, o.transpose(1, 2), do,
+                                        causal=True, scale=scale)
+    gap = (dk - dk_r).transpose(1, 2).abs()
+    assert bound.shape == k.shape
+    assert bool((gap <= bound).all()) and float(gap.max()) > 0
+    assert not bool((gap <= bound / H_).all())
+
+
 # -- B2's build report, as chip_smoke.py's [build] reads it ----------------------
 
 def _entry(name: str, spill: int) -> str:
@@ -199,13 +334,15 @@ def _entry(name: str, spill: int) -> str:
             f"ptxas info    : Used 168 registers, used 1 barriers\n")
 
 
-# B2's 12 wgmma backward kernels: dk/dv and dq at D, Dv in 64 and 128, the
-# dk/dv kernel whose warpgroups split the products and dq at D 192
+# B2's 13 backward kernels of namespace tcb: the 12 wgmma kernels (dk/dv
+# and dq at D, Dv in 64 and 128, the dk/dv kernel whose warpgroups split
+# the products and dq at D 192) and the reduce of a split group's parts
 _TCB = [f"_ZN3tcb{len(k)}{k}ILi{dp}ELi{dv}EEEv14CUtensorMap_st"
         for k, dps in (("flash_bwd_dkdv_wgmma", (64, 128)),
                        ("flash_bwd_dq_wgmma", (64, 128, 192)),
                        ("flash_bwd_dkdv_split", (192,)))
-        for dp in dps for dv in (64, 128)]
+        for dp in dps for dv in (64, 128)] + [
+    "_ZN3tcb21flash_bwd_dkdv_reduceEPKfP13__nv_bfloat16S3_iiiiiii7StridesS4_f"]
 _FFMA = "_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu17flash_bwd_dq_ffmaIfEEv"
 _SERIALISED = ("ptxas info    : (C7512) Potential Performance Loss: "
                "wgmma.mma_async instructions are serialized due to "
@@ -245,17 +382,18 @@ _SSD_FWD = [f"{_SSD}22ssd_chunk_state_kernelILi128ELb0EEEvPKf",
 
 
 @pytest.mark.parametrize("case,passes", [
-    ("clean", True),          # 12 wgmma kernels, none spills; ffma may
+    ("clean", True),          # 13 tcb kernels, none spills; ffma may
     ("wgmma_spills", False),  # one wgmma kernel spills
     ("serialised", False),    # ptxas serialised a wgmma
-    ("missing", False),       # fewer than the 12 wgmma kernels reported
+    ("missing", False),       # fewer than the 13 tcb kernels reported
     ("ssd_spills", False),    # one of B3's backward kernels spills
     ("ssd_serialised", False),  # ptxas serialised a wgmma of B3's library
     ("ssd_missing", False),   # fewer than B3's 7 backward kernels reported
 ])
 def test_bwd_build_check(chip_smoke, monkeypatch, case, passes):
     """``check_bwd_build`` passes B2's backward library only with every
-    one of its 12 wgmma kernels at 0 spill bytes and no wgmma serialised,
+    one of its 13 tcb kernels (12 wgmma, the reduce) at 0 spill bytes and
+    no wgmma serialised,
     and the SSD library only with B3's 7 backward kernels (key, row and
     states at widths 64 and 128, the state passing) at 0 spill bytes and
     none of its wgmma serialised; the forward's kernels may spill."""

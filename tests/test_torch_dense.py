@@ -42,7 +42,8 @@ from _torch_model_parity import (
     make_pair,
 )
 
-DENSE_ARCHS = ["granite-8b", "glm4-9b", "internvl2-1b"]
+DENSE_ARCHS = ["granite-8b", "glm4-9b", "internvl2-1b", "starcoder2-7b",
+               "granite-34b"]
 
 # B, Sq, Sk, H, KV, D, Dv, causal, window, q_offset
 FLASH_CASES = {

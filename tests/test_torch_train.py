@@ -3,7 +3,8 @@ policy against ``jax.value_and_grad`` of the reference's on the same
 inputs (reduced granite-8b, at a depth that takes ``_block_split``'s blocks,
 in bf16, deepseek-v3 with aux and MTP, mixtral-8x7b with its window and
 top-2 experts, mamba2-130m, zamba2-1.2b with its
-shared block under remat); the flash backward against ``jax.grad`` of the
+shared block under remat, internvl2-1b with its patches and granite-34b's
+one KV head); the flash backward against ``jax.grad`` of the
 reference's flash; B3's backward on a card (the fused scan's Function) and
 the per-stage kernels' refusal. The train step,
 placements and the loop are in ``test_torch_train_step.py``."""
@@ -135,6 +136,30 @@ def test_zamba2_shared_block_under_remat(zamba2, remat):
         assert torch.equal(grads[k], base[k]), k
 
 
+# the configurations with few KV heads: reduced internvl2-1b with its
+# patches before the text (14 heads over 2 KV heads, the real group of 7)
+# and reduced granite-34b (48 heads over one KV head: multi-query attention)
+FEW_KV = {"internvl2-1b": dict(n_heads=14, n_kv_heads=2),
+          "granite-34b": dict(n_heads=48, n_kv_heads=1)}
+
+
+@pytest.fixture(scope="module", params=list(FEW_KV))
+def few_kv(request):
+    return Ref(request.param, **FEW_KV[request.param])
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_few_kv_heads_loss_and_grads_match_reference(few_kv, remat):
+    """Loss and every gradient against the reference's at the groups of 7
+    and 48; the vlm's patches reach the loss through the trunk (their
+    positions give no logits)."""
+    ref = few_kv
+    assert ref.cfg.n_heads // ref.cfg.n_kv_heads in (7, 48)
+    if ref.cfg.family == "vlm":
+        assert ref.batch["patches"].shape[1] == ref.cfg.frontend_len
+    check_f32(ref, *ref.port_loss_and_grads(remat))
+
+
 # -- the flash backward ---------------------------------------------------------
 
 FLASH_CASES = {  # B, Sq, Sk, H, KV, D, Dv, causal, window, block_k
@@ -142,6 +167,8 @@ FLASH_CASES = {  # B, Sq, Sk, H, KV, D, Dv, causal, window, block_k
     "window": (2, 32, 32, 4, 2, 16, 16, True, 8, 16),
     "cross-padded": (1, 24, 40, 4, 1, 16, 16, False, None, 16),
     "mla-d192": (1, 32, 32, 2, 2, 192, 128, True, None, 16),
+    "gqa-group7": (1, 32, 32, 14, 2, 16, 16, True, None, 16),
+    "mqa-group48": (2, 32, 32, 48, 1, 16, 16, True, None, 16),
 }
 
 

@@ -178,13 +178,16 @@ def _clone(tree):
     pytest.param("granite-8b", 2, id="granite-8b"),
     pytest.param("deepseek-v3-671b", 2, id="deepseek-v3-671b"),
     pytest.param("mixtral-8x7b", 2, id="mixtral-8x7b"),
-    pytest.param("granite-8b", 12, id="granite-8b-12-layers")])
+    pytest.param("granite-8b", 12, id="granite-8b-12-layers"),
+    pytest.param("internvl2-1b", 2, id="internvl2-1b"),
+    pytest.param("granite-34b", 2, id="granite-34b")])
 def test_placements_and_prefetch_are_bit_equal(arch, n_layers):
     """Untiered, prefetch off and host_offload at 0.5 and 0.0 (params and
     moments in the plan; at 0.0 prefetch on and off): loss, every
     gradient, every updated parameter and moment torch.equal. At 12 layers
     remat "full" runs 3 blocks of 4 checkpointed layers, the dual buffer
-    inside each block."""
+    inside each block. internvl2-1b's batch carries its patches, which the
+    step splits with their rows; granite-34b has one KV head."""
     cfg = reduced_config(get_config(arch), dtype=torch.float32,
                          n_layers=n_layers)
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0)
@@ -193,6 +196,10 @@ def test_placements_and_prefetch_are_bit_equal(arch, n_layers):
     tokens = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (4, 32)).astype(np.int32))
     batch = {"tokens": tokens, "labels": tokens}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(np.random.default_rng(3)
+                                            .standard_normal(
+            (4, cfg.frontend_len, cfg.d_model)).astype(np.float32))
     out = {}
     for name, tiering in PLACEMENTS.items():
         p, o, plan = place_state(_clone(p0), _clone(o0), tiering,
