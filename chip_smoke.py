@@ -16,6 +16,13 @@ Phases (any failed check raises and exits non-zero):
      too) must hold HGMMA, the SSD library HGMMA or HMMA; B2's backward
      wgmma kernels and B3's backward kernels must spill nothing and ptxas
      must serialise none of their libraries' wgmma (``check_bwd_build``);
+     then, while the process holds little host memory, deepseek-v3's MoE
+     layer trained (``TRAIN_MOE_LAYER``: 2 dense MLA layers, the MoE layer
+     and the MTP block at full width, 14.3 B parameters): one step with
+     int8 moments and every large leaf in pinned host memory
+     (host_offload 0.0, 66 GB pinned), prefetch on and off bit-equal on
+     every leaf (``fingerprint``), the reckoned and measured bytes
+     printed (its lines read ``[train]``);
   3. kernels against their plain PyTorch versions on the card: the
      reference's kernel test cases (``tests/test_kernels.py``) in float32
      (the FFMA variants) and bf16 (the tensor-core variants), a bf16 shape
@@ -158,12 +165,23 @@ step from the same
 weights and 2 x 2048-token batch (``SyntheticTokenDataset``) under each
 of ``TRAIN_PLACEMENTS`` (untiered, prefetch off, host_offload 0.5 with
 parameters and moments in the plan, remat "none"): the loss, every
-gradient and every updated parameter and moment ``torch.equal`` to the
-untiered step's, then the best of 3 step ms, host ms, peak memory, bytes
+gradient and every updated parameter and moment bit-equal to the
+untiered step's (``fingerprint``: integer reductions over each leaf's raw
+bits on the card, which any single flipped bit changes; no host copy of
+the state), then the best of 3 step ms, host ms, peak memory, bytes
 local and remote, and B2 launches a step (8: each layer's forward and its
 recompute) and B2's backward kernels one launch a layer, one a call of
 the Function's backward (counted in every profiled step and every
-``[mesh]`` leg). Then 10 steps of ``train.loop.train`` on a repeated
+``[mesh]`` leg). Then ``adamw.leaf_update`` at int8 moments on one
+full-width granite MLP leaf on the card against the CPU's (codes within
+1, scales and parameters within 1e-6 of their max); the trainer's moment
+ladder (``TRAIN_LADDER``: int8 moments with error-feedback gradient
+compression, 2 microbatches and remat "dots"; bf16 moments under
+"dots_no_batch"), one step of each untiered and at host_offload 0.5
+bit-equal (loss, gradients and the gradients after the error feedback,
+parameters, codes, scales, the error-feedback buffer), B2 launches a step
+as ``step_launches`` counts them under the policy and the microbatches.
+Then 10 steps of ``train.loop.train`` on a repeated
 batch must lower the loss. Then B2's VJP and backward kernels at
 zamba2-1.2b's D 64 and at seamless-m4t-medium's cross attention; B3's
 backward kernels (``ssd_chunk_scan_bwd`` through ``_B3Function``) at
@@ -181,7 +199,9 @@ their B2 and B3 launches a step as ``step_launches`` counts them; 10
 mamba2-130m steps that must lower the loss; a run of the reduced float32
 config killed after its checkpoint must resume with the uninterrupted run's losses (``==``); and
 ``python -m repro_torch.launch.train --device cuda`` must run 3 steps of
-its default, reduced mamba2-130m.
+its default, reduced mamba2-130m, then ``LAUNCH_LADDER`` (full-width
+mamba2-130m, int8 moments, compressed gradients, 2 microbatches, remat
+"dots", host_offload 0.5) with a falling loss.
 
 ``[mesh]`` (after ``[train]``): a one-rank NCCL process group (its
 ``FileStore`` in a temporary directory) and a (1, 1) device mesh over
@@ -304,7 +324,18 @@ from repro_torch.data.pipeline import (  # noqa: E402
 )
 from repro_torch.models import sharding as shd  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
-from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.optim import (  # noqa: E402
+    CompressionConfig,
+    QTensor,
+    adamw,
+    init_error_feedback,
+)
+from repro_torch.optim.compression import error_feedback_leaf  # noqa: E402
+from repro_torch.optim.quantized import (  # noqa: E402
+    quantizable,
+    quantize_blocks,
+)
+from repro_torch.train import step as step_mod  # noqa: E402
 from repro_torch.train.loop import LoopConfig, train  # noqa: E402
 from repro_torch.train.step import (  # noqa: E402
     TrainStepConfig,
@@ -485,6 +516,38 @@ TRAIN_DEEP_PLACEMENTS = {
         mode="host_offload", local_fraction=0.2, prefetch=False), "full"),
     "remat none": (TieringConfig(), "none"),
 }
+# the trainer's storage ladder and the options around it, on granite-8b at
+# TRAIN's width, depth and batch: each leg one step untiered and at
+# host_offload 0.5 (parameters, moments and the error-feedback buffer in
+# the plan) under its remat policy, one warm and one timed step after the
+# first
+TRAIN_LADDER = {
+    "int8 ladder": dict(moment_style="int8", remat="dots", step_kw=dict(
+        compression=CompressionConfig(enabled=True), microbatches=2)),
+    "bf16 ladder": dict(moment_style="bf16", remat="dots_no_batch",
+                        step_kw={}),
+}
+# deepseek-v3's MoE layer trained on one card: 2 dense MLA layers, 1 MoE
+# layer (256 routed experts of 2048 and a shared one, top 8) and the MTP
+# block at full width, 14.3 B parameters over 2 x 2048 tokens in bf16,
+# remat "full", int8 moments, every parameter and moment beyond the small
+# objects in pinned host memory (host_offload 0.0): the MoE layer's 11.3 B
+# routed parameters with f32 moments (135 GB with their gradients) fill no
+# card, and f32 or bf16 moments (114 or 57 GB) do not fit this host beside
+# the parameters. One step with prefetch on and one off from the same
+# seed, held bit-equal by fingerprints on the card (no host copy of 86 GB
+# of state fits beside the 58 GB placed); lr 1e-2, at which one step moves
+# every bf16 leaf, the norms' ones too. No compression: the error-feedback
+# buffer would be 57 GB of float32
+TRAIN_MOE_LAYER = dict(n_layers=3, first_k_dense=2, batch=2, seq=2048,
+                       lr=1e-2)
+# the launcher with the ladder's flags: mamba2-130m at full width (its
+# 768-wide embedding takes int8 moments), whose loss must fall
+LAUNCH_LADDER = ["--arch", "mamba2-130m", "--full", "--moment-style", "int8",
+                 "--compress-grads", "--microbatches", "2", "--remat", "dots",
+                 "--tiering", "host_offload", "--local-fraction", "0.5",
+                 "--device", "cuda", "--steps", "6", "--batch", "4", "--seq",
+                 "512", "--lr", "1e-1"]
 # the learning check: 10 steps on a repeated batch, lr 1e-3 from step 1
 TRAIN_LEARN = dict(steps=10, lr=1e-3)
 # B2's lse and VJP at granite-8b's attention shape in the train step
@@ -519,11 +582,11 @@ TRAIN_FLASH_MORE = {
 # mamba2-130m whole and zamba2-1.2b at HYBRID's depth over 2 x 2048
 # tokens, seamless-m4t-medium
 # whole over 2 x (1024 frames, 512 tokens); deepseek-v3-671b at its first 2
-# of 61 layers, both dense (a MoE layer's 11.3 B routed parameters with
-# their gradients and float32 moments, 135 GB, fill no card), with the MTP
-# block, over 2 x 2048 tokens: MLA through B2 at D 192, Dv 128, 2.79 B
-# parameters; mixtral-8x7b at its first of 32 layers (cut for the
-# script's time limit) over 1 x 8192 tokens, so that its window of 4096
+# of 61 layers, both dense, with the MTP block, over 2 x 2048 tokens: MLA
+# through B2 at D 192, Dv 128, 2.79 B parameters, f32 moments (its MoE
+# layer trains in TRAIN_MOE_LAYER's leg); mixtral-8x7b at its first of 32
+# layers (cut for the script's time limit) over 1 x 8192 tokens, so that
+# its window of 4096
 # cuts pairs: top-2 MoE dispatch under autograd and B2's windowed
 # backward; CONFIGS' four at
 # their depths over 2 x 2048 tokens (internvl2-1b 2 x (256 patches + 2048
@@ -1212,6 +1275,41 @@ def cut_depth(params, depth: int):
 def n_bytes(params) -> int:
     return sum(t.numel() * t.element_size()
                for _, t in _leaves_with_keys(params))
+
+
+# elements a fingerprint reads at once: its int64 temporaries are 128 MiB
+FINGERPRINT_CHUNK = 1 << 24
+# the integer type of a raw word of each element size
+WORDS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def fingerprint(t: torch.Tensor, device: str = "cuda") -> tuple:
+    """``t``'s shape, type and two integer reductions over its raw bits, on
+    ``device`` (a host tensor copied there a chunk at a time): each element
+    read as a signed word of its size, ``sum(w_i x_i)`` with the odd weight
+    ``w_i = 2j + 1`` of its place j in its chunk, the chunks' sums weighted
+    likewise by their place, and ``sum(x_i^2)``, both modulo 2^64. One
+    flipped bit changes a word by +-2^k and the first sum by 2^k times an
+    odd number, which is never 0 modulo 2^64: any single flipped bit, and
+    two elements swapped, change it; unequal tensors of equal fingerprints
+    need both sums to collide modulo 2^64 at once."""
+    flat = t.detach().reshape(-1)
+    word = WORDS[flat.element_size()]
+    w1 = torch.zeros((), dtype=torch.int64, device=device)
+    w2 = torch.zeros((), dtype=torch.int64, device=device)
+    place = torch.arange(1, 2 * FINGERPRINT_CHUNK, 2, dtype=torch.int64,
+                         device=device)
+    for c, i in enumerate(range(0, flat.numel(), FINGERPRINT_CHUNK)):
+        x = flat[i:i + FINGERPRINT_CHUNK].to(device).view(word).long()
+        w1 += (x * place[:x.numel()]).sum() * (2 * c + 1)
+        w2 += (x * x).sum()
+    return (tuple(t.shape), str(t.dtype), w1.item(), w2.item())
+
+
+def fingerprints(tree, device: str = "cuda") -> dict:
+    """:func:`fingerprint` of every leaf of ``tree`` by its key (an int8
+    moment's codes and scales apart)."""
+    return {k: fingerprint(t, device) for k, t in _leaves_with_keys(tree)}
 
 
 def equal_to_host(got: torch.Tensor, host: torch.Tensor,
@@ -2488,11 +2586,13 @@ class RepeatedBatch:
         return self.dataset.batch_at(0)
 
 
-def saved_by_forward(fn, model=tf):
+def saved_by_forward(fn, model=tf, calls: int = 1):
     """``fn()`` with ``model``'s ``loss_fn`` wrapped so that a hook on the
     loss reads the device memory allocated when the backward starts:
-    returns (``fn()``, those bytes). Less what was allocated before
-    ``fn``, that is what the forward saved for the backward."""
+    returns (``fn()``, those bytes at the first of the ``calls``
+    backwards, one a microbatch). Less what was allocated before ``fn``,
+    that is what the (first microbatch's) forward saved for the
+    backward."""
     seen = []
     loss_fn = model.loss_fn
 
@@ -2507,7 +2607,8 @@ def saved_by_forward(fn, model=tf):
         out = fn()
     finally:
         model.loss_fn = loss_fn
-    require(len(seen) == 1, f"[train] the loss hook ran {len(seen)} times")
+    require(len(seen) == calls, f"[train] the loss hook ran {len(seen)} "
+                                f"times, expected {calls}")
     return out, seen[0]
 
 
@@ -2615,64 +2716,85 @@ def depth_label(cfg) -> str:
 
 def train_placement(label: str, cfg, host_params, batch, opt_cfg,
                     tiering: TieringConfig, remat: str, base: dict | None,
-                    smi: str, profile: bool = False) -> dict:
+                    smi: str, profile: bool = False,
+                    step_kw: dict | None = None,
+                    timed: int = BEST_OF) -> dict:
     """One train step from ``host_params`` (zero moments) and ``batch``
-    under ``tiering`` and ``remat``: the loss, every gradient, every updated
-    parameter and moment ``torch.equal`` to ``base`` (the first
-    placement's, returned when ``base`` is None); the bytes the forward
-    saved for the backward; then 1 + BEST_OF more steps, the best of the
-    last BEST_OF timed (and with ``profile``, :func:`profile_step`)."""
+    under ``tiering`` and ``remat`` (and ``step_kw``, more of
+    :class:`TrainStepConfig`: ``microbatches``, ``compression``, whose
+    error-feedback buffer of zeros then joins the state and the plan): the
+    loss, every gradient (and with compression each after the error
+    feedback), every updated parameter, moment (an int8 one's codes and
+    scales) and error-feedback leaf bit-equal to ``base``'s (the first
+    placement's :func:`fingerprints`, returned when ``base`` is None),
+    compared on the card; the bytes the forward saved for the backward;
+    then 1 + ``timed`` more steps, the best of the last ``timed`` kept
+    (and with ``profile``, :func:`profile_step`)."""
     tag = f"{label} ({cfg.name}, {depth_label(cfg)} layers)"
     params = map_leaves(lambda _k, t: t.to("cuda"), host_params)
     opt = adamw.init(opt_cfg, params)
+    step_cfg = TrainStepConfig.from_tiering(tiering, remat=remat,
+                                            **(step_kw or {}))
+    compressed = step_cfg.compression.enabled
+    if compressed:
+        opt["ef"] = init_error_feedback(params)
     params, opt, plan = place_state(params, opt, tiering)
+    n_q = sum(isinstance(t, QTensor) for mom in ("m", "v")
+              for _, t in adamw.leaves(opt[mom]))
     streamed = sorted(n for n in plan.remote_names()
                       if re.match(r"params\['(\w+_)?layers'\]", n)
                       ) if plan else []
     layer_bytes = sum(t[0].nbytes for k, t in _leaves_with_keys(params)
                       if "params" + k in streamed)
-    step_cfg = TrainStepConfig.from_tiering(tiering, remat=remat)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     (loss, _, grads), at_bwd = saved_by_forward(
         lambda: make_value_and_grad(cfg, step_cfg, plan=plan)(params, batch),
-        get_model(cfg))
+        get_model(cfg), step_cfg.microbatches)
     saved = at_bwd - before
     first = base is None
-    if first:  # on the host, out of every later placement's peak
+    if first:
         base = {}
 
-    def hold(part: str, leaves: dict) -> None:
-        """``leaves`` into ``base`` (the first placement) or held
-        ``torch.equal`` to it, leaf by leaf on the card."""
+    def hold(part: str, leaves) -> None:
+        """``leaves`` (pairs of key and tensor, each fingerprinted as it
+        comes) into ``base`` (the first placement) or held bit-equal to
+        it."""
+        got = {k: fingerprint(t) for k, t in leaves}
         if first:
-            base[part] = {k: t.cpu() for k, t in leaves.items()}
+            base[part] = got
             return
-        require(leaves.keys() == base[part].keys(),
+        require(got.keys() == base[part].keys(),
                 f"[train] {tag}: the {part}' leaves differ")
-        for k, t in leaves.items():
-            require(torch.equal(t.to("cuda"), base[part][k].to("cuda")),
-                    f"[train] {tag}: {part}{k} != the untiered step's")
+        for k, fp in got.items():
+            require(fp == base[part][k],
+                    f"[train] {tag}: {part}{k} != the first placement's "
+                    f"(fingerprints {fp} and {base[part][k]})")
 
     # the gradients go before the step, out of its peak
-    hold("loss", {"": loss})
-    hold("grads", grads)
+    hold("loss", [("", loss)])
+    hold("grads", grads.items())
+    if compressed:  # the first step's error feedback: a residual of zeros
+        hold("grads after error feedback", (
+            (k, error_feedback_leaf(g, torch.zeros(g.shape, device="cuda"),
+                                    step_cfg.compression.block)[0])
+            for k, g in grads.items()))
     del grads
     step = make_train_step(cfg, step_cfg, opt_cfg, plan=plan)
     zero_counts()
     params, opt, metrics = step(params, opt, batch)
     torch.cuda.synchronize()
-    launches = counts()
-    hold("step_loss", {"": metrics["loss"]})
-    hold("params", dict(_leaves_with_keys(params)))
-    hold("opt", dict(_leaves_with_keys(opt)))
+    launches = {**counts(), "wgmma": fa.VARIANT_LAUNCHES["wgmma"]}
+    hold("step_loss", [("", metrics["loss"])])
+    hold("params", _leaves_with_keys(params))
+    hold("opt", _leaves_with_keys(opt))
     first_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     runs = []
-    for _ in range(1 + BEST_OF):  # the first is the warm-up
+    for _ in range(1 + timed):  # the first is the warm-up
         (params, opt, metrics), ms, host_ms = timed_ms(
             lambda: step(params, opt, batch))
         runs.append((ms, host_ms))
@@ -2681,20 +2803,29 @@ def train_placement(label: str, cfg, host_params, batch, opt_cfg,
     best, best_host = min(runs[1:])
     local = plan.local_bytes if plan else n_bytes(params) + n_bytes(opt)
     remote = plan.remote_bytes if plan else 0
+    ef_remote = sum(t.nbytes for _, t in _leaves_with_keys(opt["ef"])
+                    if t.device.type == "cpu") if compressed else 0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[train] step {tag}: best of {BEST_OF} {best:.3f} ms "
+    what = "best of {}".format(timed) if timed > 1 else "one step"
+    print(f"[train] step {tag}: {what} {best:.3f} ms "
           f"({best_host:.3f} ms on the host before the synchronise; runs "
           f"{', '.join(f'{m:.3f}' for m, _ in runs)}), local "
           f"{local / 2**30:.3f} GiB, remote {remote / 2**30:.3f} GiB"
           + (f" (streamed by the layer loop: {', '.join(streamed)})"
              if streamed else "")
+          + (f", {n_q} int8 moment leaves" if n_q else "")
+          + (f", error-feedback buffer {ef_remote / 2**30:.3f} GiB remote"
+             if compressed else "")
           + f", peak {peak:.3f} GiB ({first_peak:.3f} over the first "
           f"forward, backward and step), saved by the forward "
           f"{saved / 2**30:.3f} GiB, B2 launches a step "
           f"{launches['flash_attention']}, B3 {launches['ssd_scan']}, loss "
           f"{loss.item():.6f}"
-          + ("" if label == "untiered" else
-             ", loss, grads, params and moments torch.equal to untiered")
+          + ("" if first else
+             ", loss, grads, params and moments"
+             + (", the error-feedback buffer and the gradients after it"
+                if compressed else "")
+             + " bit-equal to the first placement's (fingerprints)")
           + f"; {smi}")
     prof = None
     if profile:
@@ -2707,12 +2838,13 @@ def train_placement(label: str, cfg, host_params, batch, opt_cfg,
     return {"base": base, "ms": best, "host_ms": best_host,
             "peak_gib": peak, "saved_bytes": saved, "local_bytes": local,
             "remote_bytes": remote, "streamed": streamed,
-            "layer_bytes": layer_bytes,
+            "layer_bytes": layer_bytes, "int8_leaves": n_q,
             "launches": launches, "profile": prof}
 
 
 def train_leg(cfg, placements: dict, batch, opt_cfg, smi: str,
-              profile: str | None = None) -> dict:
+              profile: str | None = None, step_kw: dict | None = None,
+              timed: int = BEST_OF) -> dict:
     """:func:`train_placement` for each of ``placements`` from the same
     random parameters (drawn on the card from seed 0, kept on the host),
     all held to the first; ``profile`` names the placement to profile."""
@@ -2727,12 +2859,14 @@ def train_leg(cfg, placements: dict, batch, opt_cfg, smi: str,
     print(f"[train] {cfg.name} at full width, {depth} layers: "
           f"{n_params / 1e9:.3f} B parameters, tokens "
           f"{tuple(batch['tokens'].shape)}{frames}, {cfg.dtype}, AdamW "
-          f"float32 moments")
+          f"{opt_cfg.moment_style} moments"
+          + "".join(f", {k} {v}" for k, v in (step_kw or {}).items()))
     rows, base = {}, None
     for label, (tiering, remat) in placements.items():
         rows[label] = train_placement(label, cfg, host_params, batch,
                                       opt_cfg, tiering, remat, base, smi,
-                                      profile=label == profile)
+                                      profile=label == profile,
+                                      step_kw=step_kw, timed=timed)
         base = rows[label].pop("base")
     del base, host_params
     release_memory()
@@ -2776,22 +2910,29 @@ def check_nesting(cfg, rows: dict) -> None:
               f"{cfg.n_layers * row['layer_bytes'] / 2**30:.3f} GiB a pass")
 
 
-def layers_run_in_a_step(n_layers: int) -> list[int]:
-    """The layer indices a remat "full" step runs, in order: the forward;
-    with nested checkpoints (``min_layers`` 12 and above: ``_block_split``'s
+def layers_run_in_a_step(n_layers: int, remat: str = "full") -> list[int]:
+    """The layer indices a train step runs, in order: the forward; under a
+    checkpoint policy (``full``, ``dots``, ``dots_no_batch``: B2 and B3 are
+    no matrix product, so ``dots`` recomputes them as ``full`` does) with
+    nested checkpoints (``min_layers`` 12 and above: ``_block_split``'s
     blocks) each block's recompute, which stops before its last layer (a
-    recompute stops once it has what the backward needs); and each
-    layer's own recompute. 33 at 12 layers, as granite-8b's 12-layer step
-    measured; 2 x ``n_layers`` below 12."""
+    recompute stops once it has what the backward needs); and each layer's
+    own recompute. 33 at 12 layers, as granite-8b's 12-layer step
+    measured; 2 x ``n_layers`` below 12 or with a ``_flat`` policy;
+    ``n_layers`` with remat ``none``."""
+    if remat == "none":
+        return list(range(n_layers))
     n_outer, n_inner = ((n_layers, 1) if n_layers < 12
+                        or remat.endswith("_flat")
                         else _block_split(n_layers))
     outer = [b * n_inner + j for b in range(n_outer)
              for j in range(n_inner - 1)]
     return [*range(n_layers), *outer, *range(n_layers)]
 
 
-def step_launches(cfg) -> dict:
-    """B2 and B3 launches a remat "full" train step of ``cfg`` makes
+def step_launches(cfg, remat: str = "full", microbatches: int = 1) -> dict:
+    """B2 and B3 launches a train step of ``cfg`` makes under ``remat``
+    over ``microbatches`` (each runs its own forward and backward)
     (:func:`layers_run_in_a_step` over each layer loop: the MoE family's
     dense layers and its MoE layers are two), and B2's backward launches:
     an SSM layer one B3, the hybrid's shared block one B2 after every
@@ -2799,26 +2940,30 @@ def step_launches(cfg) -> dict:
     decoder layer two; deepseek-v3's MTP block one B2 (outside the layer
     loops: run once, not recomputed). B2's backward runs once for each B2
     of the forward alone, its recomputes add none."""
-    run = layers_run_in_a_step(cfg.n_layers)
+    def run(n: int) -> list[int]:
+        return layers_run_in_a_step(n, remat)
+
+    def times(counts: dict) -> dict:
+        return {k: v * microbatches for k, v in counts.items()}
+
     if cfg.family == "encdec":
-        enc = layers_run_in_a_step(cfg.n_encoder_layers)
-        return {"flash_attention": len(enc) + 2 * len(run),
-                "flash_attention_bwd": cfg.n_encoder_layers
-                + 2 * cfg.n_layers, "ssd_scan": 0}
+        return times({"flash_attention": len(run(cfg.n_encoder_layers))
+                      + 2 * len(run(cfg.n_layers)),
+                      "flash_attention_bwd": cfg.n_encoder_layers
+                      + 2 * cfg.n_layers, "ssd_scan": 0})
     if cfg.family in ("ssm", "hybrid"):
         every = cfg.hybrid_attn_every
 
         def shared(layers) -> int:
             return sum(1 for i in layers if every and (i + 1) % every == 0)
-        return {"flash_attention": shared(run),
-                "flash_attention_bwd": shared(range(cfg.n_layers)),
-                "ssd_scan": len(run)}
+        return times({"flash_attention": shared(run(cfg.n_layers)),
+                      "flash_attention_bwd": shared(range(cfg.n_layers)),
+                      "ssd_scan": len(run(cfg.n_layers))})
     loops = ((cfg.first_k_dense, cfg.n_layers - cfg.first_k_dense)
              if cfg.family == "moe" else (cfg.n_layers,))
     mtp = 1 if cfg.mtp_depth else 0
-    return {"flash_attention": sum(len(layers_run_in_a_step(n))
-                                   for n in loops) + mtp,
-            "flash_attention_bwd": cfg.n_layers + mtp, "ssd_scan": 0}
+    return times({"flash_attention": sum(len(run(n)) for n in loops) + mtp,
+                  "flash_attention_bwd": cfg.n_layers + mtp, "ssd_scan": 0})
 
 
 def b3_grad_ratio(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -2990,29 +3135,412 @@ def train_model(name: str, spec: dict, opt_cfg, smi: str) -> dict:
     return mrows
 
 
+def train_ladder(cfg, batch, f32_rows: dict, smi: str) -> dict:
+    """``TRAIN_LADDER``'s legs on granite-8b (``cfg``, ``batch``: the f32
+    leg's), each through :func:`train_leg` untiered and at host_offload
+    0.5 under its policy, bit-equal; B2 launches a step as
+    :func:`step_launches` counts them under that policy and microbatches,
+    all through wgmma; the int8 leg holds int8 moment leaves. Each leg's
+    step ms and peak printed beside the f32 leg's (``f32_rows``)."""
+    out = {}
+    for name, spec in TRAIN_LADDER.items():
+        opt_cfg = AdamWConfig(lr=TRAIN_LEARN["lr"], warmup_steps=0,
+                              moment_style=spec["moment_style"])
+        placements = {
+            f"{name} untiered": (TieringConfig(), spec["remat"]),
+            f"{name} host_offload 0.5": (TieringConfig(
+                mode="host_offload", local_fraction=0.5), spec["remat"])}
+        rows = train_leg(cfg, placements, batch, opt_cfg, smi,
+                         step_kw=spec["step_kw"], timed=1)
+        n_mb = spec["step_kw"].get("microbatches", 1)
+        want = step_launches(cfg, spec["remat"], n_mb)
+        for label, row in rows.items():
+            got = row["launches"]
+            require({k: got[k] for k in want} == want
+                    and got["wgmma"] == want["flash_attention"],
+                    f"[train] {label}: launches a step {got}, expected "
+                    f"{want}, all B2 through wgmma")
+            require(spec["moment_style"] != "int8" or row["int8_leaves"] > 0,
+                    f"[train] {label}: no int8 moment leaf")
+        base = f32_rows["untiered"]
+        print(f"[train] {name} ({spec['moment_style']} moments, remat "
+              f"{spec['remat']}"
+              + "".join(f", {k} {v}" for k, v in spec["step_kw"].items())
+              + f"): step ms untiered {rows[f'{name} untiered']['ms']:.3f}, "
+              f"at 0.5 {rows[f'{name} host_offload 0.5']['ms']:.3f} (the "
+              f"f32 leg's {base['ms']:.3f} and "
+              f"{f32_rows['host_offload 0.5']['ms']:.3f}); peak "
+              f"{rows[f'{name} untiered']['peak_gib']:.3f} and "
+              f"{rows[f'{name} host_offload 0.5']['peak_gib']:.3f} GiB (f32 "
+              f"{base['peak_gib']:.3f} and "
+              f"{f32_rows['host_offload 0.5']['peak_gib']:.3f}); local / "
+              f"remote "
+              + ", ".join(f"{r['local_bytes'] / 2**30:.3f} / "
+                          f"{r['remote_bytes'] / 2**30:.3f} GiB"
+                          for r in rows.values())
+              + f"; launches a step {want} as counted "
+              f"({n_mb} microbatch{'es' if n_mb > 1 else ''}, "
+              f"{spec['remat']} recomputes the attention as full does); "
+              f"{smi}")
+        out[name] = rows
+    return out
+
+
+def check_int8_update(cfg, smi: str) -> dict:
+    """``adamw.leaf_update`` at int8 moments on one full-width granite MLP
+    leaf (one layer's w_up, d_model x d_ff, in float32, the update's math
+    type, so that the parameters' bound means float32's precision; a bf16
+    gradient; moments as one earlier step's gradient left them, int8
+    codes), on the card and on the CPU from the same host inputs and step
+    scalars: the codes within 1, the scales and the new parameters within
+    1e-6 of each one's max |x|; the count of elements that are not
+    bit-equal printed."""
+    gen = torch.Generator().manual_seed(21)
+    shape = (cfg.d_model, cfg.d_ff)
+
+    def draw(scale: float) -> torch.Tensor:
+        return torch.randn(shape, generator=gen) * scale
+
+    opt_cfg = AdamWConfig(lr=TRAIN_LEARN["lr"], warmup_steps=0,
+                          moment_style="int8")
+    p = draw(0.02)
+    g = draw(1e-3).to(cfg.dtype)
+    g0 = draw(1e-3)
+    m = quantize_blocks((1 - opt_cfg.b1) * g0)
+    v = quantize_blocks((1 - opt_cfg.b2) * g0 * g0)
+    s = adamw.step_scalars(opt_cfg, torch.tensor(2, dtype=torch.int32),
+                           torch.tensor(0.5))
+
+    def to(dev, x):
+        if isinstance(x, QTensor):
+            return QTensor(x.codes.to(dev), x.scale.to(dev))
+        return x.to(dev)
+
+    want = adamw.leaf_update(opt_cfg, p, g, m, v, s)
+    got = adamw.leaf_update(opt_cfg, *(to("cuda", x) for x in (p, g, m, v)),
+                            {k: x.cuda() for k, x in s.items()})
+    out = {}
+    for name, w, x in (("p", want[0], got[0]),
+                       ("m codes", want[1].codes, got[1].codes),
+                       ("m scales", want[1].scale, got[1].scale),
+                       ("v codes", want[2].codes, got[2].codes),
+                       ("v scales", want[2].scale, got[2].scale)):
+        x = x.cpu()
+        diff = (x.float() - w.float()).abs().max().item()
+        tol = 1.0 if "codes" in name else 1e-6 * w.float().abs().max().item()
+        unequal = int((x.view(WORDS[x.element_size()])
+                       != w.view(WORDS[w.element_size()])).sum())
+        require(diff <= tol, f"[check] int8 AdamW update on the card: {name} "
+                             f"max|card - CPU| {diff} above {tol}")
+        out[name] = {"max_abs_diff": diff, "bound": tol, "unequal": unequal}
+    print(f"[check] int8 AdamW update (adamw.leaf_update) of one granite-8b "
+          f"MLP leaf {shape} in float32 ({cfg.dtype} gradient), card against "
+          f"CPU from the same host inputs: "
+          + "; ".join(f"{k} max|diff| {r['max_abs_diff']:.3g} (bound "
+                      f"{r['bound']:.3g}), {r['unequal']} of "
+                      f"{math.prod(shape) // (1 if 'scale' not in k else 256)}"
+                      f" elements not bit-equal" for k, r in out.items())
+          + f"; {smi}")
+    return out
+
+
+def moe_layer_reckoning(cfg, opt_cfg) -> dict:
+    """The bytes of :data:`TRAIN_MOE_LAYER`'s state by kind, from the
+    parameters' shapes (a fake-tensor init): parameters and gradients (the
+    leaf's type: ``RemoteGrads`` keeps it), int8 codes and scales and the
+    float32 moments of the leaves too small or narrow for codes (two
+    moments each), the MoE layer's weights (fetched whole for its forward
+    and again for its recompute); the pinned host bytes of it all, and as
+    PyTorch's caching host allocator holds them (each block rounded up to
+    a power of two)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        shapes = [(k, tuple(t.shape), t.dtype) for k, t in _leaves_with_keys(
+            get_model(cfg).init_params(torch.Generator().manual_seed(0), cfg,
+                                       device="cpu"))]
+    r = dict.fromkeys(("params", "codes", "scales", "f32_moments",
+                       "fetched_layer", "pinned_rounded"), 0)
+
+    def pinned(n: int) -> int:
+        return 1 << max(0, n - 1).bit_length()
+
+    for k, shape, dtype in shapes:
+        n = math.prod(shape)
+        nb = n * torch.empty((), dtype=dtype).element_size()
+        r["params"] += nb
+        r["pinned_rounded"] += pinned(nb)
+        if k.startswith("['layers']"):
+            r["fetched_layer"] += nb
+        if opt_cfg.moment_style == "int8" and quantizable(shape):
+            r["codes"] += 2 * n
+            r["scales"] += 2 * 4 * (n // 256)
+            r["pinned_rounded"] += 2 * (pinned(n) + pinned(4 * (n // 256)))
+        else:
+            r["f32_moments"] += 2 * 4 * n
+            r["pinned_rounded"] += 2 * pinned(4 * n)
+    r["grads"] = r["params"]
+    r["pinned"] = r["params"] + r["codes"] + r["scales"] + r["f32_moments"]
+    r["device"] = r["grads"] + r["fetched_layer"]
+    return r
+
+
+def host_pinned_bytes() -> dict:
+    """What PyTorch's host allocator holds now: ``host_memory_stats``'
+    current allocated and reserved bytes, where this torch has them."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return {}
+    return {k: v for k, v in stats().items()
+            if k in ("allocated_bytes.current", "reserved_bytes.current")}
+
+
+class copy_stream_bytes:
+    """While open, every ``HostFetchEngine`` the train step makes is
+    recorded: ``moved()`` is the bytes they read (host to card) and wrote
+    (card to host) on their copy streams."""
+
+    def __enter__(self):
+        self.engines = []
+        self.saved = step_mod.HostFetchEngine
+        engines = self.engines
+
+        class Recorded(self.saved):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                engines.append(self)
+
+        step_mod.HostFetchEngine = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        step_mod.HostFetchEngine = self.saved
+        return False
+
+    def moved(self) -> tuple[int, int]:
+        return (sum(e.bytes_read for e in self.engines),
+                sum(e.bytes_written for e in self.engines))
+
+
+def moe_layer_leg(cfg, batch, opt_cfg, prefetch: bool, smi: str,
+                  before: dict | None) -> dict:
+    """One step of :data:`TRAIN_MOE_LAYER`'s model at host_offload 0.0
+    with ``prefetch``: the parameters drawn on the card from seed 0, the
+    moments int8 zeros, all placed (the REMOTE leaves into pinned host
+    memory). Returns the fingerprints of the state before the step (when
+    ``before`` is None, else requires them equal to it), of the loss,
+    every gradient (taken inside the step, before the update) and every
+    updated parameter, code and scale, with the step's ms, device peak,
+    pinned host bytes and copy-stream bytes."""
+    label = f"MoE layer prefetch {'on' if prefetch else 'off'}"
+    tiering = TieringConfig(mode="host_offload", local_fraction=0.0,
+                            prefetch=prefetch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = get_model(cfg).init_params(gen, cfg)
+    opt = adamw.init(opt_cfg, params)
+    params, opt, plan = place_state(params, opt, tiering)
+    torch.cuda.empty_cache()
+    on_host = sum(t.nbytes for _, t in _leaves_with_keys((params, opt))
+                  if t.device.type == "cpu")
+    n_q = sum(isinstance(t, QTensor) for mom in ("m", "v")
+              for _, t in adamw.leaves(opt[mom]))
+    require(n_q > 0, f"[train] {label}: no int8 moment leaf")
+    start = fingerprints({"params": params, "opt": opt})
+    if before is not None:
+        require(start == before, f"[train] {label}: the placed state differs "
+                                 f"from the first leg's")
+    step_cfg = TrainStepConfig.from_tiering(tiering, remat="full")
+    seen = {}
+    value_and_grad = step_mod.make_value_and_grad
+
+    def fingerprinted(*a, **kw):
+        """make_value_and_grad whose gradients are fingerprinted as they
+        come (their time kept apart from the step's)."""
+        inner = value_and_grad(*a, **kw)
+
+        def run(p, b, engine=None):
+            loss, metrics, grads = inner(p, b, engine)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seen["loss"] = {"": fingerprint(loss)}
+            seen["grads"] = {k: fingerprint(g) for k, g in grads.items()}
+            seen["fingerprint_s"] = time.perf_counter() - t0
+            return loss, metrics, grads
+        return run
+
+    step_mod.make_value_and_grad = fingerprinted
+    try:
+        step = make_train_step(cfg, step_cfg, opt_cfg, plan=plan)
+    finally:
+        step_mod.make_value_and_grad = value_and_grad
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with copy_stream_bytes() as moved:
+        (params, opt, metrics), ms, host_ms = timed_ms(
+            lambda: step(params, opt, batch))
+    launches = {**counts(), "wgmma": fa.VARIANT_LAUNCHES["wgmma"]}
+    peak = torch.cuda.max_memory_allocated()
+    loss = metrics["loss"].item()
+    require(math.isfinite(loss), f"[train] {label}: non-finite loss {loss}")
+    after = fingerprints({"params": params, "opt": opt})
+    same = sorted(k for k, fp in after.items() if fp == start.get(k))
+    require(not same, f"[train] {label}: {len(same)} leaves unchanged by the "
+                      f"step, e.g. {same[:4]}")
+    pinned = host_pinned_bytes()
+    read, written = moved.moved()
+    step_ms = ms - 1e3 * seen["fingerprint_s"]
+    print(f"[train] step {label} ({cfg.name}, {depth_label(cfg)} layers, "
+          f"host_offload 0.0, int8 moments, remat full): {step_ms:.3f} ms "
+          f"({ms:.3f} with the gradients' fingerprints, "
+          f"{1e3 * seen['fingerprint_s']:.3f} ms of it; {host_ms:.3f} ms on "
+          f"the host before the synchronise), device peak "
+          f"{peak / 2**30:.3f} GiB ({peak / 1e9:.3f} GB), in host memory "
+          f"{on_host / 1e9:.3f} GB of leaves (the plan's remote "
+          f"{plan.remote_bytes / 1e9:.3f} GB), the host allocator "
+          + (", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in pinned.items())
+             or "reports no stats here")
+          + f"; copy stream {read / 1e9:.3f} GB to the card, "
+          f"{written / 1e9:.3f} GB back; {n_q} int8 moment leaves; B2 "
+          f"launches {launches['flash_attention']} ({launches['wgmma']} "
+          f"wgmma), its backward {launches['flash_attention_bwd']}; loss "
+          f"{loss:.6f}; every parameter, moment, code and scale changed; "
+          f"host MemAvailable {mem_available_gb():.1f} GB; {smi}")
+    del params, opt, metrics
+    return {"start": start, "after": after, "seen": seen, "ms": step_ms,
+            "peak_bytes": peak, "on_host_bytes": on_host, "pinned": pinned,
+            "read_bytes": read, "written_bytes": written,
+            "launches": launches, "loss": loss}
+
+
+def train_moe_layer(smi: str) -> dict:
+    """deepseek-v3's MoE layer trained on the card (:data:`TRAIN_MOE_LAYER`):
+    the reckoned bytes and the host's MemAvailable first (the phase fails
+    if the host cannot hold the pinned state), then :func:`moe_layer_leg`
+    with prefetch on and off, every leaf's fingerprint equal between them,
+    B2 launches a step as :func:`step_launches` counts them, all wgmma (at
+    MLA's D 192)."""
+    spec = TRAIN_MOE_LAYER
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
+                              n_layers=spec["n_layers"],
+                              first_k_dense=spec["first_k_dense"])
+    opt_cfg = AdamWConfig(lr=spec["lr"], warmup_steps=0, moment_style="int8")
+    r = moe_layer_reckoning(cfg, opt_cfg)
+    release_memory()
+    avail = mem_available_gb()
+    print(f"[train] {cfg.name}'s MoE layer at full width ({cfg.n_layers} "
+          f"layers: {cfg.first_k_dense} dense MLA, "
+          f"{cfg.n_layers - cfg.first_k_dense} MoE of {cfg.n_experts} experts "
+          f"top {cfg.top_k}, the MTP block), {r['params'] / 2 / 1e9:.3f} B "
+          f"parameters, tokens ({spec['batch']}, {spec['seq']}), int8 "
+          f"moments, host_offload 0.0; reckoned: parameters "
+          f"{r['params'] / 1e9:.3f} GB, gradients {r['grads'] / 1e9:.3f}, "
+          f"codes {r['codes'] / 1e9:.3f}, scales {r['scales'] / 1e9:.3f}, "
+          f"float32 moments of the small leaves "
+          f"{r['f32_moments'] / 1e9:.3f}, the MoE layer fetched "
+          f"{r['fetched_layer'] / 1e9:.3f}; on the card the gradients and "
+          f"the fetched layer {r['device'] / 1e9:.3f} GB and a few of "
+          f"activations and working set; pinned host memory "
+          f"{r['pinned'] / 1e9:.3f} GB, {r['pinned_rounded'] / 1e9:.3f} as "
+          f"the caching host allocator rounds its blocks; host MemAvailable "
+          f"{avail:.1f} GB")
+    require(avail > r["pinned_rounded"] / 1e9 + 8,
+            f"[train] {cfg.name}'s MoE layer: the host has {avail:.1f} GB "
+            f"available, the state pins {r['pinned_rounded'] / 1e9:.1f} GB")
+    data = SyntheticTokenDataset(cfg, spec["batch"], spec["seq"], seed=0)
+    batch = to_device_fn("cuda", cfg.dtype)(data.batch_at(0))
+    legs = {}
+    for prefetch in (True, False):
+        legs[prefetch] = moe_layer_leg(
+            cfg, batch, opt_cfg, prefetch, smi,
+            legs[True]["start"] if legs else None)
+    on, off = legs[True], legs[False]
+    for part in ("loss", "grads"):
+        require(on["seen"][part] == off["seen"][part],
+                f"[train] MoE layer: the {part} differ between prefetch on "
+                f"and off")
+    require(on["after"] == off["after"],
+            f"[train] MoE layer: the updated state differs between prefetch "
+            f"on and off: "
+            f"{[k for k in on['after'] if on['after'][k] != off['after'][k]][:4]}")
+    want = step_launches(cfg)
+    for leg in (on, off):
+        got = leg["launches"]
+        require({k: got[k] for k in want} == want
+                and got["wgmma"] == want["flash_attention"],
+                f"[train] MoE layer: launches a step {got}, expected {want}, "
+                f"all B2 through wgmma")
+    n_leaves = len(on["seen"]["grads"]) + len(on["after"])
+    print(f"[train] {cfg.name}'s MoE layer: prefetch on and off bit-equal "
+          f"(fingerprints) on the loss, {len(on['seen']['grads'])} gradients "
+          f"and {len(on['after'])} updated leaves ({n_leaves} in all: "
+          f"parameters, codes, scales, float32 moments, the step); launches "
+          f"a step {want} as counted, B2 at D 192 on wgmma; step ms "
+          f"{on['ms']:.3f} on, {off['ms']:.3f} off; {smi}")
+    del legs, on, off, batch
+    release_memory()
+    return {"reckoned": r, "mem_available_gb": avail,
+            "launches": want}
+
+
+def launcher_runs() -> None:
+    """``python -m repro_torch.launch.train --device cuda --steps 3`` in a
+    process of its own (its default, reduced mamba2-130m), then
+    ``launch.train.main(LAUNCH_LADDER)`` in this one, whose loss must
+    fall."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t_l = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--device", "cuda", "--steps", "3"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=600)
+    require(run.returncode == 0, f"[train] launch.train failed:\n"
+            f"{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
+    require("arch=mamba2-130m" in run.stdout,
+            f"[train] launch.train did not run its default, mamba2-130m:\n"
+            f"{run.stdout[-2000:]}")
+    print(f"[train] python -m repro_torch.launch.train --device cuda "
+          f"--steps 3: {run.stdout.strip().splitlines()[-1]} "
+          f"({time.perf_counter() - t_l:.1f} s with the process start)")
+    embed = (MAMBA2_130M.vocab_size, MAMBA2_130M.d_model)
+    require(quantizable(embed), f"[train] mamba2-130m's embedding {embed} "
+                                f"takes no int8 moments")
+    t_l = time.perf_counter()
+    res = launch_train.main(LAUNCH_LADDER)
+    require(len(res.losses) == int(LAUNCH_LADDER[
+        LAUNCH_LADDER.index("--steps") + 1])
+            and res.losses[-1] < res.losses[0],
+            f"[train] launch.train {' '.join(LAUNCH_LADDER)}: losses "
+            f"{res.losses} do not fall")
+    print(f"[train] launch.train {' '.join(LAUNCH_LADDER)}: losses "
+          f"{[round(x, 4) for x in res.losses]} "
+          f"({time.perf_counter() - t_l:.1f} s)")
+    release_memory()
+
+
 def phase_train(smi: str) -> dict:
     """``[train]``: B2's lse and VJP at granite-8b's attention shape (bf16
     and float32) with planted faults, and at ``TRAIN_FLASH_MORE``'s;
     granite-8b at full width one step under each of ``TRAIN_PLACEMENTS``
     (4 layers; the untiered step profiled) and ``TRAIN_DEEP_PLACEMENTS``
     (12 layers, where remat nests: :func:`check_nesting`), each leg all
-    ``torch.equal``; B3's backward at ``B3_VJP``'s scans with a planted
+    bit-equal (:func:`fingerprint`); the int8 update on the card against
+    the CPU's (:func:`check_int8_update`) and ``TRAIN_LADDER``'s legs
+    (:func:`train_ladder`); B3's backward at ``B3_VJP``'s scans with a planted
     fault, two launches ``torch.equal`` and each launch's time, and at
     ``B3_VJP_RAGGED``'s shapes untimed; ``TRAIN_MODELS`` at full width one
-    step under each of ``TRAIN_MODEL_PLACEMENTS``, all ``torch.equal``, B2
+    step under each of ``TRAIN_MODEL_PLACEMENTS``, all bit-equal, B2
     and B3 launches a step and backward calls as :func:`step_launches`
     counts them: mamba2-130m, zamba2-1.2b and seamless-m4t-medium whole,
     deepseek-v3-671b at 2 dense MLA layers and its MTP block (B2's
     backward at D 192 on the tensor cores, also held alone at
-    ``TRAIN_FLASH_MORE``'s MLA shape), mixtral-8x7b at 2 MoE layers over
-    8192 tokens (top-2 dispatch under autograd, B2's backward under its
-    window of 4096); 10 steps of ``train.loop.train`` on
-    a repeated batch must lower the loss (granite-8b, mamba2-130m); a run
-    killed after its checkpoint resumes with equal losses, untiered and at
-    host_offload 0.5 (the reduced float32 config); ``python -m
-    repro_torch.launch.train --device cuda`` runs at its default (reduced
-    mamba2-130m). Returns the untiered steps' launches and the backward
-    numbers of B2 and B3."""
+    ``TRAIN_FLASH_MORE``'s MLA shape), mixtral-8x7b at its first MoE
+    layer over 8192 tokens (top-2 dispatch under autograd, B2's backward
+    under its window of 4096); 10 steps of
+    ``train.loop.train`` on a repeated batch must lower the loss
+    (granite-8b, mamba2-130m); a run killed after its checkpoint resumes
+    with equal losses, untiered and at host_offload 0.5 (the reduced
+    float32 config); :func:`launcher_runs`. Returns the untiered steps'
+    launches and the backward numbers of B2 and B3."""
     t0 = time.perf_counter()
     walls, last = {}, [t0]
 
@@ -3043,6 +3571,9 @@ def phase_train(smi: str) -> dict:
             f"{rows['untiered']['launches']['flash_attention_bwd']} times a "
             f"step, expected {cfg.n_layers} (one a layer)")
     lap("granite-8b, 4 layers")
+    int8_update = check_int8_update(cfg, smi)
+    ladder = train_ladder(cfg, batch, rows, smi)
+    lap("granite-8b ladder legs")
     deep = dataclasses.replace(GRANITE_8B, n_layers=TRAIN_DEEP["n_layers"])
     deep_rows = train_leg(deep, TRAIN_DEEP_PLACEMENTS, batch, opt_cfg, smi)
     check_nesting(deep, deep_rows)
@@ -3107,19 +3638,7 @@ def phase_train(smi: str) -> dict:
               f"step-{rs['ckpt_every']} checkpoint, losses == the "
               f"uninterrupted run's {[round(x, 6) for x in resumed.losses]}")
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t_l = time.perf_counter()
-    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          "--device", "cuda", "--steps", "3"], cwd=ROOT,
-                         env=env, capture_output=True, text=True, timeout=600)
-    require(run.returncode == 0, f"[train] launch.train failed:\n"
-            f"{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
-    require("arch=mamba2-130m" in run.stdout,
-            f"[train] launch.train did not run its default, mamba2-130m:\n"
-            f"{run.stdout[-2000:]}")
-    print(f"[train] python -m repro_torch.launch.train --device cuda "
-          f"--steps 3: {run.stdout.strip().splitlines()[-1]} "
-          f"({time.perf_counter() - t_l:.1f} s with the process start)")
+    launcher_runs()
     lap("restart and launcher")
     print(f"[train] done in {time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
@@ -3127,7 +3646,8 @@ def phase_train(smi: str) -> dict:
     return {"launches": rows["untiered"]["launches"], "rows": rows,
             "deep_rows": deep_rows, "vjp": vjp, "vjp_more": vjp_more,
             "vjp_window": vjp_window,
-            "b3_vjp": b3_vjp, "model_rows": model_rows}
+            "b3_vjp": b3_vjp, "model_rows": model_rows,
+            "int8_update": int8_update, "ladder": ladder}
 
 
 # -- [mesh]: the sharding layer on a one-rank NCCL mesh ----------------------
@@ -3803,8 +4323,12 @@ def main() -> None:
         last[0] += walls[name]
 
     phase_build()
-    host = start_host_phases()
     lap("build")
+    # first, while the process holds little host memory: the step pins 66
+    # GB of it (later phases leave tens of GB that the allocators keep)
+    moe_layer = train_moe_layer(dev["smi"])
+    lap("deepseek-v3-671b MoE layer trained")
+    host = start_host_phases()
 
     cfg = GRANITE_8B
     L, d, heads, kv, hd = (CHAIN_STAGES, cfg.d_model, cfg.n_heads,
@@ -3896,10 +4420,13 @@ def main() -> None:
     steps = {"granite-8b": trained["launches"],
              "granite-8b mesh": meshed["launches"], **{
         model: rows["untiered"]["launches"]
-        for model, rows in trained["model_rows"].items()}}
+        for model, rows in trained["model_rows"].items()}, **{
+        f"granite-8b {leg}": rows[f"{leg} untiered"]["launches"]
+        for leg, rows in trained["ladder"].items()},
+        "deepseek-v3-671b MoE layer": moe_layer["launches"]}
     for model, launches in steps.items():
         for name, n in launches.items():
-            if n:
+            if n and name in by_path:
                 by_path[name][f"{model} train step"] = n
     for name, paths in by_path.items():
         print(f"[path] {name} launches by path: {paths}")

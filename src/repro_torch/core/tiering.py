@@ -76,6 +76,7 @@ from repro_torch.core.objects import (
 )
 from repro_torch.core.placement import PlacementPlan, PlacementPolicy
 from repro_torch.core.sizing import synthetic_profile
+from repro_torch.kernels.traced import is_traced
 
 TieringMode = Literal["none", "host_offload", "fsdp_stream"]
 
@@ -299,10 +300,21 @@ def _placer(plan: PlacementPlan, prefix: str, dev: torch.device,
             return t.redistribute(mesh, pl)
         if tier is Tier.REMOTE and config.mode == "host_offload":
             # a copy: the train step writes REMOTE leaves back in place
-            return host_tensor(t.detach().to("cpu", copy=True), pin=pin)
+            return _host_copy(t.detach(), pin)
         return t.detach().to(dev)
 
     return place
+
+
+def _host_copy(t: torch.Tensor, pin: bool) -> torch.Tensor:
+    """A contiguous host copy of ``t``, pinned if ``pin``. A card's tensor
+    is copied straight into pinned memory: a pageable copy on the way
+    would hold the leaf twice in host memory (a full-width stacked expert
+    weight is 7.5 GB)."""
+    if pin and t.device.type == "cuda" and not is_traced(t):
+        return torch.empty(t.shape, dtype=t.dtype,
+                           pin_memory=True).copy_(t)
+    return host_tensor(t.to("cpu", copy=True), pin=pin)
 
 
 def _unplanned(config: TieringConfig, tree: Any) -> bool:

@@ -24,7 +24,13 @@ from typing import Any, Iterator
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.optim.quantized import dequantize, quantize
+from repro_torch.optim.quantized import (
+    BLOCK,
+    QTensor,
+    dequantize,
+    quantizable,
+    quantize,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,8 +90,16 @@ def unflatten(template: Any, values: dict[str, Any], key: str = "") -> Any:
 
 def init(cfg: AdamWConfig, params: Any) -> dict:
     def zeros(p):
-        return encode(cfg, torch.zeros(p.shape, dtype=torch.float32,
-                                       device=p.device))
+        """``encode`` of a float32 zero moment, made in its stored type
+        (no float32 leaf of the parameter's size: a full-width expert
+        weight's would take 15 GB)."""
+        if cfg.moment_style == "int8" and quantizable(tuple(p.shape)):
+            return QTensor(
+                torch.zeros(p.shape, dtype=torch.int8, device=p.device),
+                torch.zeros((*p.shape[:-1], p.shape[-1] // BLOCK),
+                            dtype=torch.float32, device=p.device))
+        dtype = torch.bfloat16 if cfg.moment_style == "bf16" else torch.float32
+        return torch.zeros(p.shape, dtype=dtype, device=p.device)
 
     vals = dict(leaves(params))
     return {

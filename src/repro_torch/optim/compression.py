@@ -15,6 +15,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.optim.quantized import per_127
+
 BLOCK = 256
 
 
@@ -37,7 +39,7 @@ def compress(x: torch.Tensor, block: int = BLOCK
     """-> (int8 codes (n_blocks, block), float32 per-block scales)."""
     flat, _ = _pad_to_block(x.float(), block)
     blocks = flat.reshape(-1, block)
-    scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0
+    scale = per_127(blocks.abs().amax(dim=1, keepdim=True))
     safe = torch.where(scale == 0, torch.ones_like(scale), scale)
     codes = torch.clamp(torch.round(blocks / safe), -127, 127)
     return codes.to(torch.int8), scale[:, 0]

@@ -52,12 +52,20 @@ def quantize(x: torch.Tensor) -> QTensor | torch.Tensor:
     return quantize_blocks(x)
 
 
+def per_127(amax: torch.Tensor) -> torch.Tensor:
+    """``amax / 127`` as a true division, the reference's: the divisor a
+    tensor on ``amax``'s device. On a card PyTorch multiplies by the
+    rounded reciprocal of a Python-number divisor instead, which puts 5 %
+    of the scales one unit in the last place off the CPU's (ROADMAP C11)."""
+    return amax / amax.new_full((), 127.0)
+
+
 def quantize_blocks(x: torch.Tensor) -> QTensor:
     """``x`` as int8 codes and a scale per block of its last dim, whatever
     its size (a rank's shard of a leaf :func:`quantizable` as a whole)."""
     lead = x.shape[:-1]
     xb = x.float().reshape(*lead, x.shape[-1] // BLOCK, BLOCK)
-    scale = xb.abs().amax(dim=-1) / 127.0
+    scale = per_127(xb.abs().amax(dim=-1))
     safe = torch.where(scale == 0, torch.ones_like(scale), scale)
     codes = torch.clamp(torch.round(xb / safe[..., None]), -127, 127)
     return QTensor(codes=codes.to(torch.int8).reshape(x.shape), scale=scale)

@@ -174,7 +174,8 @@ class _Store:
 #: stacked layer weight) is updated in slices of whole rows of its last dim,
 #: so AdamW's float32 temporaries stay this size (256 MB each) and not the
 #: leaf's, nor one layer's (a stacked expert weight's layer can hold 470 M
-#: elements). The math is elementwise: the slices give the same bits.
+#: elements). The math is elementwise, and an int8 moment's quantization
+#: blocks lie within a row: the slices give the same bits.
 UPDATE_SLICE = 1 << 26
 
 
@@ -187,6 +188,41 @@ def _row_slices(t: torch.Tensor) -> list[slice]:
         return [slice(None)]
     rows = max(1, UPDATE_SLICE // (t.numel() // t.shape[0]))
     return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
+def _contiguous(t) -> bool:
+    if isinstance(t, QTensor):
+        return t.codes.is_contiguous() and t.scale.is_contiguous()
+    return t.is_contiguous()
+
+
+def _part(t, sl: slice):
+    """Rows ``sl`` of ``t`` (an int8 moment's codes and scales alike)."""
+    if isinstance(t, QTensor):
+        return QTensor(t.codes[sl], t.scale[sl])
+    return t[sl]
+
+
+def _fresh(name: str, t, remote: frozenset):
+    """What a leaf's updated slices are written into: a REMOTE leaf's own
+    host tensor, or a new device tensor."""
+    if isinstance(t, QTensor):
+        return QTensor(_fresh(name + ".codes", t.codes, remote),
+                       _fresh(name + ".scale", t.scale, remote))
+    return t if name in remote else torch.empty_like(t)
+
+
+def _write(store: "_Store", name: str, into, x) -> None:
+    """One updated slice ``x`` into ``into`` (a slice of :func:`_fresh`'s
+    tensor): written back through ``store`` when REMOTE, copied when
+    LOCAL."""
+    if isinstance(into, QTensor):
+        _write(store, name + ".codes", into.codes, x.codes)
+        _write(store, name + ".scale", into.scale, x.scale)
+    elif name in store.remote:
+        store.put(name, into, x)
+    else:
+        into.copy_(x)
 
 
 def _split(batch: dict, n: int) -> list[dict]:
@@ -410,43 +446,54 @@ def make_train_step(model_cfg: ModelConfig, step_cfg: TrainStepConfig,
     """
     value_and_grad = make_value_and_grad(model_cfg, step_cfg, plan=plan)
 
+    # a slice's moments come back float32 and are encoded as the leaf's
+    # were: an int8 moment by quantize_blocks, since a slice can be smaller
+    # than the size quantize() asks of a whole leaf
+    cfg32 = (dataclasses.replace(opt_cfg, moment_style="f32")
+             if opt_cfg.moment_style == "int8" else opt_cfg)
+
     def update_leaf(names, olds, g, s, store: _Store) -> list:
         """One leaf's (p, m, v) -> the new ones through ``store``, in
-        :func:`_row_slices` when the moments are not int8 (whose
-        quantization blocks span rows): a REMOTE leaf is fetched and
-        written back slice by slice, a LOCAL one assembled into new
-        tensors."""
+        :func:`_row_slices`: a REMOTE leaf is fetched and written back
+        slice by slice, a LOCAL one assembled into new tensors. An int8
+        moment's codes and scales are cut by the same rows: a quantization
+        block is 256 elements of one row of the last dim, so a slice of
+        whole rows holds whole blocks and gives the whole leaf's bits."""
         if is_dtensor(olds[0]):
             if any(isinstance(t, QTensor) for t in olds):
                 return _int8_update(opt_cfg, names, olds, g, s, store)
             news = update_leaf(names, [local_part(t) for t in olds],
                                local_part(g), s, store)
             return [like_global(x, t) for x, t in zip(news, olds)]
-        quantized = any(isinstance(t, QTensor) for t in olds)
-        # a leaf of more than two dims as the matrix of its last dim's rows
-        flat = not quantized and all(t.ndim > 2 and t.is_contiguous()
-                                     for t in olds)
+        # a leaf of more than two dims, or any with int8 moments (a 1-d
+        # one's scales share no dim with its codes), as the matrix of its
+        # last dim's rows; int8 moments that are not contiguous, whole
+        quantized = isinstance(olds[1], QTensor)
+        flat = all(_contiguous(t) for t in olds) and (
+            olds[0].ndim > 2 or quantized)
 
         def rows(t):
+            if isinstance(t, QTensor):
+                return QTensor(rows(t.codes), rows(t.scale))
             return t.reshape(-1, t.shape[-1]) if flat else t
 
-        parts = [slice(None)] if quantized else _row_slices(rows(olds[0]))
+        parts = ([slice(None)] if quantized and not flat
+                 else _row_slices(rows(olds[0])))
         if len(parts) == 1:
             cur = [store.get(n, t) for n, t in zip(names, olds)]
             new = adamw.leaf_update(opt_cfg, cur[0], g, cur[1], cur[2], s)
             return [store.put(n, t, x) for n, t, x in zip(names, olds, new)]
-        outs = [t if n in store.remote else torch.empty_like(t)
-                for n, t in zip(names, olds)]
+        outs = [_fresh(n, t, store.remote) for n, t in zip(names, olds)]
         g = rows(g)
         for sl in parts:
-            cur = [store.get(n, rows(t)[sl]) for n, t in zip(names, olds)]
-            new = adamw.leaf_update(opt_cfg, cur[0], g[sl], cur[1], cur[2],
-                                    s)
+            cur = [store.get(n, _part(rows(t), sl))
+                   for n, t in zip(names, olds)]
+            p_new, m32, v32 = adamw.leaf_update(cfg32, cur[0], g[sl], cur[1],
+                                                cur[2], s)
+            new = [p_new] + ([quantize_blocks(m32), quantize_blocks(v32)]
+                             if quantized else [m32, v32])
             for n, o, x in zip(names, outs, new):
-                if n in store.remote:
-                    store.put(n, rows(o)[sl], x)
-                else:
-                    rows(o)[sl] = x
+                _write(store, n, _part(rows(o), sl), x)
         return outs
 
     def update(params, opt_state, grads, store: _Store):

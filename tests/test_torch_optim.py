@@ -202,3 +202,36 @@ def test_compress_and_error_feedback_equal_reference(n):
         ref_optim.CompressionConfig(enabled=True))
     np.testing.assert_allclose(gq["w"], np.asarray(rgq["w"]), atol=1e-6)
     np.testing.assert_allclose(res["w"], np.asarray(rres["w"]), atol=1e-6)
+
+
+def test_int8_scales_are_a_true_division_on_the_leafs_device():
+    """ROADMAP C11: the scales of int8 moments and of compressed gradients
+    are ``amax / 127`` with the divisor a tensor on the leaf's own device.
+    A Python-number divisor reaches the kernel as a CPU scalar, which a
+    card turns into a multiply by the rounded reciprocal (one unit in the
+    last place off the reference's quotient in about 5 % of the scales);
+    on a meta tensor, as on a card, every divisor must be on that device.
+    On the CPU each scale is the correctly rounded quotient."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.optim.quantized import quantize_blocks
+
+    divisors = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.div.Tensor, torch.ops.aten.div.Scalar):
+                divisors.append(args[1])
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        quantize_blocks(torch.empty((4, 512), device="meta"))
+        compress(torch.empty((4, 512), device="meta"))
+    assert len(divisors) == 4
+    assert all(isinstance(d, torch.Tensor) and d.device.type == "meta"
+               for d in divisors)
+    x = _normal(7, (64, 1024))
+    amax = x.abs().reshape(64, 4, 256).amax(-1)
+    exact = (amax.double() / 127).float()
+    assert torch.equal(quantize_blocks(x).scale, exact)
+    assert torch.equal(compress(x)[1], exact.reshape(-1))

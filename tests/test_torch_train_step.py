@@ -16,7 +16,8 @@ from repro_torch.core.objects import _leaves_with_keys
 from repro_torch.core.tiering import TieringConfig, map_leaves, place_state
 from repro_torch.optim import AdamWConfig, CompressionConfig
 from repro_torch.optim import init as adamw_init
-from repro_torch.optim.quantized import dequantize
+from repro_torch.optim.adamw import leaves as adamw_leaves
+from repro_torch.optim.quantized import MIN_QUANT_BYTES, QTensor, dequantize
 from repro_torch.train import step as step_mod
 from repro_torch.train.loop import LoopConfig, train
 from repro_torch.train.step import (
@@ -117,6 +118,75 @@ def test_train_step_matches_reference(granite256, style, monkeypatch):
     _check_step(ref_out, out)
     if style == "int8":
         assert type(out[1]["m"]["layers"]["mlp"]["w_up"]).__name__ == "QTensor"
+
+
+def _deepseek256() -> Ref:
+    """Reduced deepseek-v3 (1 dense MLA layer, 1 MoE layer, the MTP block)
+    at d_model 256 with a dense d_ff of 1024 and experts of 256: the dense
+    MLP's and the experts' leaves take int8 moments."""
+    return Ref("deepseek-v3-671b", n_layers=2, vocab_size=64, d_model=256,
+               d_ff=1024, moe_d_ff=256)
+
+
+def test_deepseek_int8_step_matches_reference(monkeypatch):
+    """One int8 AdamW step of the moe family, the port's step given the
+    reference's loss and gradients (as
+    :func:`test_train_step_matches_reference`), against the reference's
+    int8 step at its own bound; the expert leaves' moments are codes."""
+    ref = _deepseek256()
+    kw = dict(lr=1e-3, warmup_steps=0, moment_style="int8")
+    rcfg, ref_opt, cfg, params, opt = _ref_state(ref, kw)
+    ref_out = jax.jit(ref_step.make_train_step(
+        ref.ref_cfg, ref_step.TrainStepConfig(), rcfg))(
+        ref.ref_params, ref_opt, ref.ref_batch)
+    ref_grads = {k: torch.from_numpy(g.copy()) for k, g in ref.grads.items()}
+    monkeypatch.setattr(
+        step_mod, "make_value_and_grad",
+        lambda *a, **k: lambda p, b, engine=None: (
+            torch.tensor(ref.loss), {}, dict(ref_grads)))
+    out = step_mod.make_train_step(ref.cfg, TrainStepConfig(), cfg)(
+        params, opt, ref.batch)
+    _check_step(ref_out, out)
+    for w in ("w_gate", "w_up", "w_down"):
+        assert isinstance(out[1]["m"]["layers"]["moe"][w], QTensor)
+    assert isinstance(out[1]["v"]["dense_layers"]["mlp"]["w_up"], QTensor)
+
+
+def test_deepseek_int8_step_placements_are_bit_equal():
+    """The moe family's int8 step untiered and at host_offload 0.0 (every
+    code and expert weight REMOTE, beside every leaf but the small ones,
+    fetched and written back through the update's store): loss,
+    gradients, updated parameters and every code and scale torch.equal."""
+    ref = _deepseek256()
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0, moment_style="int8")
+    p0 = ref.params()
+    o0 = adamw_init(opt_cfg, p0)
+    out = {}
+    for name in ("untiered", "host_offload_0.0"):
+        tiering = PLACEMENTS[name]
+        p, o, plan = place_state(_clone(p0), _clone(o0), tiering,
+                                 device="cpu")
+        if plan is not None:  # small leaves (scales, norms) stay LOCAL
+            remote = set(plan.remote_names())
+            assert all(n in remote for n in _state_by_name(p0, o0)
+                       if n.endswith(".codes") or n.startswith(
+                           "params['layers']['moe']['w_"))
+        step_cfg = TrainStepConfig.from_tiering(tiering)
+        loss, _, grads = make_value_and_grad(ref.cfg, step_cfg, plan=plan)(
+            p, ref.batch)
+        p1, o1, m = make_train_step(ref.cfg, step_cfg, opt_cfg, plan=plan)(
+            p, o, ref.batch)
+        out[name] = (loss, grads, _state_by_name(p1, o1), m["loss"])
+    base = out["untiered"]
+    assert sum(isinstance(t, QTensor) for mom in ("m", "v")
+               for _, t in adamw_leaves(o1[mom])) >= 8
+    loss, grads, state, step_loss = out["host_offload_0.0"]
+    assert torch.equal(loss, base[0]) and torch.equal(step_loss, base[3])
+    assert grads.keys() == base[1].keys() and state.keys() == base[2].keys()
+    for k in grads:
+        assert torch.equal(grads[k], base[1][k]), k
+    for k in state:
+        assert torch.equal(state[k], base[2][k]), k
 
 
 def test_microbatched_step_matches_reference():
@@ -225,15 +295,36 @@ def test_placements_and_prefetch_are_bit_equal(arch, n_layers):
                 assert torch.equal(tree[k], base[i][k]), (name, k)
 
 
+def _recording_leaf_update(monkeypatch) -> list:
+    """``adamw.leaf_update`` as the step calls it, recording each call's
+    parameter slice size and whether its moments came as int8 codes."""
+    leaf_update = step_mod.adamw.leaf_update
+    calls = []
+
+    def recorded(opt_cfg, p, g, m, v, s):
+        calls.append((p.numel(), isinstance(m, QTensor)))
+        return leaf_update(opt_cfg, p, g, m, v, s)
+
+    monkeypatch.setattr(step_mod.adamw, "leaf_update", recorded)
+    return calls
+
+
+def _state_by_name(p, o) -> dict:
+    return {**{"params" + k: t for k, t in _leaves_with_keys(p)},
+            **{"opt" + k: t for k, t in _leaves_with_keys(o)}}
+
+
 @pytest.mark.parametrize("moment_style", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("placement", ["untiered", "host_offload_0.0"])
 def test_update_in_row_slices_is_bit_equal(monkeypatch, moment_style,
                                            placement):
     """The update taken a few rows at a time (``UPDATE_SLICE`` cut to 64
-    elements: every leaf in slices, REMOTE ones fetched and written back
-    slice by slice) gives the bits of the whole-leaf update; int8 moments
-    stay whole."""
-    cfg = reduced_config(get_config("granite-8b"), dtype=torch.float32)
+    elements: every leaf in slices of one row, REMOTE ones fetched and
+    written back slice by slice) gives the bits of the whole-leaf update.
+    At d_model 256 and d_ff 1024 the MLP leaves hold int8 moments, and
+    those are sliced too: their codes and scales cut by the same rows."""
+    cfg = reduced_config(get_config("granite-8b"), dtype=torch.float32,
+                         d_model=256, d_ff=1024)
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0, moment_style=moment_style)
     p0, o0 = init_train_state(torch.Generator().manual_seed(0), cfg,
                               TrainStepConfig(), opt_cfg, device="cpu")
@@ -241,57 +332,80 @@ def test_update_in_row_slices_is_bit_equal(monkeypatch, moment_style,
         0, cfg.vocab_size, (2, 16)).astype(np.int32))
     batch = {"tokens": tokens, "labels": tokens}
     tiering = PLACEMENTS[placement]
+    calls = _recording_leaf_update(monkeypatch)
     out = []
     for slice_elems in (step_mod.UPDATE_SLICE, 64):
         monkeypatch.setattr(step_mod, "UPDATE_SLICE", slice_elems)
+        calls.clear()
         p, o, plan = place_state(_clone(p0), _clone(o0), tiering,
                                  device="cpu")
         step = make_train_step(cfg, TrainStepConfig.from_tiering(tiering),
                                opt_cfg, plan=plan)
         for _ in range(2):
             p, o, _ = step(p, o, batch)
-        out.append({**{"params" + k: t for k, t in _leaves_with_keys(p)},
-                    **{"opt" + k: t for k, t in _leaves_with_keys(o)}})
+        out.append(_state_by_name(p, o))
+    # the sliced run: one row of the leaf's last dim a call
+    widest = max(t.shape[-1] for _, t in _leaves_with_keys(p0))
+    assert max(n for n, _ in calls) <= max(64, widest)
+    quantized = [n for n, q in calls if q]
+    if moment_style == "int8":
+        assert type(o["m"]["layers"]["mlp"]["w_up"]).__name__ == "QTensor"
+        # the embedding's 2048 rows, w_up's and w_gate's 2 x 256, w_down's
+        # 2 x 1024; two steps
+        assert len(quantized) == 2 * (2048 + 2 * 2 * 256 + 2 * 1024)
+        assert max(quantized) <= 1024
+    else:
+        assert not quantized
     assert out[0].keys() == out[1].keys()
     for k in out[0]:
         assert torch.equal(out[0][k], out[1][k]), k
 
 
+@pytest.mark.parametrize("moment_style", ["f32", "int8"])
 @pytest.mark.parametrize("placement", ["untiered", "host_offload_0.0"])
-def test_update_slices_cut_inside_a_stacked_layer(monkeypatch, placement):
-    """Reduced mixtral-8x7b's stacked expert leaves (2, 4, 64, 32) hold
-    8192 elements a layer; with ``UPDATE_SLICE`` at 512 AdamW takes them
-    in slices of whole rows of the last dim, 512 elements each and never a
-    whole layer (a full-width expert weight's layer holds 470 M), and the
+def test_update_slices_cut_inside_a_stacked_layer(monkeypatch, placement,
+                                                  moment_style):
+    """Reduced mixtral-8x7b at d_model 256 with experts of 256: its stacked
+    expert leaves (2, 4, 256, 256) hold 262144 elements a layer, 1 MiB in
+    float32, so their int8 moments are codes. With ``UPDATE_SLICE`` at
+    65536 AdamW takes them in slices of 256 rows of the last dim, 65536
+    elements each and never a whole layer (a full-width expert weight's
+    layer holds 470 M); an int8 slice (256 KiB in float32, under the 1 MiB
+    that ``quantize`` asks of a leaf) still comes back as codes, and the
     bits are the whole-leaf update's."""
-    cfg = reduced_config(get_config("mixtral-8x7b"), dtype=torch.float32)
-    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+    cfg = reduced_config(get_config("mixtral-8x7b"), dtype=torch.float32,
+                         d_model=256, moe_d_ff=256)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0, moment_style=moment_style)
     p0, o0 = init_train_state(torch.Generator().manual_seed(0), cfg,
                               TrainStepConfig(), opt_cfg, device="cpu")
-    assert tuple(p0["layers"]["moe"]["w_gate"].shape) == (2, 4, 64, 32)
+    assert tuple(p0["layers"]["moe"]["w_gate"].shape) == (2, 4, 256, 256)
     tokens = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab_size, (2, 32)).astype(np.int32))
     batch = {"tokens": tokens, "labels": tokens}
     tiering = PLACEMENTS[placement]
-    leaf_update = step_mod.adamw.leaf_update
-    sizes = []
-
-    def recorded(opt_cfg, p, g, m, v, s):
-        sizes.append(p.numel())
-        return leaf_update(opt_cfg, p, g, m, v, s)
-
-    monkeypatch.setattr(step_mod.adamw, "leaf_update", recorded)
+    calls = _recording_leaf_update(monkeypatch)
     out = []
-    for slice_elems in (step_mod.UPDATE_SLICE, 512):
+    for slice_elems in (step_mod.UPDATE_SLICE, 65536):
         monkeypatch.setattr(step_mod, "UPDATE_SLICE", slice_elems)
-        sizes.clear()
+        calls.clear()
         p, o, plan = place_state(_clone(p0), _clone(o0), tiering,
                                  device="cpu")
         p, o, _ = make_train_step(cfg, TrainStepConfig.from_tiering(tiering),
                                   opt_cfg, plan=plan)(p, o, batch)
-        out.append({**{"params" + k: t for k, t in _leaves_with_keys(p)},
-                    **{"opt" + k: t for k, t in _leaves_with_keys(o)}})
-    assert max(sizes) == 512 and sizes.count(512) >= 3 * 2 * 8192 // 512
+        out.append(_state_by_name(p, o))
+    sizes = [n for n, _ in calls]
+    assert max(sizes) == 65536 and sizes.count(65536) >= 3 * 2 * 262144 // 65536
+    quantized = [n for n, q in calls if q]
+    if moment_style == "int8":
+        for w in ("w_gate", "w_up", "w_down"):
+            assert isinstance(o["m"]["layers"]["moe"][w], QTensor)
+            assert isinstance(o["v"]["layers"]["moe"][w], QTensor)
+        # the embedding (2048, 256) and the three expert leaves
+        assert quantized == [65536] * ((2048 * 256 + 3 * 2 * 262144)
+                                       // 65536)
+        assert 65536 * 4 < MIN_QUANT_BYTES
+    else:
+        assert not quantized
     for k in out[0]:
         assert torch.equal(out[0][k], out[1][k]), k
 
